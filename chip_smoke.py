@@ -24,8 +24,26 @@ Phases, each printing its results; any failure exits non-zero:
    and on the CPU (plain version): max abs difference of flows and masks.
 6. profile: one ``eval_forward`` under ``torch.profiler``: device time by
    kernel, and the device's idle share of phase 4's unprofiled batch time.
+7. backward kernel vs plain: the backward kernel and its plain PyTorch
+   version at every window-attention shape of a training microbatch
+   (B=8), with and without the mask, fp32 and bf16: max abs errors of dqkv
+   and dbias against the stated tolerances, and CUDA-event times of the
+   kernel, the plain backward and one yardstick (``torch.autograd.grad``
+   through one ``scaled_dot_product_attention`` call whose additive bias
+   requires grad; the backend's kernels are printed), beside the bound.
+8. training slice: ``HEMTrainer`` at the shipped config (bf16, grad_accum
+   4, B=32) on 32 synthetic 360x640 pairs (numpy, from ``--seed``): a few
+   warm-up steps, then timed steps; the loss is finite and falls, exactly
+   160 forward and 160 backward kernel launches per step; step ms, pairs/s
+   and peak memory.
+9. training card vs CPU: one fp32 step's loss and gradients (grad_accum 1,
+   2 pairs at 320x576, the same weights, layer scales 0.5) on the card
+   (kernels) and on the CPU (plain versions), each gradient held against
+   the CPU's own change when the input moves by 1e-7.
+10. training profile: one step under ``torch.profiler``: device time by
+    kernel, and the idle share of phase 8's unprofiled step time.
 
-The line before the last is a JSON object with the kernel's numbers; the
+The line before the last is a JSON object with both kernels' numbers; the
 last is ``{"ok": true, "device": {...}}``.
 """
 
@@ -41,13 +59,29 @@ import time
 
 import numpy as np
 
-BATCH = 32  # the eval CLI's default batch
+BATCH = 32  # the eval CLI's default batch; also the shipped training batch
+MICROBATCH = 8  # the shipped grad_accum 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core fp32; dense bf16 tensor
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# backward, relative to max(1, largest value): fp32 summation order (dbias
+# is summed with atomics, in an order that changes from run to run); bf16
+# a rounding of e, gg or dsim landing on the other side
+BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # card (cuDNN / kernel summation order) vs CPU, through three coarse-to-fine
 # levels, fp32 with TF32 off
 SLICE_TOL = {"flow_f": 2e-3, "flow_b": 2e-3, "mask_f": 1e-4}
+# one fp32 training step, card vs CPU: the loss (relative), and each
+# gradient relative to that tensor's largest value: within STEP_GRAD_TOL, or
+# within STEP_NOISE_FACTOR times the change the CPU's own gradient makes when
+# the input moves by STEP_INPUT_NOISE (some gradients, such as the finest
+# encoder's, sum many terms that nearly cancel: there a change in the last
+# bit of an input moves them by ~1e-2)
+STEP_LOSS_TOL = 1e-4
+STEP_GRAD_TOL = 1e-3
+STEP_INPUT_NOISE = 1e-7
+STEP_NOISE_FACTOR = 10.0
+WARMUP_STEPS, TIMED_STEPS = 3, 10
 
 
 def log(msg: str) -> None:
@@ -178,14 +212,20 @@ def attention_shapes(model, batch: int):
     return list(shapes.values())
 
 
-def bound(qkv, bias, mask):
-    """(ms, 'bytes' | 'operations'): inputs read once, output written once;
-    two 64x64xhd products per window and head."""
+def bound(qkv, bias, mask, backward: bool = False):
+    """(ms, 'bytes' | 'operations'): inputs read once, outputs written once.
+    Forward: qkv in, out (C per token) out, two 64x64xhd products per window
+    and head.  Backward: qkv and gout in, dqkv and the fp32 dbias out, six
+    such products."""
     Bn, N, C3 = qkv.shape
+    C = C3 // 3
     el = qkv.element_size()
     nbytes = (qkv.numel() * el + bias.numel() * 4
-              + (mask.numel() * 4 if mask is not None else 0) + Bn * N * (C3 // 3) * el)
-    flops = 4.0 * Bn * N * N * (C3 // 3)
+              + (mask.numel() * 4 if mask is not None else 0) + Bn * N * C * el)
+    flops = 4.0 * Bn * N * N * C
+    if backward:
+        nbytes += qkv.numel() * el + bias.numel() * 4  # dqkv, dbias
+        flops *= 3
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[str(qkv.dtype).split(".")[-1]]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -223,12 +263,14 @@ def phase_build():
     log(f"[build] {os.path.relpath(lib)} in {time.perf_counter() - t0:.1f} s")
     entry = None
     for line in wa.build_log().splitlines():
-        m = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E", line)
-        if m:  # window_attention_fwd_kernel<T, HD, MASK>
-            dt = "fp32" if m.group(1) == "f" else "bf16"
-            new = f"{dt} hd={m.group(2)} mask={m.group(3)}"
+        m = re.search(r"window_attention_(fwd|bwd)_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E",
+                      line)
+        if m:  # window_attention_{fwd,bwd}_kernel<T, HD, MASK>
+            dt = "fp32" if m.group(2) == "f" else "bf16"
+            new = f"{m.group(1)} {dt} hd={m.group(3)} mask={m.group(4)}"
             if new != entry:  # ptxas names each kernel on two lines
-                smem = wa.shared_memory_bytes(int(m.group(2)), m.group(3) == "1")
+                smem = wa.shared_memory_bytes(int(m.group(3)), m.group(4) == "1",
+                                              backward=m.group(1) == "bwd")
                 log(f"[build] {new}: {smem} bytes dynamic shared memory")
             entry = new
         elif entry and ("registers" in line or "spill" in line):
@@ -387,6 +429,262 @@ def phase_profile(model, dev, batch: int, seed: int, batch_ms: float):
         log(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
+def sdpa_kernels(fn) -> str:
+    """The device kernels one call of ``fn`` runs, by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return "; ".join(e.key[:80] for e in events[:3])
+
+
+def phase_backward_kernels(shapes, dev, seed: int):
+    import torch
+    import torch.nn.functional as F
+
+    from dmhomo_torch.models.swin import shifted_window_mask
+    from dmhomo_torch.ops.window_attention import (
+        window_attention_backward,
+        window_attention_backward_reference,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    results = []
+    worst = {}
+    backend = None
+    for s in shapes:
+        Bn, C, h, hd, nW = s["Bn"], s["C"], s["heads"], s["hd"], s["nW"]
+        qkv32 = torch.randn(Bn, 64, 3 * C, generator=gen, device=dev)
+        gout32 = torch.randn(Bn, 64, C, generator=gen, device=dev)
+        bias = 0.5 * torch.randn(h, 64, 64, generator=gen, device=dev)
+        mask_full = torch.from_numpy(
+            shifted_window_mask(s["H"], s["W"], s["ws"], s["shift"])).to(dev)
+        for dtype in ("float32", "bfloat16"):
+            qkv = qkv32.to(getattr(torch, dtype))
+            gout = gout32.to(qkv.dtype)
+            for masked in (False, True):
+                mask = mask_full if masked else None
+                args = (qkv, bias, mask, gout)
+                kw = dict(num_heads=h)
+                dqkv, dbias = window_attention_backward(*args, **kw)
+                want_dqkv, want_dbias = window_attention_backward_reference(*args, **kw)
+                torch.cuda.synchronize()
+                errs = {}
+                for name, got, want in (("dqkv", dqkv, want_dqkv), ("dbias", dbias, want_dbias)):
+                    err = float((got.float() - want.float()).abs().max())
+                    errs[name] = err
+                    errs[name + "_rel"] = err / max(1.0, float(want.float().abs().max()))
+                    key = (dtype, name)
+                    worst[key] = max(worst.get(key, 0.0), err)
+                ok = (max(errs["dqkv_rel"], errs["dbias_rel"]) <= BWD_TOL[dtype]
+                      and bool(torch.isfinite(dqkv).all()) and bool(torch.isfinite(dbias).all()))
+                # yardstick: one SDPA call, forward and backward, on the same q, k, v,
+                # with the additive bias (+ mask) as a full tensor that requires grad
+                q, k, v = (t.detach().clone().requires_grad_() for t in
+                           qkv.view(Bn, 64, 3, h, hd).permute(2, 0, 3, 1, 4).unbind(0))
+                am = bias[None].expand(Bn, h, 64, 64)
+                if mask is not None:
+                    am = (am.reshape(Bn // nW, nW, h, 64, 64) + mask[None, :, None]).reshape(
+                        Bn, h, 64, 64)
+                am = am.to(qkv.dtype).contiguous().requires_grad_()
+                g4 = gout.view(Bn, 64, h, hd).transpose(1, 2)
+
+                def sdpa():
+                    out = F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=hd**-0.5)
+                    return torch.autograd.grad(out, (q, k, v, am), g4)
+
+                if backend is None:
+                    backend = sdpa_kernels(sdpa)
+                    log(f"[bwd-kernel] SDPA yardstick kernels: {backend}")
+                ms = cuda_ms(lambda: window_attention_backward(*args, **kw), iters=10)
+                plain_ms = cuda_ms(lambda: window_attention_backward_reference(*args, **kw),
+                                   iters=3, warmup=1)
+                lib_ms = cuda_ms(sdpa, iters=5, warmup=1)
+                b_ms, b_by = bound(qkv, bias, mask, backward=True)
+                per_step = (s["masked_launches"] if masked else s["plain_launches"]) * (
+                    BATCH // MICROBATCH)
+                r = {"level": s["level"], "Bn": Bn, "C": C, "heads": h, "hd": hd, "nW": nW,
+                     "dtype": dtype, "mask": masked, "launches_per_step": per_step,
+                     "max_abs_err_dqkv": errs["dqkv"], "max_abs_err_dbias": errs["dbias"],
+                     "rel_err": max(errs["dqkv_rel"], errs["dbias_rel"]),
+                     "tol": BWD_TOL[dtype], "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+                results.append(r)
+                log(f"[bwd-kernel] {s['level']} C={C} h={h} hd={hd} nW={nW} Bn={Bn} {dtype} "
+                    f"mask={int(masked)}: err dqkv={errs['dqkv']:.3g} dbias={errs['dbias']:.3g} "
+                    f"(rel {r['rel_err']:.3g}, tol {BWD_TOL[dtype]:g}) ms={ms:.4f} "
+                    f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} "
+                    f"({b_by}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"backward kernel disagrees with its plain version: {r}")
+                del q, k, v, am, g4, dqkv, dbias, want_dqkv, want_dbias
+        del qkv32, gout32, qkv, gout
+        torch.cuda.empty_cache()
+    return results, worst, backend
+
+
+def synthetic_train_batch(n: int, seed: int, crop_hw=(320, 576), ori_hw=(360, 640)):
+    """n synthetic training pairs (numpy, no OpenCV) collated into a batch."""
+    from dmhomo_torch.data.hem_data import SyntheticHomoPairs
+    from dmhomo_torch.data.loader import collate
+
+    ds = SyntheticHomoPairs(n=n, crop_size=crop_hw, ori_size=ori_hw, seed=seed)
+    items = [ds[i] for i in range(n)]
+    return {k: collate([it[k] for it in items]) for k in ("imgs_gray_patch", "flow_gt_patch")}
+
+
+def phase_train(dev, seed: int):
+    import torch
+
+    from dmhomo_torch.ops.window_attention import window_attention, window_attention_backward
+    from dmhomo_torch.train.config import HEMTrainConfig
+    from dmhomo_torch.train.hem_trainer import HEMTrainer
+
+    cfg = HEMTrainConfig()  # shipped: bf16, grad_accum 4, remat auto (off), Adam 1e-4
+    t0 = time.perf_counter()
+    batch = synthetic_train_batch(BATCH, seed)
+    log(f"[train] {BATCH} synthetic pairs {batch['imgs_gray_patch'].shape} in "
+        f"{time.perf_counter() - t0:.1f} s; config bf16={cfg.bf16} grad_accum={cfg.grad_accum} "
+        f"remat={cfg.remat} lr={cfg.lr}")
+    trainer = HEMTrainer(cfg, steps_per_epoch=1000, device=dev)
+    trainer.init_state(seed)
+    if trainer.model.h_net.encoder_layers[0].remat:
+        raise SystemExit("the shipped config recomputes the Swin blocks (remat)")
+    losses, times, launches = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(WARMUP_STEPS + TIMED_STEPS):
+        if step == WARMUP_STEPS:  # count the timed steps of the main path only
+            window_attention.launches = 0
+            window_attention_backward.launches = 0
+        f0, b0 = window_attention.launches, window_attention_backward.launches
+        t0 = time.perf_counter()
+        out = trainer.train_step(batch)
+        loss = float(out["total"])  # waits for the step
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        launches.append((window_attention.launches - f0, window_attention_backward.launches - b0))
+        log(f"[train] step {step + 1}: loss {loss:.5f} (nll {float(out['nll']):.5f}), "
+            f"{times[-1]:.1f} ms, launches fwd/bwd {launches[-1][0]}/{launches[-1][1]}")
+    fwd_total, bwd_total = window_attention.launches, window_attention_backward.launches
+    peak = torch.cuda.max_memory_allocated()
+    timed = times[WARMUP_STEPS:]
+    step_ms = float(np.median(timed))
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"training loss not finite: {losses}")
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    if not last < first:
+        raise SystemExit(f"training loss did not fall: first steps {first}, last steps {last}")
+    per_step = 40 * (BATCH // MICROBATCH)
+    if any(fb != (per_step, per_step) for fb in launches[WARMUP_STEPS:]) or \
+            (fwd_total, bwd_total) != (per_step * TIMED_STEPS, per_step * TIMED_STEPS):
+        raise SystemExit(f"launches per step {launches}, expected {per_step} forward and "
+                         f"{per_step} backward")
+    log(f"[train] shipped config B={BATCH} (microbatches of {MICROBATCH}), bf16: first step "
+        f"{times[0]:.1f} ms, steady {step_ms:.2f} ms "
+        f"(timed {', '.join(f'{t:.1f}' for t in timed)}), "
+        f"{1e3 * BATCH / step_ms:.2f} training pairs/s, peak {peak / 2**30:.2f} GiB")
+    log(f"[train] loss mean of the first 3 steps {first:.5f} > last 3 {last:.5f}; "
+        f"window-attention launches over {TIMED_STEPS} timed steps: {fwd_total} forward, "
+        f"{bwd_total} backward = {per_step} + {per_step} per step")
+    return {"trainer": trainer, "batch": batch, "step_ms": step_ms, "peak": peak,
+            "fwd_launches": fwd_total, "bwd_launches": bwd_total}
+
+
+def phase_train_card_vs_cpu(dev, seed: int):
+    import copy
+    import dataclasses
+
+    import torch
+
+    from dmhomo_torch.losses.hem_losses import compute_losses
+    from dmhomo_torch.train.config import HEMTrainConfig
+    from dmhomo_torch.train.hem_trainer import HEMTrainer
+
+    cfg = dataclasses.replace(HEMTrainConfig(), bf16=False, grad_accum=1, remat=False)
+    trainer = HEMTrainer(cfg, device=dev)
+    trainer.init_state(seed + 1)
+    with torch.no_grad():  # trained-looking layer scales: the init's 1e-5 would leave the
+        for n, p in trainer.model.named_parameters():  # encoders a vanishing gradient
+            if n.rsplit(".", 1)[-1] in ("gamma_1", "gamma_2"):
+                p.fill_(0.5)
+    cpu_model = copy.deepcopy(trainer.model).to("cpu")
+    batch = synthetic_train_batch(2, seed + 1)
+    imgs = batch["imgs_gray_patch"]
+    nudge = STEP_INPUT_NOISE * np.random.default_rng(seed).normal(size=imgs.shape)
+    runs = {"card": (trainer.model, imgs), "cpu": (cpu_model, imgs),
+            "cpu, input nudged": (cpu_model, (imgs + nudge).astype(np.float32))}
+    results = {}
+    for where, (model, x) in runs.items():
+        d = next(model.parameters()).device
+        model.train()
+        model.zero_grad(set_to_none=True)
+        out = model(torch.from_numpy(x).to(d))
+        loss = compute_losses({"flow_gt_patch": torch.from_numpy(batch["flow_gt_patch"]).to(d)},
+                              out, cfg.loss)["total"]
+        loss.backward()
+        results[where] = (float(loss.detach()),
+                          {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    (loss_card, g_card), (loss_cpu, g_cpu), (_, g_nudged) = results.values()
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    log(f"[train-card-vs-cpu] fp32 loss card {loss_card:.7f} cpu {loss_cpu:.7f}: "
+        f"rel {loss_rel:.3g} (tol {STEP_LOSS_TOL:g})")
+
+    def rel(a, g):
+        return float((a - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+
+    rels = {n: rel(g_card[n], g) for n, g in g_cpu.items()}
+    noise = {n: rel(g_nudged[n], g) for n, g in g_cpu.items()}
+    tols = {n: max(STEP_GRAD_TOL, STEP_NOISE_FACTOR * noise[n]) for n in g_cpu}
+    # the first two blocks' position-bias tables take their gradient from the
+    # backward kernel's dbias (W-MSA, then SW-MSA with the mask)
+    named = ("h_net.encoder_layers.0.layer.0.attn.relative_position_bias_table",
+             "h_net.encoder_layers.0.layer.1.attn.relative_position_bias_table",
+             "h_net.encoder_layers.0.layer.0.attn.qkv.weight", "h_net.head2.weight",
+             "mask_generator.conv1.0.weight")
+    for n in named:
+        log(f"[train-card-vs-cpu] grad {n} {tuple(g_cpu[n].shape)}: max |card - cpu| / "
+            f"max |cpu| = {rels[n]:.3g}; the CPU's own change for an input nudged by "
+            f"{STEP_INPUT_NOISE:g}: {noise[n]:.3g}; tol {tols[n]:.3g}")
+    order = sorted(rels, key=lambda n: -rels[n] / tols[n])
+    log(f"[train-card-vs-cpu] closest to their tolerance of all {len(rels)} parameters: "
+        + ", ".join(f"{n} {rels[n]:.3g} (tol {tols[n]:.3g})" for n in order[:3]))
+    bad = [n for n in order if not rels[n] <= tols[n]]
+    if bad or not loss_rel <= STEP_LOSS_TOL:
+        raise SystemExit(f"card and CPU training steps disagree: loss {loss_rel}, "
+                         f"gradients {[(n, rels[n], tols[n]) for n in bad]}")
+    return {"loss_rel": loss_rel, "grad_rel": {n: rels[n] for n in named},
+            "grad_rel_nudged_cpu": {n: noise[n] for n in named}}
+
+
+def phase_train_profile(trainer, batch, step_ms: float):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if dev_ms <= 0:
+        raise SystemExit("the profiler saw no device time")
+    idle = max(0.0, 1.0 - dev_ms / step_ms)
+    attn = {d: sum(e.self_device_time_total for e in events
+                   if f"window_attention_{d}_kernel" in e.key) / 1e3 for d in ("fwd", "bwd")}
+    log(f"[train-profile] one step: device busy {dev_ms:.2f} ms of the {step_ms:.2f} ms "
+        f"unprofiled step: idle {100 * idle:.1f}%; window attention forward kernel "
+        f"{attn['fwd']:.2f} ms, backward kernel {attn['bwd']:.2f} ms")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
+        log(f"[train-profile] {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+            f"{e.key[:90]}")
+    return dev_ms, idle, attn
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -406,6 +704,7 @@ def main(argv=None):
     model = build_estimator(EstimatorConfig(), device=dev,
                             generator=torch.Generator().manual_seed(args.seed))
     shapes = attention_shapes(model, BATCH)
+    train_shapes = attention_shapes(model, MICROBATCH)
     expected = sum(s["plain_launches"] + s["masked_launches"] for s in shapes)
     results, worst = phase_kernels(shapes, dev, args.seed)
     launches, per_forward, batch_ms, peak = phase_slice(model, dev, BATCH, args.seed)
@@ -414,12 +713,26 @@ def main(argv=None):
                          f"expected {expected}")
     diffs = phase_card_vs_cpu(model, args.seed)
     phase_profile(model, dev, BATCH, args.seed, batch_ms)
+    del model
+    torch.cuda.empty_cache()
 
-    # per-forward totals at the main path's dtype (fp32) and launch mix
+    bwd_results, bwd_worst, sdpa_backend = phase_backward_kernels(train_shapes, dev, args.seed)
+    train = phase_train(dev, args.seed)
+    step_diffs = phase_train_card_vs_cpu(dev, args.seed)
+    dev_ms, idle, attn_ms = phase_train_profile(train["trainer"], train["batch"],
+                                                train["step_ms"])
+
+    # per-forward totals at the eval path's dtype (fp32) and launch mix
     main = [r for r in results if r["dtype"] == "float32"]
 
     def per_fwd(key):
         return sum(r[key] * r["launches_per_forward"] for r in main)
+
+    # per-training-step totals at the training dtype (bf16), microbatches of 8
+    train_rows = [r for r in bwd_results if r["dtype"] == "bfloat16"]
+
+    def per_step(key):
+        return sum(r[key] * r["launches_per_step"] for r in train_rows)
 
     kernel = {
         "name": "window_attention_fwd", "route": "cuda",
@@ -431,14 +744,39 @@ def main(argv=None):
         "library_ms": per_fwd("library_ms"),
         "unit": f"sum over the {expected} launches of one estimator forward, B={BATCH}, fp32",
         "max_abs_err_bf16": worst["bfloat16"],
+        "launches_train": train["fwd_launches"],
         "shapes": results,
     }
-    log(f"[summary] slice {1e3 * BATCH / batch_ms:.2f} pairs/s, batch {batch_ms:.2f} ms, "
+    bwd_kernel = {
+        "name": "window_attention_bwd", "route": "cuda",
+        "source": "dmhomo_torch/csrc/window_attention.cu",
+        "replaces": "dmhomo_tpu/ops/window_attention.py:117",
+        "launches": train["bwd_launches"], "max_abs_err": bwd_worst[("bfloat16", "dqkv")],
+        "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
+        "bound_ms": per_step("bound_ms"),
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in train_rows)
+                     else "operations"),
+        "library_ms": per_step("library_ms"),
+        "library": f"torch.autograd.grad through scaled_dot_product_attention ({sdpa_backend})",
+        "unit": (f"sum over the {40 * BATCH // MICROBATCH} launches of one training step, "
+                 f"B={BATCH} in microbatches of {MICROBATCH}, bf16"),
+        "max_abs_err_dbias": bwd_worst[("bfloat16", "dbias")],
+        "max_abs_err_fp32": bwd_worst[("float32", "dqkv")],
+        "max_abs_err_dbias_fp32": bwd_worst[("float32", "dbias")],
+        "profiled_ms_per_step": attn_ms["bwd"],
+        "shapes": bwd_results,
+    }
+    log(f"[summary] eval slice {1e3 * BATCH / batch_ms:.2f} pairs/s, batch {batch_ms:.2f} ms, "
         f"peak {peak / 2**30:.2f} GiB; window attention {kernel['ms']:.3f} ms per forward "
-        f"(bound {kernel['bound_ms']:.3f}); card-vs-cpu {json.dumps(diffs)}; "
+        f"(bound {kernel['bound_ms']:.3f}); card-vs-cpu {json.dumps(diffs)}")
+    log(f"[summary] training {1e3 * BATCH / train['step_ms']:.2f} pairs/s, step "
+        f"{train['step_ms']:.2f} ms, peak {train['peak'] / 2**30:.2f} GiB, device idle "
+        f"{100 * idle:.1f}%; backward kernel {bwd_kernel['ms']:.3f} ms per step (bound "
+        f"{bwd_kernel['bound_ms']:.3f}, plain {bwd_kernel['plain_ms']:.3f}, SDPA fwd+bwd "
+        f"{bwd_kernel['library_ms']:.3f}); step card-vs-cpu {json.dumps(step_diffs)}; "
         f"total {time.perf_counter() - t_start:.0f} s")
     log(smi)  # nvidia-smi: card name, power limit
-    log(json.dumps({"kernels": [kernel]}))
+    log(json.dumps({"kernels": [kernel, bwd_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}), flush=True)
 

@@ -36,6 +36,7 @@ class SwinConfig:
     window_size: int = 8
     mlp_ratio: float = 3.0
     qkv_bias: bool = True
+    remat: bool = False  # recompute each Swin block in the backward
 
     @property
     def num_layers(self) -> int:

@@ -11,7 +11,8 @@ Two bilinear boundary semantics, as in the reference:
 
 Resizes follow torch ``F.interpolate`` semantics (align_corners=True
 bilinear as two interpolation matrices; floor-scaled nearest with the
-indices computed explicitly on the host).
+indices computed explicitly on the host), and cv2's half-pixel bilinear for
+``resize_bilinear``.
 """
 
 from __future__ import annotations
@@ -102,11 +103,37 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
     """torch F.interpolate(mode='bilinear', align_corners=True) on NHWC, as
     two separable interpolation-matrix products (full fp32 with TF32 off)."""
     _, H, W, _ = x.shape
-    oh, ow = out_hw
-    Mh = torch.from_numpy(_align_corners_matrix(H, oh)).to(x.device, x.dtype)
-    Mw = torch.from_numpy(_align_corners_matrix(W, ow)).to(x.device, x.dtype)
-    y = torch.einsum("oh,bhwc->bowc", Mh, x)
-    return torch.einsum("pw,bowc->bopc", Mw, y)
+    return _separable(x, _align_corners_matrix(H, out_hw[0]), _align_corners_matrix(W, out_hw[1]))
+
+
+def _separable(x: torch.Tensor, mh: np.ndarray, mw: np.ndarray) -> torch.Tensor:
+    """Rows then columns of NHWC ``x`` through (oh, H) and (ow, W) matrices,
+    in x.dtype with autocast off (coordinates and images stay fp32)."""
+    Mh = torch.from_numpy(mh).to(x.device, x.dtype)
+    Mw = torch.from_numpy(mw).to(x.device, x.dtype)
+    with torch.autocast(x.device.type, enabled=False):
+        y = torch.einsum("oh,bhwc->bowc", Mh, x)
+        return torch.einsum("pw,bowc->bopc", Mw, y)
+
+
+@functools.lru_cache(maxsize=128)
+def _half_pixel_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) matrix for half-pixel bilinear (cv2 INTER_LINEAR /
+    align_corners=False), taps edge-clamped."""
+    M = np.zeros((n_out, n_in), dtype=np.float32)
+    src = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
+    lo = np.floor(src).astype(np.int64)
+    frac = (src - lo).astype(np.float32)
+    M[np.arange(n_out), np.clip(lo, 0, n_in - 1)] += 1.0 - frac
+    M[np.arange(n_out), np.clip(lo + 1, 0, n_in - 1)] += frac
+    return M
+
+
+def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Half-pixel bilinear resize on NHWC (cv2 INTER_LINEAR semantics for
+    float inputs), as two separable interpolation-matrix products."""
+    _, H, W, _ = x.shape
+    return _separable(x, _half_pixel_matrix(H, out_hw[0]), _half_pixel_matrix(W, out_hw[1]))
 
 
 def resize_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:

@@ -21,7 +21,7 @@ from torch import nn
 
 from dmhomo_torch.config import EstimatorConfig
 from dmhomo_torch.geometry.warp import resize_nearest, upsample_flow_to, warp_by_flow
-from dmhomo_torch.models.swin import SwinTransformer
+from dmhomo_torch.models.swin import BatchNorm2d, SwinTransformer
 from dmhomo_torch.utils.device import resolve_device
 
 
@@ -33,7 +33,7 @@ class SharedFeatureExtractor(nn.Sequential):
         cin = 1
         for ch in (4, 8, 1):
             layers += [nn.Conv2d(cin, ch, 3, padding=1, bias=False),
-                       nn.BatchNorm2d(ch, eps=1e-5), nn.ReLU()]
+                       BatchNorm2d(ch, eps=1e-5), nn.ReLU()]
             cin = ch
         super().__init__(*layers)
 
@@ -57,6 +57,8 @@ class FlowMaskEstimator(nn.Module):
 
     def forward(self, x):
         x = x.permute(0, 3, 1, 2)
+        if torch.is_autocast_enabled(x.device.type):  # the concat growth in the compute dtype
+            x = x.to(torch.get_autocast_dtype(x.device.type))
         for i in range(self.n_convs):
             x = torch.cat([getattr(self, f"conv{i + 1}")(x), x], dim=1)
         return torch.sigmoid(self.conv_last(x).float()).permute(0, 2, 3, 1)

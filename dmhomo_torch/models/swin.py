@@ -12,8 +12,10 @@ tokens are updated by a class-attention block and regressed to per-basis
 weight deltas.  Parameter and module names follow the reference state dict.
 
 Tokens are laid out NHWC-flat (B, H*W, C); convolutions run NCHW inside.
-Window attention goes through ``ops.window_attention`` (the CUDA kernel on
-the card, its plain version on the CPU).
+Window attention goes through ``ops.window_attention`` (the CUDA kernels on
+the card, forward and backward; their plain versions on the CPU).  With
+``SwinConfig.remat`` each Swin block is recomputed in the backward
+(``torch.utils.checkpoint``), as the JAX package's ``nn.remat``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dmhomo_torch.config import SwinConfig
 from dmhomo_torch.geometry.basis import NUM_BASIS, gen_homography_basis
@@ -66,6 +69,24 @@ def window_reverse(wins: torch.Tensor, ws: int, H: int, W: int) -> torch.Tensor:
     B = wins.shape[0] // ((H // ws) * (W // ws))
     x = wins.reshape(B, H // ws, W // ws, ws, ws, C).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(B, H, W, C)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm over NCHW, computed in fp32, with Flax's training update:
+    the running statistics move by ``momentum`` 0.1 (Flax's decay 0.9)
+    toward the batch mean and the *biased* batch variance (torch's own
+    update takes the unbiased one)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 
 class Mlp(nn.Module):
@@ -139,9 +160,9 @@ class PatchMerging(nn.Module):
         super().__init__()
         self.resolution = input_resolution
         self.conv1 = nn.Conv2d(dim, 2 * dim, 3, stride=2, padding=1, bias=False)
-        self.norm1 = nn.BatchNorm2d(2 * dim, eps=1e-5)
+        self.norm1 = BatchNorm2d(2 * dim, eps=1e-5)
         self.conv2 = nn.Conv2d(2 * dim, 2 * dim, 3, padding=1, bias=False)
-        self.norm2 = nn.BatchNorm2d(2 * dim, eps=1e-5)
+        self.norm2 = BatchNorm2d(2 * dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         H, W = self.resolution
@@ -154,11 +175,14 @@ class PatchMerging(nn.Module):
 
 class BasicLayer(nn.Module):
     """One encoder stage: ``layer_depth`` sub-levels of Swin blocks, with a
-    merge after each but the last, in one Sequential (``layer.{idx}``)."""
+    merge after each but the last, in one Sequential (``layer.{idx}``).
+    With ``remat`` the Swin blocks are recomputed in the backward."""
 
     def __init__(self, dim: int, input_resolution: tuple, depth: int, layer_depth: int,
-                 num_heads: int, window_size: int, mlp_ratio: float, qkv_bias: bool = True):
+                 num_heads: int, window_size: int, mlp_ratio: float, qkv_bias: bool = True,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         mods = []
         for l in range(layer_depth):
             res = (input_resolution[0] // 2**l, input_resolution[1] // 2**l)
@@ -172,7 +196,12 @@ class BasicLayer(nn.Module):
         self.layer = nn.Sequential(*mods)
 
     def forward(self, x):
-        return self.layer(x)
+        for m in self.layer:
+            if self.remat and isinstance(m, SwinBlock) and torch.is_grad_enabled():
+                x = checkpoint(m, x, use_reentrant=False)
+            else:
+                x = m(x)
+        return x
 
 
 class ClassAttention(nn.Module):
@@ -267,7 +296,7 @@ class SwinTransformer(nn.Module):
                                   cfg.crop_size[1] // 2 ** (e + 1)),
                 depth=cfg.depths[e], layer_depth=cfg.layer_depth[e],
                 num_heads=cfg.num_heads[e], window_size=cfg.window_size,
-                mlp_ratio=cfg.mlp_ratio, qkv_bias=cfg.qkv_bias)
+                mlp_ratio=cfg.mlp_ratio, qkv_bias=cfg.qkv_bias, remat=cfg.remat)
             for e in range(nL))
         blk_heads = list(cfg.num_heads[1:]) + [cfg.num_heads[-1]]
         self.blocks_token_only = nn.ModuleList(
@@ -284,7 +313,8 @@ class SwinTransformer(nn.Module):
         """(B, num_basis, 1) weights -> (B, h, w, 2) flow = sum_k w_k basis_k."""
         h, w = self.config.crop_size
         basis = self.basis.reshape(NUM_BASIS, 2, h, w)
-        return torch.einsum("bk,kchw->bhwc", weight[..., 0], basis).contiguous()
+        with torch.autocast(weight.device.type, enabled=False):  # flows stay fp32
+            return torch.einsum("bk,kchw->bhwc", weight[..., 0].float(), basis).contiguous()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config

@@ -1,0 +1,93 @@
+"""HEM training config (the JAX package's ``HEMTrainConfig``; reference
+HEM/experiments/params.json and its stage2 variant).
+
+The JAX ``attn_impl`` switch has no counterpart: on the card the port's
+window attention always runs its kernels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Union
+
+from dmhomo_torch.config import EstimatorConfig, Params
+from dmhomo_torch.losses.hem_losses import LossWeights
+
+
+@dataclasses.dataclass(frozen=True)
+class HEMTrainConfig:
+    """HEM estimator training: Adam with a per-epoch staircase ExponentialLR,
+    eval every ``train_num_steps``.
+
+    ``bf16`` runs the forward under bf16 autocast (parameters, BatchNorm and
+    the losses stay fp32).  ``grad_accum`` splits each batch into that many
+    microbatches (BatchNorm statistics per microbatch, one optimizer step);
+    it is clamped to what divides the batch.  ``remat`` 'auto' recomputes
+    each Swin block in the backward only when ``grad_accum`` < 4.
+    """
+
+    estimator: EstimatorConfig = EstimatorConfig()
+    loss: LossWeights = LossWeights(sup=0.0, unsup=0.0, mask_reg=0.0, nll=1.0)
+    lr: float = 1e-4
+    gamma: float = 0.8  # ExponentialLR decay per epoch
+    train_batch_size: int = 32
+    eval_batch_size: int = 32
+    num_epochs: int = 10
+    train_num_steps: int = 2000  # eval cadence
+    rho: int = 16
+    major_metric: str = "AVG"
+    model_dir: str = "experiments/hem"
+    seed: int = 0
+    bf16: bool = True
+    remat: Union[bool, str] = "auto"
+    grad_accum: int = 4
+
+    @staticmethod
+    def stage2(**overrides) -> "HEMTrainConfig":
+        """Stage 2: + the mask-weighted supervised L1."""
+        base = dict(loss=LossWeights(sup=1.0, nll=1.0))
+        base.update(overrides)
+        return HEMTrainConfig(**base)
+
+    @classmethod
+    def from_params(cls, params: Params, **overrides) -> "HEMTrainConfig":
+        """From a reference-format params.json."""
+        p = params.dict
+        loss = LossWeights(
+            sup=p.get("sup_loss_weight", 0.0),
+            unsup=p.get("unsup_loss_weight", 0.0),
+            mask_reg=p.get("mask_reg_loss_weight", 0.0),
+            nll=p.get("mask_nll_loss_weight", 1.0),
+            normalize_mask=p.get("normalize_mask", False),
+        )
+        kw = dict(
+            estimator=EstimatorConfig.from_params(params),
+            loss=loss,
+            lr=p.get("learning_rate", 1e-4),
+            gamma=p.get("gamma", 0.8),
+            train_batch_size=p.get("train_batch_size", 32),
+            eval_batch_size=p.get("eval_batch_size", 32),
+            num_epochs=p.get("num_epochs", 10),
+            train_num_steps=p.get("train_num_steps", 2000),
+            rho=p.get("rho", 16),
+            major_metric=p.get("major_metric", "AVG"),
+        )
+        kw.update(overrides)
+        return cls(**kw)
+
+
+def resolve_remat(requested: Union[bool, str], grad_accum: int) -> bool:
+    """'auto' -> off when ``grad_accum`` >= 4 (the microbatch's saved
+    activations fit), on otherwise; booleans pass through."""
+    if requested != "auto":
+        return bool(requested)
+    return grad_accum < 4
+
+
+def estimator_for_training(config: HEMTrainConfig) -> EstimatorConfig:
+    """The estimator config with ``remat`` resolved into its Swin config."""
+    est = config.estimator
+    remat = resolve_remat(config.remat, config.grad_accum)
+    return dataclasses.replace(est, swin=dataclasses.replace(est.swin, remat=remat))
+
+

@@ -64,6 +64,14 @@ def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         hem_eval.main(["--test-data", str(tmp_path), "--torch-ckpt", str(tmp_path / "x.pth")])
+    from dmhomo_torch.cli import hem_train
+    from dmhomo_torch.train.config import HEMTrainConfig
+    from dmhomo_torch.train.hem_trainer import HEMTrainer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hem_train.main(["--synthetic", "4", "--tiny", "--steps", "1", "--out", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HEMTrainer(HEMTrainConfig())
 
 
 def test_point_matching_error_truncates_and_takes_the_min():

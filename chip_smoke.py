@@ -42,9 +42,32 @@ Phases, each printing its results; any failure exits non-zero:
    the CPU's own change when the input moves by 1e-7.
 10. training profile: one step under ``torch.profiler``: device time by
     kernel, and the idle share of phase 8's unprofiled step time.
+11. linear-attention build: registers, spills and dynamic shared memory of
+    each variant of ``dmhomo_torch/csrc/linear_attention.cu`` (built in
+    phase 2, in parallel with the window-attention source).
+12. linear-attention kernels vs plain: pass 1, pass 2 and both together
+    against their plain PyTorch versions at the 8 LinearAttention sites of
+    the shipped UNet (B=50, the CFG-doubled batch of 25; prenorm folded;
+    the UNet's NCHW layout), fp32 and bf16: errors against the stated
+    tolerances, and CUDA-event times of each pass, its plain version and one
+    cuBLAS ``x @ W_qkv`` (a yardstick only: no one PyTorch call computes
+    linear attention), beside each pass's bound.
+13. generation slice: ``dgm_sample``'s generate step at its defaults (bf16,
+    bs 25, 32 DDIM steps, CFG 3, 256x256, seeded random weights) on
+    synthetic conditions (numpy, from ``--seed``): one warm-up batch, then 2
+    timed ones; images finite and in [0, 1], exactly 8 + 8 kernel launches
+    per UNet forward, fitted H within 1e-2 px of the condition flow;
+    samples/s, ms per batch and per DDIM step, peak memory.
+14. generation card vs CPU: one fp32 CFG UNet forward at 256x256 (1
+    condition, doubled) with the same weights on the card (kernels) and on
+    the CPU (plain versions), held against the CPU's own change for an
+    input nudged by 1e-7; ``fit_homography_to_flow`` of that condition on
+    both.
+15. generation profile: one DDIM step under ``torch.profiler``: device time
+    by kernel, and the idle share of phase 13's unprofiled step.
 
-The line before the last is a JSON object with both kernels' numbers; the
-last is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with the four kernels' numbers;
+the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -82,6 +105,23 @@ STEP_GRAD_TOL = 1e-3
 STEP_INPUT_NOISE = 1e-7
 STEP_NOISE_FACTOR = 10.0
 WARMUP_STEPS, TIMED_STEPS = 3, 10
+# DGM generation at dgm_sample's defaults: --bs 25 (CFG runs a doubled batch
+# of 50), 32 DDIM steps, 256x256, bf16 activations
+GEN_BS, GEN_STEPS, GEN_SIZE = 25, 32, 256
+GEN_TIMED_BATCHES = 2
+# linear-attention kernels vs plain, relative to the largest plain value
+# (stricter than relative to max(1, |ref|): the outputs are far below 1):
+# fp32 summation order (E and s are summed with atomics); bf16 one rounding
+# of q, k, v, e or the output landing on the other side
+LA_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+FIT_TOL_PX = 1e-2  # fitted H vs the condition's own flow, fp32
+# fp32 CFG UNet forward, card vs CPU, relative to the largest output: within
+# GEN_CPU_TOL, or GEN_NOISE_FACTOR times the CPU's own change for an input
+# moved by GEN_INPUT_NOISE; fit_homography_to_flow within FIT_CPU_TOL_PX
+GEN_CPU_TOL = 1e-4
+GEN_INPUT_NOISE = 1e-7
+GEN_NOISE_FACTOR = 10.0
+FIT_CPU_TOL_PX = 1e-3
 
 
 def log(msg: str) -> None:
@@ -256,11 +296,18 @@ def phase_device():
 
 
 def phase_build():
+    """Builds every kernel library at once (one nvcc per source, in
+    parallel), then reports the window-attention one."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dmhomo_torch.ops import linear_attention as la
     from dmhomo_torch.ops import window_attention as wa
 
     t0 = time.perf_counter()
-    lib = wa.build()
-    log(f"[build] {os.path.relpath(lib)} in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda m: m.build(), (wa, la)))
+    for lib in libs:
+        log(f"[build] {os.path.relpath(lib)}: all built in {time.perf_counter() - t0:.1f} s")
     entry = None
     for line in wa.build_log().splitlines():
         m = re.search(r"window_attention_(fwd|bwd)_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E",
@@ -685,6 +732,296 @@ def phase_train_profile(trainer, batch, step_ms: float):
     return dev_ms, idle, attn
 
 
+# ---------------------------------------------------------------------------
+# DGM generation (phases 11-15)
+# ---------------------------------------------------------------------------
+
+
+def linear_attention_sites(cfg, image_size: int):
+    """(site, H=W, C) of every LinearAttention of the UNet, in call order of
+    the down path, then the up path."""
+    dims = [cfg.dim] + [cfg.dim * m for m in cfg.dim_mults]
+    n = len(cfg.dim_mults)
+    return ([(f"down_{i}", image_size >> i, dims[i]) for i in range(n)]
+            + [(f"up_{i}", image_size >> (n - 1 - i), dims[n - i]) for i in range(n)])
+
+
+def linear_bound(x, pass_: int):
+    """(ms, 'bytes' | 'operations') of one pass at x (B, N, C): pass 1 reads
+    x, the k and v columns of W and g and writes the (E, s) sums and the
+    LayerNorm statistics; pass 2 reads x, the q columns, g, the statistics
+    and the sums and writes the (B, N, 128) output.  Operations: the
+    projection (2*C flops per token and column), and 2*4096 per token for
+    E (pass 1) or for eq . context (pass 2)."""
+    from dmhomo_torch.ops.linear_attention import HIDDEN, SUMS
+
+    B, N, C = x.shape
+    el = x.element_size()
+    cols = 2 * HIDDEN if pass_ == 1 else HIDDEN
+    nbytes = B * N * C * el + C * cols * 4 + C * 4 + B * SUMS * 4 + B * N * 8
+    if pass_ == 2:
+        nbytes += B * N * HIDDEN * el
+    flops = 2.0 * B * N * (C * cols + 4096)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(x.dtype).split(".")[-1]]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_linear_build():
+    from dmhomo_torch.ops import linear_attention as la
+
+    entry = None
+    for line in la.build_log().splitlines():
+        m = re.search(r"linear_attention_pass(1|2)_kernelI(f|13__nv_bfloat16)Lb([01])E"
+                      r"(?:Lb([01])E)?", line)
+        if m:  # pass1<T, PRENORM, COMPUTE_STATS>, pass2<T, PRENORM>
+            dt = "fp32" if m.group(2) == "f" else "bf16"
+            new = f"pass{m.group(1)} {dt} prenorm={m.group(3)}" + (
+                f" stats={m.group(4)}" if m.group(4) is not None else "")
+            if new != entry:
+                smem = la.shared_memory_bytes(int(m.group(1)))
+                log(f"[la-build] {new}: {smem} bytes dynamic shared memory")
+            entry = new
+        elif entry and ("registers" in line or "spill" in line):
+            log(f"[la-build] {entry}: {line.split(':', 1)[-1].strip()}")
+
+
+def phase_linear_kernels(sites, dev, seed: int):
+    """Both kernels vs their plain versions at every UNet site, B = 2 * bs,
+    prenorm folded, the UNet's channel-major layout, fp32 and bf16."""
+    import torch
+
+    from dmhomo_torch.ops import linear_attention as la
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    B = 2 * GEN_BS
+    results, worst = [], {}
+    for site, hw, C in sites:
+        N = hw * hw
+        x32 = (1.5 * torch.randn(B, C, N, generator=gen, device=dev) + 0.3).transpose(1, 2)
+        w = torch.randn(C, 3 * la.HIDDEN, generator=gen, device=dev) / C**0.5
+        g = 0.5 + torch.rand(C, generator=gen, device=dev)
+        pn = (g,)
+        for dtype in ("float32", "bfloat16"):
+            x = x32.to(getattr(torch, dtype))
+            want = la.linear_attention_reference(x, w, prenorm=pn)
+            got = la.linear_attention(x, w, prenorm=pn)
+            # each pass on its own against its plain version
+            sums_ref = la.linear_attention_pass1_reference(x, w, prenorm=pn)
+            sums = torch.zeros_like(sums_ref)
+            mean = torch.empty((B, N), device=dev)
+            rstd = torch.empty_like(mean)
+            la.linear_attention_pass1(x, w, g, mean, rstd, True, sums)
+            out_ref = la.linear_attention_pass2_reference(x, w, sums_ref, prenorm=pn)
+            out = torch.empty((B, la.HIDDEN, N), dtype=x.dtype, device=dev).transpose(1, 2)
+            la.linear_attention_pass2(x, w, g, mean, rstd, sums_ref, out)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, a, b in (("out", got, want), ("pass1", sums, sums_ref),
+                               ("pass2", out, out_ref)):
+                e = float((a.float() - b.float()).abs().max())
+                errs[name] = e
+                errs[name + "_rel"] = e / float(b.float().abs().max())
+                worst[(dtype, name)] = max(worst.get((dtype, name), 0.0), e)
+            finite = bool(torch.isfinite(got).all()) and bool(torch.isfinite(sums).all())
+            ok = finite and max(errs["out_rel"], errs["pass1_rel"], errs["pass2_rel"]) <= LA_TOL[dtype]
+            sums_t = torch.zeros_like(sums)
+            ms1 = cuda_ms(lambda: la.linear_attention_pass1(x, w, g, mean, rstd, True, sums_t),
+                          iters=5, warmup=1)
+            ms2 = cuda_ms(lambda: la.linear_attention_pass2(x, w, g, mean, rstd, sums_ref, out),
+                          iters=5, warmup=1)
+            plain1 = cuda_ms(lambda: la.linear_attention_pass1_reference(x, w, prenorm=pn),
+                             iters=2, warmup=1)
+            plain2 = cuda_ms(lambda: la.linear_attention_pass2_reference(x, w, sums_ref, prenorm=pn),
+                             iters=2, warmup=1)
+            wd = w.to(x.dtype)
+            gemm = cuda_ms(lambda: torch.matmul(x, wd), iters=5, warmup=1)
+            (b1, by1), (b2, by2) = linear_bound(x, 1), linear_bound(x, 2)
+            r = {"site": site, "H": hw, "W": hw, "N": N, "C": C, "B": B, "dtype": dtype,
+                 "err_out": errs["out"], "rel_err_out": errs["out_rel"],
+                 "err_pass1": errs["pass1"], "rel_err_pass1": errs["pass1_rel"],
+                 "err_pass2": errs["pass2"], "rel_err_pass2": errs["pass2_rel"],
+                 "tol": LA_TOL[dtype], "pass1_ms": ms1, "pass2_ms": ms2,
+                 "plain1_ms": plain1, "plain2_ms": plain2, "gemm_ms": gemm,
+                 "bound1_ms": b1, "bound1_by": by1, "bound2_ms": b2, "bound2_by": by2}
+            results.append(r)
+            log(f"[la-kernel] {site} {hw}x{hw} N={N} C={C} B={B} {dtype}: rel err out "
+                f"{errs['out_rel']:.3g} pass1 {errs['pass1_rel']:.3g} pass2 {errs['pass2_rel']:.3g} "
+                f"(abs {errs['out']:.3g}; tol {LA_TOL[dtype]:g}) pass1 {ms1:.4f} ms (bound {b1:.4f} "
+                f"{by1}, plain {plain1:.4f}) pass2 {ms2:.4f} ms (bound {b2:.4f} {by2}, plain "
+                f"{plain2:.4f}) cuBLAS x@W_qkv {gemm:.4f} ms {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"linear-attention kernels disagree with their plain versions: {r}")
+            del want, got, sums_ref, sums, sums_t, out_ref, out, mean, rstd, x, wd
+        del x32
+        torch.cuda.empty_cache()
+    return results, worst
+
+
+def phase_generate(dev, seed: int):
+    """The generate step at the shipped config: one warm-up batch, then
+    GEN_TIMED_BATCHES timed ones, each counted from zero."""
+    import torch
+
+    from dmhomo_torch.cli.dgm_sample import build_sampler, generate
+    from dmhomo_torch.data.conditions import synthetic_condition_batches
+    from dmhomo_torch.geometry.homography import homography_to_flow
+    from dmhomo_torch.ops import linear_attention as la
+
+    t0 = time.perf_counter()
+    gd = build_sampler(device=dev, seed=seed)  # dgm_sample's defaults: bf16, 256², 32 steps
+    batches = synthetic_condition_batches(2 * GEN_BS, GEN_SIZE, GEN_BS, 1, seed)
+    conds = [next(batches) for _ in range(1 + GEN_TIMED_BATCHES)]
+    log(f"[gen] UNet {sum(p.numel() for p in gd.model.parameters()):,} parameters "
+        f"(seeded random), {len(conds)} batches of {GEN_BS} synthetic conditions, set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    forwards = [0]
+    gd.model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def run(cond, classes):
+        return generate(gd, torch.from_numpy(cond).to(dev),
+                        torch.from_numpy(classes.astype(np.int64)).to(dev), gen)
+
+    t0 = time.perf_counter()
+    run(*conds[0])
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts from zero just before it, read just after
+    la.linear_attention_pass1.launches = 0
+    la.linear_attention_pass2.launches = 0
+    forwards[0] = 0
+    times, per_batch, outs = [], [], []
+    for cond, classes in conds[1:]:
+        c1, c2, f0 = la.linear_attention_pass1.launches, la.linear_attention_pass2.launches, forwards[0]
+        t0 = time.perf_counter()
+        imgs, homos = run(cond, classes)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        per_batch.append((la.linear_attention_pass1.launches - c1,
+                          la.linear_attention_pass2.launches - c2, forwards[0] - f0))
+        outs.append((imgs, homos, cond))
+    launches = (la.linear_attention_pass1.launches, la.linear_attention_pass2.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_sites = len(linear_attention_sites(gd.model.config, GEN_SIZE))
+    want = (n_sites * GEN_STEPS, n_sites * GEN_STEPS, GEN_STEPS)
+    if any(p != want for p in per_batch):
+        raise SystemExit(f"per batch (pass 1, pass 2, UNet forwards) {per_batch}, expected {want}")
+    fit_err = 0.0
+    for imgs, homos, cond in outs:
+        if imgs.shape != (GEN_BS, GEN_SIZE, GEN_SIZE, 6) or not bool(torch.isfinite(imgs).all()):
+            raise SystemExit(f"generated images not finite of shape {imgs.shape}")
+        lo, hi = float(imgs.min()), float(imgs.max())
+        if lo < 0.0 or hi > 1.0:
+            raise SystemExit(f"generated images outside [0, 1]: {lo} .. {hi}")
+        flow = homography_to_flow(homos.float(), GEN_SIZE, GEN_SIZE).cpu().numpy()
+        fit_err = max(fit_err, float(np.abs(flow - cond[..., 10:12]).max()))
+    if not fit_err <= FIT_TOL_PX:
+        raise SystemExit(f"fitted homographies miss the condition flows by {fit_err} px")
+    batch_ms = float(np.median(times))
+    log(f"[gen] shipped config (bf16, bs {GEN_BS} -> CFG batch {2 * GEN_BS}, {GEN_STEPS} DDIM "
+        f"steps, {GEN_SIZE}x{GEN_SIZE}): first batch {first_ms:.1f} ms, timed "
+        f"{', '.join(f'{t:.1f}' for t in times)} ms: {batch_ms:.1f} ms per batch, "
+        f"{batch_ms / GEN_STEPS:.2f} ms per DDIM step, {1e3 * GEN_BS / batch_ms:.3f} samples/s, "
+        f"peak {peak / 2**30:.2f} GiB")
+    log(f"[gen] images in [{lo:.3f}, {hi:.3f}], finite; fitted H reproduces the condition flow "
+        f"to {fit_err:.3g} px (tol {FIT_TOL_PX:g}); launches over {GEN_TIMED_BATCHES} batches: "
+        f"pass 1 {launches[0]}, pass 2 {launches[1]} = {n_sites} + {n_sites} per UNet forward "
+        f"({per_batch[0][2]} forwards per batch)")
+    return {"gd": gd, "cond": conds[0], "batch_ms": batch_ms, "step_ms": batch_ms / GEN_STEPS,
+            "peak": peak, "launches": launches, "fit_err": fit_err, "first_ms": first_ms}
+
+
+def phase_gen_card_vs_cpu(gd, cond_batch, seed: int):
+    """One fp32 CFG UNet forward at 256² on 1 condition (doubled to 2), the
+    same weights on the card (kernels) and on the CPU (plain versions), and
+    fit_homography_to_flow of that condition on both."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from dmhomo_torch.geometry.homography import fit_homography_to_flow, homography_to_flow
+    from dmhomo_torch.models.unet import ConditionalUNet
+
+    dev = gd.schedule.betas.device
+    cpu_model = ConditionalUNet(dataclasses.replace(gd.model.config, dtype=torch.float32))
+    cpu_model.load_state_dict({k: v.cpu() for k, v in gd.model.state_dict().items()})
+    cpu_model.eval()
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    cond, classes = cond_batch
+    rng = np.random.default_rng(seed + 14)
+    x = rng.normal(size=(1, GEN_SIZE, GEN_SIZE, 6)).astype(np.float32)
+    nudge = (GEN_INPUT_NOISE * rng.normal(size=x.shape)).astype(np.float32)
+    c = torch.from_numpy(cond[:1])
+
+    def inputs(xx, d):
+        two = lambda t: torch.cat([t, t]).to(d)  # noqa: E731
+        return (two(torch.from_numpy(xx)), two(torch.full((1,), 500)),
+                two(torch.from_numpy(classes[:1].astype(np.int64))), two(c[..., 7:10] * 2 - 1),
+                two(c[..., 6:7]), torch.tensor([True, False], device=d))
+
+    with torch.inference_mode():
+        card = card_model(*inputs(x, dev)).cpu()
+        cpu = cpu_model(*inputs(x, "cpu"))
+        nudged = cpu_model(*inputs(x + nudge, "cpu"))
+    scale = float(cpu.abs().max())
+    diff = float((card - cpu).abs().max()) / scale
+    noise = float((nudged - cpu).abs().max()) / scale
+    tol = max(GEN_CPU_TOL, GEN_NOISE_FACTOR * noise)
+    log(f"[gen-card-vs-cpu] fp32 CFG UNet forward (2, {GEN_SIZE}, {GEN_SIZE}, 6): max |card - cpu| "
+        f"/ max |cpu| = {diff:.3g} (max |cpu| {scale:.3g}); the CPU's own change for an input "
+        f"nudged by {GEN_INPUT_NOISE:g}: {noise:.3g}; tol {tol:.3g}")
+    flow = c[..., 10:12]
+    H_card = fit_homography_to_flow(flow.to(dev)).cpu()
+    H_cpu = fit_homography_to_flow(flow)
+    fit_diff = float((homography_to_flow(H_card, GEN_SIZE, GEN_SIZE)
+                      - homography_to_flow(H_cpu, GEN_SIZE, GEN_SIZE)).abs().max())
+    log(f"[gen-card-vs-cpu] fit_homography_to_flow: flows of the card's and the CPU's H differ "
+        f"by {fit_diff:.3g} px (tol {FIT_CPU_TOL_PX:g}); max |H_card - H_cpu| "
+        f"{float((H_card - H_cpu).abs().max()):.3g}")
+    if not diff <= tol or not fit_diff <= FIT_CPU_TOL_PX:
+        raise SystemExit(f"card and CPU disagree: UNet {diff} (tol {tol}), fit {fit_diff} px")
+    return {"unet_rel": diff, "unet_rel_nudged_cpu": noise, "unet_tol": tol,
+            "fit_px": fit_diff}
+
+
+def phase_gen_profile(gd, cond_batch, step_ms: float):
+    """One DDIM step (a CFG UNet forward at B = 2 * bs and the update) under
+    torch.profiler; idle share against phase 13's unprofiled step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmhomo_torch.diffusion.schedules import ddim_time_pairs
+
+    dev = gd.schedule.betas.device
+    cond, classes = (torch.from_numpy(a).to(dev) for a in cond_batch)
+    shape = (GEN_BS, GEN_SIZE, GEN_SIZE, 6)
+    img, noise = torch.randn(shape, device=dev), torch.randn(shape, device=dev)
+    time_, time_next = (int(t) for t in ddim_time_pairs(1000, GEN_STEPS)[0])
+    args = (img, time_, time_next, classes.long(), cond[..., 7:10] * 2 - 1, cond[..., 6:7], noise)
+    with torch.inference_mode():
+        gd.ddim_step(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            gd.ddim_step(*args)
+            torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if dev_ms <= 0:
+        raise SystemExit("the profiler saw no device time")
+    idle = max(0.0, 1.0 - dev_ms / step_ms)
+    la_ms = {p: sum(e.self_device_time_total for e in events
+                    if f"linear_attention_pass{p}_kernel" in e.key) / 1e3 for p in (1, 2)}
+    log(f"[gen-profile] one DDIM step: device busy {dev_ms:.2f} ms of the {step_ms:.2f} ms "
+        f"unprofiled step: idle {100 * idle:.1f}%; linear attention pass 1 {la_ms[1]:.2f} ms, "
+        f"pass 2 {la_ms[2]:.2f} ms")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
+        log(f"[gen-profile] {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return dev_ms, idle, la_ms
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -721,6 +1058,17 @@ def main(argv=None):
     step_diffs = phase_train_card_vs_cpu(dev, args.seed)
     dev_ms, idle, attn_ms = phase_train_profile(train["trainer"], train["batch"],
                                                 train["step_ms"])
+    del train["trainer"], train["batch"]
+    torch.cuda.empty_cache()
+
+    from dmhomo_torch.models.unet import UNetConfig
+
+    phase_linear_build()
+    sites = linear_attention_sites(UNetConfig(), GEN_SIZE)
+    la_results, la_worst = phase_linear_kernels(sites, dev, args.seed)
+    gen = phase_generate(dev, args.seed)
+    gen_diffs = phase_gen_card_vs_cpu(gen["gd"], gen["cond"], args.seed)
+    gen_dev_ms, gen_idle, gen_la_ms = phase_gen_profile(gen["gd"], gen["cond"], gen["step_ms"])
 
     # per-forward totals at the eval path's dtype (fp32) and launch mix
     main = [r for r in results if r["dtype"] == "float32"]
@@ -773,10 +1121,51 @@ def main(argv=None):
         f"{train['step_ms']:.2f} ms, peak {train['peak'] / 2**30:.2f} GiB, device idle "
         f"{100 * idle:.1f}%; backward kernel {bwd_kernel['ms']:.3f} ms per step (bound "
         f"{bwd_kernel['bound_ms']:.3f}, plain {bwd_kernel['plain_ms']:.3f}, SDPA fwd+bwd "
-        f"{bwd_kernel['library_ms']:.3f}); step card-vs-cpu {json.dumps(step_diffs)}; "
+        f"{bwd_kernel['library_ms']:.3f}); step card-vs-cpu {json.dumps(step_diffs)}")
+
+    # per-batch totals of generation (bf16): each site runs once per UNet
+    # forward, GEN_STEPS forwards per batch
+    gen_rows = [r for r in la_results if r["dtype"] == "bfloat16"]
+
+    def per_batch(key):
+        return GEN_STEPS * sum(r[key] for r in gen_rows)
+
+    gemm_ms = per_batch("gemm_ms")
+    la_kernels = []
+    for p, line in ((1, 145), (2, 163)):
+        la_kernels.append({
+            "name": f"linear_attention_pass{p}", "route": "cuda",
+            "source": "dmhomo_torch/csrc/linear_attention.cu",
+            "replaces": f"dmhomo_tpu/ops/linear_attention.py:{line}",
+            "launches": gen["launches"][p - 1],
+            "max_abs_err": la_worst[("bfloat16", f"pass{p}")],
+            "ms": per_batch(f"pass{p}_ms"), "plain_ms": per_batch(f"plain{p}_ms"),
+            "bound_ms": per_batch(f"bound{p}_ms"),
+            "bound_by": ("bytes" if all(r[f"bound{p}_by"] == "bytes" for r in gen_rows)
+                         else "operations"),
+            "library_ms": None,
+            "library": ("none: no one PyTorch call computes linear attention; yardstick "
+                        f"gemm_ms = cuBLAS x @ W_qkv (all 384 columns) per batch, {gemm_ms:.3f}"),
+            "gemm_ms": gemm_ms,
+            "unit": (f"sum over one generation batch: {len(sites)} sites x {GEN_STEPS} UNet "
+                     f"forwards at B={2 * GEN_BS} (CFG-doubled bs {GEN_BS}), bf16, prenorm"),
+            "launches_per_batch": len(sites) * GEN_STEPS,
+            "max_abs_err_fp32": la_worst[("float32", f"pass{p}")],
+            "max_abs_err_output_bf16": la_worst[("bfloat16", "out")],
+            "max_abs_err_output_fp32": la_worst[("float32", "out")],
+            "profiled_ms_per_step": gen_la_ms[p],
+            "shapes": la_results,
+        })
+    log(f"[summary] generation {1e3 * GEN_BS / gen['batch_ms']:.3f} samples/s, "
+        f"{gen['batch_ms']:.1f} ms per batch of {GEN_BS}, {gen['step_ms']:.2f} ms per DDIM step, "
+        f"peak {gen['peak'] / 2**30:.2f} GiB, device idle {100 * gen_idle:.1f}%; linear attention "
+        f"pass 1 {la_kernels[0]['ms']:.1f} ms + pass 2 {la_kernels[1]['ms']:.1f} ms per batch "
+        f"(bounds {la_kernels[0]['bound_ms']:.1f} + {la_kernels[1]['bound_ms']:.1f}, plain "
+        f"{la_kernels[0]['plain_ms']:.1f} + {la_kernels[1]['plain_ms']:.1f}, cuBLAS x@W_qkv "
+        f"{gemm_ms:.1f}); card-vs-cpu {json.dumps(gen_diffs)}; "
         f"total {time.perf_counter() - t_start:.0f} s")
     log(smi)  # nvidia-smi: card name, power limit
-    log(json.dumps({"kernels": [kernel, bwd_kernel]}))
+    log(json.dumps({"kernels": [kernel, bwd_kernel] + la_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}), flush=True)
 

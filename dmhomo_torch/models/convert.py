@@ -35,7 +35,7 @@ DEAD_KEYS: Tuple[str, ...] = (
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
 
 def _conv(k) -> torch.Tensor:
@@ -157,3 +157,115 @@ def load_hem_checkpoint(path: str) -> Dict[str, torch.Tensor]:
         if isinstance(ckpt, dict) and key in ckpt:
             return ckpt[key]
     return ckpt
+
+
+def unet_state_dict_from_jax(params: Dict, config) -> Dict[str, torch.Tensor]:
+    """JAX ``ConditionalUNet`` params -> this port's UNet state dict
+    (reference key names; LayerNorm gains as (1, C, 1, 1))."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv(dst, p):
+        sd[f"{dst}.weight"] = _conv(p["kernel"])
+        if "bias" in p:
+            sd[f"{dst}.bias"] = _t(p["bias"])
+
+    def dense(dst, p):
+        sd[f"{dst}.weight"] = _lin(p["kernel"])
+        sd[f"{dst}.bias"] = _t(p["bias"])
+
+    def gain(dst, g):
+        sd[dst] = _t(np.asarray(g).reshape(1, -1, 1, 1))
+
+    def resblock(dst, p):
+        dense(f"{dst}.mlp.1", p["mlp"])
+        for b in ("block1", "block2"):
+            conv(f"{dst}.{b}.proj", p[b]["proj"])
+            sd[f"{dst}.{b}.norm.weight"] = _t(p[b]["norm"]["scale"])
+            sd[f"{dst}.{b}.norm.bias"] = _t(p[b]["norm"]["bias"])
+        if "res_conv" in p:
+            conv(f"{dst}.res_conv", p["res_conv"])
+
+    def attn(dst, wrap, inner, full=False):
+        gain(f"{dst}.fn.norm.g", params[wrap]["norm"]["g"])
+        conv(f"{dst}.fn.fn.to_qkv", params[inner]["to_qkv"])
+        if full:
+            conv(f"{dst}.fn.fn.to_out", params[inner]["to_out"])
+        else:
+            conv(f"{dst}.fn.fn.to_out.0", params[inner]["to_out"])
+            gain(f"{dst}.fn.fn.to_out.1.g", params[inner]["out_norm"]["g"])
+
+    conv("init_conv", params["init_conv"])
+    dense("time_mlp.1", params["time_mlp_0"])
+    dense("time_mlp.3", params["time_mlp_1"])
+    dense("classes_mlp.0", params["classes_mlp_0"])
+    dense("classes_mlp.2", params["classes_mlp_1"])
+    sd["classes_emb.weight"] = _t(params["classes_emb"]["embedding"])
+    sd["null_classes_emb"] = _t(params["null_classes_emb"])
+    n = len(config.dim_mults)
+    for i in range(n):
+        resblock(f"downs.{i}.0", params[f"down_{i}_block1"])
+        resblock(f"downs.{i}.1", params[f"down_{i}_block2"])
+        attn(f"downs.{i}.2", f"down_{i}_attn_wrap", f"down_{i}_attn")
+        conv(f"downs.{i}.3", params[f"down_{i}_downsample"])
+    resblock("mid_block1", params["mid_block1"])
+    attn("mid_attn", "mid_attn_wrap", "mid_attn", full=True)
+    resblock("mid_block2", params["mid_block2"])
+    for i in range(n):
+        resblock(f"ups.{i}.0", params[f"up_{i}_block1"])
+        resblock(f"ups.{i}.1", params[f"up_{i}_block2"])
+        attn(f"ups.{i}.2", f"up_{i}_attn_wrap", f"up_{i}_attn")
+        conv(f"ups.{i}.3" if i == n - 1 else f"ups.{i}.3.1", params[f"up_{i}_upsample"])
+    resblock("final_res_block", params["final_res_block"])
+    conv("final_conv", params["final_conv"])
+    return sd
+
+
+# Keys of a reference DGM.pt beside the UNet's: the GaussianDiffusion
+# schedule buffers (recomputed from the config) in 'model', and the
+# ema_pytorch bookkeeping and wrapped schedule copy in 'ema'.
+DGM_MODEL_SKIPS: Tuple[str, ...] = (
+    r"^(betas|alphas_cumprod|alphas_cumprod_prev)$",
+    r"^sqrt_", r"^log_one_minus_alphas_cumprod$",
+    r"^posterior_", r"^(p2_)?loss_weight$",
+)
+DGM_EMA_SKIPS: Tuple[str, ...] = (
+    r"^(initted|step)$",
+    r"^online_model\.",
+    r"^ema_model\.(?!model\.)",
+)
+
+
+def _unet_part(sd: Dict, prefix: str, skips: Tuple[str, ...], what: str) -> Dict:
+    """The ``prefix`` keys of sd with the prefix cut; every other key must be
+    on ``skips`` or this raises."""
+    pats = [re.compile(p) for p in skips]
+    extra = sorted(k for k in sd if not k.startswith(prefix) and not any(p.search(k) for p in pats))
+    if extra:
+        raise ValueError(f"{what}: unexpected keys {extra[:20]}")
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def load_dgm_checkpoint(model: torch.nn.Module, path: str, use_ema: bool = True) -> int:
+    """Load a reference ``DGM.pt`` (``{'step', 'model', 'ema', ...}``) into
+    the port's ConditionalUNet with ``strict=True`` and return its step.
+
+    Takes the EMA weights (``ema_model.model.*``) unless ``use_ema`` is
+    False or the file has none, else the online ``model.*`` weights.  The
+    schedule buffers and EMA bookkeeping are dropped; the class-embedding
+    rows are trimmed, or padded by repeating row 0, to the model's
+    ``num_classes`` (the reference trains with 5 classes and samples with 1).
+    """
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = _unet_part(ckpt["model"], "model.", DGM_MODEL_SKIPS, "DGM checkpoint 'model'")
+    if use_ema and ckpt.get("ema") is not None:
+        ema = _unet_part(ckpt["ema"], "ema_model.model.", DGM_EMA_SKIPS, "DGM checkpoint 'ema'")
+        sd = ema or sd
+    emb = sd["classes_emb.weight"]
+    n = model.classes_emb.num_embeddings
+    if emb.shape[0] > n:
+        emb = emb[:n]
+    elif emb.shape[0] < n:
+        emb = torch.cat([emb, emb[:1].repeat(n - emb.shape[0], 1)], dim=0)
+    sd["classes_emb.weight"] = emb
+    model.load_state_dict(sd, strict=True)
+    return int(ckpt.get("step", 0))

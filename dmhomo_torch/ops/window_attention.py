@@ -27,20 +27,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
+
+from dmhomo_torch.ops.build import CSRC, build_library
 
 CLIP = 60.0
 WINDOW_TOKENS = 64  # 8x8 windows
 HEAD_DIMS = (4, 8, 16, 32)
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "window_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+_SOURCE = CSRC / "window_attention.cu"
 
 
 def _heads(t: torch.Tensor, h: int) -> torch.Tensor:
@@ -120,35 +117,10 @@ def window_attention_backward_reference(qkv: torch.Tensor, bias: torch.Tensor,
         return dqkv, dsim.sum(dim=0)
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
-        return str(Path(cuda_home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    if Path("/usr/local/cuda/bin/nvcc").exists():
-        return "/usr/local/cuda/bin/nvcc"
-    raise RuntimeError("nvcc not found: the window-attention kernel cannot be built")
-
-
 def build() -> Path:
     """Compile the kernel library for sm_90a (once per source content) and
-    return its path.  nvcc's ``-Xptxas -v`` report goes to a ``.log`` beside it."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libdmh_window_attention_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    return its path."""
+    return build_library(_SOURCE, "dmh_window_attention")
 
 
 def build_log() -> str:

@@ -31,7 +31,11 @@ ORI = (72, 144)
 
 def test_no_jax_in_the_port():
     modules = sorted(m.name for m in pkgutil.walk_packages(dmhomo_torch.__path__, "dmhomo_torch."))
-    assert "dmhomo_torch.ops.window_attention" in modules and len(modules) >= 15
+    for m in ("ops.window_attention", "ops.linear_attention", "models.unet",
+              "diffusion.gaussian", "diffusion.schedules", "data.conditions",
+              "cli.dgm_sample"):
+        assert f"dmhomo_torch.{m}" in modules
+    assert len(modules) >= 25
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -72,6 +76,10 @@ def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
         hem_train.main(["--synthetic", "4", "--tiny", "--steps", "1", "--out", str(tmp_path)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         HEMTrainer(HEMTrainConfig())
+    from dmhomo_torch.cli import dgm_sample
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dgm_sample.main(["--synthetic", "4", "--exp", "x", "--out", str(tmp_path)])
 
 
 def test_point_matching_error_truncates_and_takes_the_min():

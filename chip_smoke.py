@@ -65,8 +65,25 @@ Phases, each printing its results; any failure exits non-zero:
     both.
 15. generation profile: one DDIM step under ``torch.profiler``: device time
     by kernel, and the idle share of phase 13's unprofiled step.
+16. whole-block kernel vs plain: registers, spills and dynamic shared memory
+    of each variant of ``dmhomo_torch/csrc/swin_block.cu`` (built in phase
+    2); then the kernel and its plain PyTorch version at every Swin-block
+    shape of the shipped estimator (B=32), with and without the shift and
+    its mask, fp32 and bf16: error against the stated tolerance, and
+    CUDA-event times of the kernel, the plain version and the port's unfused
+    ``SwinBlock`` on the card (window-attention kernel, cuBLAS, LayerNorm; a
+    yardstick only: no one PyTorch call computes a Swin block), beside the
+    bound.
+17. whole-block slice: the shipped estimator with ``attn_impl='fused_block'``
+    and phase 4's seeded weights through ``eval_forward`` on phase 4's 32
+    pairs: finite point errors, exactly 40 whole-block launches and no
+    window-attention launch per forward, batch time, pairs/s, peak memory
+    and a profile; flows against phase 4's model, both with layer scales
+    0.5.
+18. whole-block card vs CPU: phase 5 for the ``fused_block`` model (layer
+    scales 0.5).
 
-The line before the last is a JSON object with the four kernels' numbers;
+The line before the last is a JSON object with the five kernels' numbers;
 the last is ``{"ok": true, "device": {...}}``.
 """
 
@@ -122,6 +139,14 @@ GEN_CPU_TOL = 1e-4
 GEN_INPUT_NOISE = 1e-7
 GEN_NOISE_FACTOR = 10.0
 FIT_CPU_TOL_PX = 1e-3
+# whole-block kernel vs plain, relative to max(1, largest |plain value|):
+# fp32 summation order through five projections and the attention; bf16 a
+# rounding of n1, qkv, e, the attention output, h, n2 or the GELU output
+# landing on the other side.  The unfused block in fp32 (its own LayerNorm
+# statistics and cuBLAS order) within SWIN_UNFUSED_TOL
+SWIN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+SWIN_UNFUSED_TOL = 1e-4
+FUSED_FLOW_TOL_PX = 2e-3  # the fused_block estimator's flows vs phase 4's model
 
 
 def log(msg: str) -> None:
@@ -301,11 +326,12 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from dmhomo_torch.ops import linear_attention as la
+    from dmhomo_torch.ops import swin_block as sb
     from dmhomo_torch.ops import window_attention as wa
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda m: m.build(), (wa, la)))
+    with ThreadPoolExecutor(3) as pool:
+        libs = list(pool.map(lambda m: m.build(), (wa, la, sb)))
     for lib in libs:
         log(f"[build] {os.path.relpath(lib)}: all built in {time.perf_counter() - t0:.1f} s")
     entry = None
@@ -381,22 +407,33 @@ def phase_kernels(shapes, dev, seed: int):
     return results, worst
 
 
-def phase_slice(model, dev, batch: int, seed: int, reps: int = 3):
+def eval_pairs(cfg, dev, batch: int, seed: int):
+    """The eval slice's synthetic pairs, on the card: (patch, pts)."""
     import torch
 
-    from dmhomo_torch.cli.hem_eval import eval_forward
-    from dmhomo_torch.ops.window_attention import window_attention
-
-    cfg = model.config
     t0 = time.perf_counter()
     patch_np, pts_np = make_pairs(batch, cfg.ori_size, cfg.crop_size, seed)
     log(f"[slice] {batch} synthetic pairs {patch_np.shape} in {time.perf_counter() - t0:.1f} s")
-    patch = torch.from_numpy(patch_np).to(dev)
-    pts = torch.from_numpy(pts_np).to(dev)
+    return torch.from_numpy(patch_np).to(dev), torch.from_numpy(pts_np).to(dev)
+
+
+def phase_slice(model, pairs, counters: dict, tag: str = "slice", reps: int = 3):
+    """``eval_forward`` once, then ``reps`` timed runs; each counter of
+    ``counters`` (name -> wrapper with a ``launches`` count) is set to 0 just
+    before and read just after.  Returns (launches by name, forwards,
+    point errors, batch ms, peak bytes)."""
+    import torch
+
+    from dmhomo_torch.cli.hem_eval import eval_forward
+
+    cfg = model.config
+    patch, pts = pairs
+    batch = patch.shape[0]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    window_attention.launches = 0  # count the main path only
+    for fn in counters.values():  # count the main path only
+        fn.launches = 0
     t0 = time.perf_counter()
     err = eval_forward(model, patch, pts, cfg.ori_size)
     torch.cuda.synchronize()
@@ -407,26 +444,25 @@ def phase_slice(model, dev, batch: int, seed: int, reps: int = 3):
         eval_forward(model, patch, pts, cfg.ori_size)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-    launches = window_attention.launches
+    launches = {name: fn.launches for name, fn in counters.items()}
     forwards = 1 + reps
 
     err = err.cpu().numpy()
     if err.shape != (batch,) or not np.isfinite(err).all():
         raise SystemExit(f"point errors not finite of shape ({batch},): {err}")
-    per_forward = launches / forwards
     peak = torch.cuda.max_memory_allocated()
     batch_ms = float(np.median(times))
-    log(f"[slice] eval_forward B={batch} {cfg.crop_size}->{cfg.ori_size}: first {first_ms:.1f} ms, "
+    log(f"[{tag}] eval_forward B={batch} {cfg.crop_size}->{cfg.ori_size}: first {first_ms:.1f} ms, "
         f"steady {batch_ms:.2f} ms (runs {', '.join(f'{t:.2f}' for t in times)}), "
         f"{1e3 * batch / batch_ms:.2f} pairs/s, peak {peak / 2**30:.2f} GiB")
-    log(f"[slice] point errors: mean {err.mean():.4f} px, min {err.min():.4f}, "
+    log(f"[{tag}] point errors: mean {err.mean():.4f} px, min {err.min():.4f}, "
         f"max {err.max():.4f} (random weights)")
-    log(f"[slice] window-attention launches: {launches} over {forwards} forwards "
-        f"= {per_forward:g} per forward")
-    return launches, per_forward, batch_ms, peak
+    for name, n in launches.items():
+        log(f"[{tag}] {name} launches: {n} over {forwards} forwards = {n / forwards:g} per forward")
+    return launches, forwards, err, batch_ms, peak
 
 
-def phase_card_vs_cpu(model, seed: int):
+def phase_card_vs_cpu(model, seed: int, tag: str = "card-vs-cpu"):
     import copy
 
     import torch
@@ -441,23 +477,21 @@ def phase_card_vs_cpu(model, seed: int):
     for key, tol in SLICE_TOL.items():
         d = float((gpu[key].cpu() - cpu[key]).abs().max())
         diffs[key] = d
-        log(f"[card-vs-cpu] {key} {tuple(cpu[key].shape)}: max |card - cpu| = {d:.3g} "
+        log(f"[{tag}] {key} {tuple(cpu[key].shape)}: max |card - cpu| = {d:.3g} "
             f"(tol {tol:g}), max |value| {float(cpu[key].abs().max()):.3g}")
         if not d <= tol:
             raise SystemExit(f"card and CPU forwards disagree on {key}: {d} > {tol}")
     return diffs
 
 
-def phase_profile(model, dev, batch: int, seed: int, batch_ms: float):
+def phase_profile(model, pairs, batch_ms: float, tag: str = "profile"):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from dmhomo_torch.cli.hem_eval import eval_forward
 
     cfg = model.config
-    patch_np, pts_np = make_pairs(batch, cfg.ori_size, cfg.crop_size, seed)
-    patch = torch.from_numpy(patch_np).to(dev)
-    pts = torch.from_numpy(pts_np).to(dev)
+    patch, pts = pairs
     eval_forward(model, patch, pts, cfg.ori_size)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -470,10 +504,11 @@ def phase_profile(model, dev, batch: int, seed: int, batch_ms: float):
     # the profiler slows the host, so the idle share is taken against the
     # unprofiled batch time of phase 4
     idle = max(0.0, 1.0 - dev_ms / batch_ms)
-    log(f"[profile] one forward: device busy {dev_ms:.2f} ms of the {batch_ms:.2f} ms "
+    log(f"[{tag}] one forward: device busy {dev_ms:.2f} ms of the {batch_ms:.2f} ms "
         f"unprofiled batch: idle {100 * idle:.1f}%")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
-        log(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+        log(f"[{tag}] {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return dev_ms, idle
 
 
 def sdpa_kernels(fn) -> str:
@@ -1022,6 +1057,187 @@ def phase_gen_profile(gd, cond_batch, step_ms: float):
     return dev_ms, idle, la_ms
 
 
+# ---------------------------------------------------------------------------
+# the whole-block Swin kernel (phases 16-18)
+# ---------------------------------------------------------------------------
+
+
+def block_bound(x, params, mask):
+    """(ms, 'bytes' | 'operations') of one whole Swin block on x (B, H, W,
+    C): x read and y written once, every parameter and the mask read once;
+    per token 2*C*(4C + 2*hidden) flops of projections and 4*64*C of
+    attention (two 64 x 64 x hd products per head)."""
+    B, H, W, C = x.shape
+    hidden = params[10].shape[0]
+    el = x.element_size()
+    nbytes = (2 * x.numel() * el + sum(p.numel() * 4 for p in params)
+              + (mask.numel() * 4 if mask is not None else 0))
+    flops = 2.0 * B * H * W * C * (4 * C + 2 * hidden + 2 * 64)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(x.dtype).split(".")[-1]]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_swin_build():
+    from dmhomo_torch.ops import swin_block as sb
+
+    entry = None
+    for line in sb.build_log().splitlines():
+        m = re.search(r"swin_block_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", line)
+        if m:  # swin_block_fwd_kernel<T, C, HD>
+            dt = "fp32" if m.group(1) == "f" else "bf16"
+            C = int(m.group(2))
+            new = f"{dt} C={C} hd={m.group(3)}"
+            if new != entry:
+                smem = sb.shared_memory_bytes(C, 3 * C)
+                log(f"[sb-build] {new}: {smem} bytes dynamic shared memory (MLP 3C)")
+            entry = new
+        elif entry and ("registers" in line or "spill" in line):
+            log(f"[sb-build] {entry}: {line.split(':', 1)[-1].strip()}")
+
+
+def seeded_swin_blocks(s, dev, gen):
+    """The unfused SwinBlock of a shape, W-MSA and SW-MSA (shift ws/2 and its
+    mask), sharing trained-looking weights drawn from ``gen``."""
+    import torch
+
+    from dmhomo_torch.models.swin import SwinBlock
+
+    blocks = [SwinBlock(s["C"], (s["H"], s["W"]), s["heads"], s["ws"], shift, 3.0).to(dev).eval()
+              for shift in (0, s["shift"])]
+    with torch.no_grad():
+        for name, p in blocks[0].named_parameters():
+            if name.endswith(("norm1.weight", "norm2.weight")):
+                p.copy_(1 + 0.1 * torch.randn(p.shape, generator=gen, device=dev))
+            elif name.endswith("weight"):
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev) / p.shape[1]**0.5)
+            elif name.endswith("relative_position_bias_table"):
+                p.copy_(0.5 * torch.randn(p.shape, generator=gen, device=dev))
+            else:
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen, device=dev))
+    blocks[1].load_state_dict(blocks[0].state_dict())
+    return blocks
+
+
+def phase_swin_kernels(shapes, dev, seed: int):
+    """The whole-block kernel vs its plain version at every Swin-block shape
+    of the shipped estimator, B=32, ±shift, fp32 and bf16."""
+    import torch
+
+    from dmhomo_torch.ops import swin_block as sb
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 16)
+    results, worst = [], {"float32": 0.0, "bfloat16": 0.0}
+    for s in shapes:
+        B, H, W, C, h = BATCH, s["H"], s["W"], s["C"], s["heads"]
+        blocks = seeded_swin_blocks(s, dev, gen)
+        x32 = torch.randn(B, H, W, C, generator=gen, device=dev)
+        for dtype in ("float32", "bfloat16"):
+            x = x32.to(getattr(torch, dtype))
+            for masked in (False, True):
+                blk = blocks[masked]
+                with torch.inference_mode():
+                    params = blk.fused_params()
+                    mask, shift = blk.attn_mask, blk.shift_size
+                    kw = dict(num_heads=h, shift=shift)
+                    got = sb.swin_block(x, params, mask, **kw)
+                    want = sb.swin_block_reference(x, params, mask, **kw)
+
+                    def unfused():
+                        with torch.autocast("cuda", torch.bfloat16, enabled=dtype == "bfloat16"):
+                            return blk(x.reshape(B, H * W, C))
+
+                    torch.cuda.synchronize()
+                    scale = max(1.0, float(want.float().abs().max()))
+                    err = float((got.float() - want.float()).abs().max())
+                    ok = err / scale <= SWIN_TOL[dtype] and bool(torch.isfinite(got).all())
+                    unfused_rel = None
+                    if dtype == "float32":
+                        unfused_rel = float((unfused().reshape(B, H, W, C) - got).abs().max()) / scale
+                        ok = ok and unfused_rel <= SWIN_UNFUSED_TOL
+                    worst[dtype] = max(worst[dtype], err)
+                    ms = cuda_ms(lambda: sb.swin_block(x, params, mask, **kw), iters=10)
+                    plain_ms = cuda_ms(lambda: sb.swin_block_reference(x, params, mask, **kw),
+                                       iters=3, warmup=1)
+                    unfused_ms = cuda_ms(unfused, iters=5, warmup=1)
+                    b_ms, b_by = block_bound(x, params, mask)
+                    del got, want
+                r = {"level": s["level"], "B": B, "H": H, "W": W, "C": C, "heads": h,
+                     "hd": s["hd"], "dtype": dtype, "mask": masked,
+                     "launches_per_forward": s["masked_launches" if masked else "plain_launches"],
+                     "max_abs_err": err, "rel_err": err / scale, "tol": SWIN_TOL[dtype],
+                     "unfused_rel_err": unfused_rel, "ms": ms, "plain_ms": plain_ms,
+                     "unfused_ms": unfused_ms, "bound_ms": b_ms, "bound_by": b_by}
+                results.append(r)
+                log(f"[sb-kernel] {s['level']} {H}x{W} C={C} h={h} hd={s['hd']} B={B} {dtype} "
+                    f"shift={shift}: err={err:.3g} (rel {err / scale:.3g}, tol "
+                    f"{SWIN_TOL[dtype]:g}"
+                    + (f"; unfused rel {unfused_rel:.3g}, tol {SWIN_UNFUSED_TOL:g}"
+                       if unfused_rel is not None else "")
+                    + f") ms={ms:.4f} plain_ms={plain_ms:.4f} unfused_ms={unfused_ms:.4f} "
+                    f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"whole-block kernel disagrees with its plain version: {r}")
+        del blocks, x32, x
+        torch.cuda.empty_cache()
+    return results, worst
+
+
+def phase_fused_slice(dev, pairs, seed: int, window_batch_ms: float):
+    """``eval_forward`` of the fused_block estimator (phase 4's weights), its
+    launches and a profile; then, with trained-looking layer scales of 0.5 in
+    both models (the init's 1e-5 leaves the flows nearly blind to the
+    encoders), its flows against phase 4's model.  Returns that model for
+    phase 18."""
+    import torch
+
+    from dmhomo_torch.cli.hem_eval import eval_forward
+    from dmhomo_torch.config import EstimatorConfig, SwinConfig
+    from dmhomo_torch.models.estimator import build_estimator, upsample_outputs
+    from dmhomo_torch.ops.swin_block import swin_block
+    from dmhomo_torch.ops.window_attention import window_attention
+
+    def seeded(cfg):
+        return build_estimator(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+
+    fused = seeded(EstimatorConfig(swin=SwinConfig(attn_impl="fused_block")))
+    window = seeded(EstimatorConfig())
+    for (k, a), b in zip(fused.state_dict().items(), window.state_dict().values()):
+        if not torch.equal(a, b):
+            raise SystemExit(f"the fused_block estimator's {k} differs from phase 4's")
+    counts, forwards, err, batch_ms, peak = phase_slice(
+        fused, pairs, {"whole-block": swin_block, "window-attention": window_attention},
+        tag="sb-slice")
+    per_forward = {k: n / forwards for k, n in counts.items()}
+    if per_forward != {"whole-block": 40, "window-attention": 0}:
+        raise SystemExit(f"launches per forward {per_forward}, expected 40 whole-block and "
+                         "no window-attention launch")
+    dev_ms, idle = phase_profile(fused, pairs, batch_ms, tag="sb-profile")
+    patch, pts = pairs
+    ori = fused.config.ori_size
+    with torch.inference_mode():
+        for model in (fused, window):
+            for n, p in model.named_parameters():
+                if n.rsplit(".", 1)[-1] in ("gamma_1", "gamma_2"):
+                    p.fill_(0.5)
+        err = eval_forward(fused, patch, pts, ori).cpu().numpy()
+        out_f = upsample_outputs(fused(patch), ori)
+        out_w = upsample_outputs(window(patch), ori)
+        err_w = eval_forward(window, patch, pts, ori).cpu().numpy()
+    flow_px = {k: float((out_f[k] - out_w[k]).abs().max()) for k in ("flow_f", "flow_b")}
+    mask_diff = float((out_f["mask_f"] - out_w["mask_f"]).abs().max())
+    log(f"[sb-slice] against phase 4's window-attention model with the same weights, layer "
+        f"scales 0.5: max |flow diff| {json.dumps(flow_px)} px (tol {FUSED_FLOW_TOL_PX:g}; max "
+        f"|flow_f| {float(out_w['flow_f'].abs().max()):.3g} px), mask_f {mask_diff:.3g}, point "
+        f"errors {float(np.abs(err - err_w).max()):.3g} px; batch {batch_ms:.2f} ms against "
+        f"{window_batch_ms:.2f} ms")
+    if not max(flow_px.values()) <= FUSED_FLOW_TOL_PX:
+        raise SystemExit(f"fused_block flows differ from the window-attention model: {flow_px}")
+    del window
+    return {"model": fused, "launches": counts["whole-block"], "batch_ms": batch_ms,
+            "peak": peak, "flow_px": flow_px, "idle": idle, "dev_ms": dev_ms}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1037,6 +1253,7 @@ def main(argv=None):
 
     from dmhomo_torch.config import EstimatorConfig
     from dmhomo_torch.models.estimator import build_estimator
+    from dmhomo_torch.ops.window_attention import window_attention as wa_fwd
 
     model = build_estimator(EstimatorConfig(), device=dev,
                             generator=torch.Generator().manual_seed(args.seed))
@@ -1044,12 +1261,14 @@ def main(argv=None):
     train_shapes = attention_shapes(model, MICROBATCH)
     expected = sum(s["plain_launches"] + s["masked_launches"] for s in shapes)
     results, worst = phase_kernels(shapes, dev, args.seed)
-    launches, per_forward, batch_ms, peak = phase_slice(model, dev, BATCH, args.seed)
-    if per_forward != expected:
-        raise SystemExit(f"window attention launched {per_forward} times per forward, "
-                         f"expected {expected}")
+    pairs = eval_pairs(model.config, dev, BATCH, args.seed)
+    counts, forwards, _, batch_ms, peak = phase_slice(model, pairs, {"window-attention": wa_fwd})
+    launches = counts["window-attention"]
+    if launches != expected * forwards:
+        raise SystemExit(f"window attention launched {launches} times in {forwards} forwards, "
+                         f"expected {expected} per forward")
     diffs = phase_card_vs_cpu(model, args.seed)
-    phase_profile(model, dev, BATCH, args.seed, batch_ms)
+    phase_profile(model, pairs, batch_ms)
     del model
     torch.cuda.empty_cache()
 
@@ -1069,6 +1288,13 @@ def main(argv=None):
     gen = phase_generate(dev, args.seed)
     gen_diffs = phase_gen_card_vs_cpu(gen["gd"], gen["cond"], args.seed)
     gen_dev_ms, gen_idle, gen_la_ms = phase_gen_profile(gen["gd"], gen["cond"], gen["step_ms"])
+    del gen["gd"]
+    torch.cuda.empty_cache()
+
+    phase_swin_build()
+    sb_results, sb_worst = phase_swin_kernels(shapes, dev, args.seed)
+    sb_slice = phase_fused_slice(dev, pairs, args.seed, batch_ms)
+    sb_diffs = phase_card_vs_cpu(sb_slice.pop("model"), args.seed, tag="sb-card-vs-cpu")
 
     # per-forward totals at the eval path's dtype (fp32) and launch mix
     main = [r for r in results if r["dtype"] == "float32"]
@@ -1162,10 +1388,44 @@ def main(argv=None):
         f"pass 1 {la_kernels[0]['ms']:.1f} ms + pass 2 {la_kernels[1]['ms']:.1f} ms per batch "
         f"(bounds {la_kernels[0]['bound_ms']:.1f} + {la_kernels[1]['bound_ms']:.1f}, plain "
         f"{la_kernels[0]['plain_ms']:.1f} + {la_kernels[1]['plain_ms']:.1f}, cuBLAS x@W_qkv "
-        f"{gemm_ms:.1f}); card-vs-cpu {json.dumps(gen_diffs)}; "
+        f"{gemm_ms:.1f}); card-vs-cpu {json.dumps(gen_diffs)}")
+
+    # per-forward totals of the fused_block eval path (fp32, 40 launches)
+    sb_main = [r for r in sb_results if r["dtype"] == "float32"]
+
+    def sb_per_fwd(key):
+        return sum(r[key] * r["launches_per_forward"] for r in sb_main)
+
+    sb_launches = sum(r["launches_per_forward"] for r in sb_main)
+    unfused_ms = sb_per_fwd("unfused_ms")
+    sb_kernel = {
+        "name": "swin_block_fwd", "route": "cuda",
+        "source": "dmhomo_torch/csrc/swin_block.cu",
+        "replaces": "dmhomo_tpu/ops/swin_block.py:119",
+        "launches": sb_slice["launches"], "max_abs_err": sb_worst["float32"],
+        "ms": sb_per_fwd("ms"), "plain_ms": sb_per_fwd("plain_ms"),
+        "bound_ms": sb_per_fwd("bound_ms"),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in sb_main) else "operations",
+        "library_ms": None,
+        "library": ("none: no one PyTorch call computes a Swin block; yardstick unfused_ms = the "
+                    "port's unfused SwinBlock on the card (window-attention kernel, cuBLAS, "
+                    f"LayerNorm) per forward, {unfused_ms:.3f}"),
+        "unfused_ms": unfused_ms,
+        "unit": (f"sum over the {sb_launches} launches of one estimator forward with "
+                 f"attn_impl='fused_block', B={BATCH}, fp32"),
+        "max_abs_err_bf16": sb_worst["bfloat16"],
+        "eval_batch_ms": sb_slice["batch_ms"],
+        "shapes": sb_results,
+    }
+    log(f"[summary] fused_block eval slice {1e3 * BATCH / sb_slice['batch_ms']:.2f} pairs/s, batch "
+        f"{sb_slice['batch_ms']:.2f} ms (window-attention model {batch_ms:.2f}), peak "
+        f"{sb_slice['peak'] / 2**30:.2f} GiB, device idle {100 * sb_slice['idle']:.1f}%; whole-block "
+        f"kernel {sb_kernel['ms']:.3f} ms per forward (bound {sb_kernel['bound_ms']:.3f}, plain "
+        f"{sb_kernel['plain_ms']:.3f}, unfused SwinBlock {unfused_ms:.3f}); flows vs phase 4 "
+        f"{json.dumps(sb_slice['flow_px'])}; card-vs-cpu {json.dumps(sb_diffs)}; "
         f"total {time.perf_counter() - t_start:.0f} s")
     log(smi)  # nvidia-smi: card name, power limit
-    log(json.dumps({"kernels": [kernel, bwd_kernel] + la_kernels}))
+    log(json.dumps({"kernels": [kernel, bwd_kernel] + la_kernels + [sb_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}), flush=True)
 

@@ -3,6 +3,12 @@
 Only the fields the HEM estimator forward reads; shipped defaults from
 HEM/experiments/params.json: crop 320x576, embed_dim 24, depths (2, 4, 6),
 layer_depth (3, 2, 1), heads (3, 12, 24), window 8, mlp_ratio 3.
+
+``SwinConfig.attn_impl`` takes the JAX package's names: ``'fused_block'``
+runs each Swin block as one whole-block kernel (``ops/swin_block.py``);
+``'xla'``, ``'pallas'`` and ``'auto'`` all run the window-attention kernel
+(its plain version on the CPU).  A comma-separated spec picks one per
+encoder level (see :func:`level_impl`).
 """
 
 from __future__ import annotations
@@ -10,6 +16,20 @@ from __future__ import annotations
 import dataclasses
 import json
 from typing import Optional, Sequence
+
+ATTN_IMPLS = ("xla", "pallas", "auto", "fused_block")
+
+
+def level_impl(attn_impl: str, enc_idx: int) -> str:
+    """The attention implementation of encoder level ``enc_idx`` from a
+    plain name or a comma-separated spec (``'pallas,pallas,fused_block'``,
+    the last entry covering the deeper levels); an unknown name raises."""
+    impls = attn_impl.split(",")
+    impl = impls[min(enc_idx, len(impls) - 1)]
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {impl!r} in {attn_impl!r}; expected one of "
+                         f"{ATTN_IMPLS}")
+    return impl
 
 
 class Params:
@@ -37,6 +57,7 @@ class SwinConfig:
     mlp_ratio: float = 3.0
     qkv_bias: bool = True
     remat: bool = False  # recompute each Swin block in the backward
+    attn_impl: str = "xla"  # see level_impl
 
     @property
     def num_layers(self) -> int:
@@ -47,6 +68,8 @@ class SwinConfig:
         return int(self.embed_dim * 2 ** (self.num_layers - 1))
 
     def __post_init__(self):
+        for enc_idx in range(len(self.attn_impl.split(","))):
+            level_impl(self.attn_impl, enc_idx)
         # every encoder stage ends at num_features channels so the
         # class-attention query tokens see a constant width
         for i, ld in enumerate(self.layer_depth):

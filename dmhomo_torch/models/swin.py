@@ -14,8 +14,12 @@ weight deltas.  Parameter and module names follow the reference state dict.
 Tokens are laid out NHWC-flat (B, H*W, C); convolutions run NCHW inside.
 Window attention goes through ``ops.window_attention`` (the CUDA kernels on
 the card, forward and backward; their plain versions on the CPU).  With
-``SwinConfig.remat`` each Swin block is recomputed in the backward
-(``torch.utils.checkpoint``), as the JAX package's ``nn.remat``.
+``SwinConfig.attn_impl == 'fused_block'`` (per encoder level, see
+``config.level_impl``) a Swin block whose resolution the window divides runs
+as one whole-block kernel instead (``ops.swin_block``; forward only), with
+the same parameters.  With ``SwinConfig.remat`` each Swin block is
+recomputed in the backward (``torch.utils.checkpoint``), as the JAX
+package's ``nn.remat``.
 """
 
 from __future__ import annotations
@@ -26,9 +30,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from dmhomo_torch.config import SwinConfig
+from dmhomo_torch.config import SwinConfig, level_impl
 from dmhomo_torch.geometry.basis import NUM_BASIS, gen_homography_basis
 from dmhomo_torch.geometry.warp import upsample_flow_to, warp_by_flow
+from dmhomo_torch.ops.swin_block import swin_block
 from dmhomo_torch.ops.window_attention import window_attention
 
 
@@ -105,6 +110,7 @@ class WindowAttention(nn.Module):
     def __init__(self, dim: int, window_size: int, num_heads: int, qkv_bias: bool = True):
         super().__init__()
         self.num_heads = num_heads
+        self.window_tokens = window_size * window_size
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
@@ -114,16 +120,25 @@ class WindowAttention(nn.Module):
             torch.from_numpy(relative_position_index(window_size).reshape(-1)),
             persistent=False)
 
-    def forward(self, x: torch.Tensor, mask: "torch.Tensor | None" = None) -> torch.Tensor:
-        N = x.shape[1]
+    def position_bias(self) -> torch.Tensor:
+        """(heads, N, N) fp32 relative-position bias from the table."""
+        N = self.window_tokens
         bias = self.relative_position_bias_table[self.rel_index].reshape(N, N, self.num_heads)
-        bias = bias.permute(2, 0, 1).contiguous().float()  # (h, N, N)
-        return self.proj(window_attention(self.qkv(x), bias, mask, num_heads=self.num_heads))
+        return bias.permute(2, 0, 1).contiguous().float()
+
+    def forward(self, x: torch.Tensor, mask: "torch.Tensor | None" = None) -> torch.Tensor:
+        return self.proj(window_attention(self.qkv(x), self.position_bias(), mask,
+                                          num_heads=self.num_heads))
 
 
 class SwinBlock(nn.Module):
+    """W-MSA / SW-MSA block: window attention and an MLP, each pre-LayerNorm
+    and residual.  ``attn_impl == 'fused_block'`` runs the whole block as
+    one kernel where the window divides the resolution."""
+
     def __init__(self, dim: int, input_resolution: tuple, num_heads: int,
-                 window_size: int, shift_size: int, mlp_ratio: float, qkv_bias: bool = True):
+                 window_size: int, shift_size: int, mlp_ratio: float, qkv_bias: bool = True,
+                 attn_impl: str = "xla"):
         super().__init__()
         H, W = input_resolution
         if min(H, W) <= window_size:  # the window covers the whole map
@@ -131,6 +146,7 @@ class SwinBlock(nn.Module):
         self.resolution = (H, W)
         self.window_size = window_size
         self.shift_size = shift_size
+        self.fused = attn_impl == "fused_block" and H % window_size == 0 and W % window_size == 0
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
@@ -140,6 +156,8 @@ class SwinBlock(nn.Module):
         self.register_buffer("attn_mask", mask, persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            return self._fused_forward(x)
         H, W = self.resolution
         ws, shift = self.window_size, self.shift_size
         B, L, C = x.shape
@@ -151,6 +169,24 @@ class SwinBlock(nn.Module):
             y = torch.roll(y, shifts=(shift, shift), dims=(1, 2))
         x = x + y.reshape(B, L, C)
         return x + self.mlp(self.norm2(x))
+
+    def fused_params(self) -> tuple:
+        """The block's parameters as ``ops.swin_block`` takes them."""
+        attn, mlp = self.attn, self.mlp
+        bq = attn.qkv.bias
+        if bq is None:
+            bq = attn.qkv.weight.new_zeros(attn.qkv.weight.shape[0])
+        return (self.norm1.weight, self.norm1.bias, attn.qkv.weight, bq, attn.position_bias(),
+                attn.proj.weight, attn.proj.bias, self.norm2.weight, self.norm2.bias,
+                mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight, mlp.fc2.bias)
+
+    def _fused_forward(self, x: torch.Tensor) -> torch.Tensor:
+        H, W = self.resolution
+        B, L, C = x.shape
+        y = swin_block(x.reshape(B, H, W, C), self.fused_params(), self.attn_mask,
+                       num_heads=self.attn.num_heads, window_size=self.window_size,
+                       shift=self.shift_size)
+        return y.reshape(B, L, C)
 
 
 class PatchMerging(nn.Module):
@@ -180,7 +216,7 @@ class BasicLayer(nn.Module):
 
     def __init__(self, dim: int, input_resolution: tuple, depth: int, layer_depth: int,
                  num_heads: int, window_size: int, mlp_ratio: float, qkv_bias: bool = True,
-                 remat: bool = False):
+                 remat: bool = False, attn_impl: str = "xla"):
         super().__init__()
         self.remat = remat
         mods = []
@@ -190,7 +226,7 @@ class BasicLayer(nn.Module):
             for i in range(depth):
                 mods.append(SwinBlock(d, res, num_heads, window_size,
                                       0 if i % 2 == 0 else window_size // 2,
-                                      mlp_ratio, qkv_bias))
+                                      mlp_ratio, qkv_bias, attn_impl))
             if l < layer_depth - 1:
                 mods.append(PatchMerging(d, res))
         self.layer = nn.Sequential(*mods)
@@ -296,7 +332,8 @@ class SwinTransformer(nn.Module):
                                   cfg.crop_size[1] // 2 ** (e + 1)),
                 depth=cfg.depths[e], layer_depth=cfg.layer_depth[e],
                 num_heads=cfg.num_heads[e], window_size=cfg.window_size,
-                mlp_ratio=cfg.mlp_ratio, qkv_bias=cfg.qkv_bias, remat=cfg.remat)
+                mlp_ratio=cfg.mlp_ratio, qkv_bias=cfg.qkv_bias, remat=cfg.remat,
+                attn_impl=level_impl(cfg.attn_impl, e))
             for e in range(nL))
         blk_heads = list(cfg.num_heads[1:]) + [cfg.num_heads[-1]]
         self.blocks_token_only = nn.ModuleList(

@@ -82,8 +82,23 @@ Phases, each printing its results; any failure exits non-zero:
     0.5.
 18. whole-block card vs CPU: phase 5 for the ``fused_block`` model (layer
     scales 0.5).
+19. whole-block backward vs plain: registers, spills and dynamic shared
+    memory of each backward variant of ``csrc/swin_block.cu``; then the
+    backward kernel and its plain PyTorch version at every Swin-block shape
+    of a training microbatch (B=8), with and without the shift and its
+    mask, fp32 and bf16: errors of dx and the 13 parameter gradients against
+    the stated tolerance, and CUDA-event times of the kernel, the plain
+    backward and the port's unfused ``SwinBlock`` forward + backward on the
+    card (a yardstick only), beside the bound.
+20. whole-block training slice: ``HEMTrainer(HEMTrainConfig(attn_impl=
+    'fused_block'))``, otherwise shipped (remat resolves on, as in JAX), on
+    phase 8's batch: the loss is finite and falls; exactly 320 whole-block
+    forward launches per step (160 forwards and their 160 remat recomputes),
+    160 backward launches and no window-attention launch; step ms, pairs/s,
+    peak memory, a profile, and the I/O dtype of each block in one forward.
+21. whole-block training card vs CPU: phase 9 with ``attn_impl='fused_block'``.
 
-The line before the last is a JSON object with the five kernels' numbers;
+The line before the last is a JSON object with the six kernels' numbers;
 the last is ``{"ok": true, "device": {...}}``.
 """
 
@@ -678,7 +693,8 @@ def phase_train(dev, seed: int):
             "fwd_launches": fwd_total, "bwd_launches": bwd_total}
 
 
-def phase_train_card_vs_cpu(dev, seed: int):
+def phase_train_card_vs_cpu(dev, seed: int, attn_impl: str = "auto",
+                            tag: str = "train-card-vs-cpu"):
     import copy
     import dataclasses
 
@@ -688,7 +704,8 @@ def phase_train_card_vs_cpu(dev, seed: int):
     from dmhomo_torch.train.config import HEMTrainConfig
     from dmhomo_torch.train.hem_trainer import HEMTrainer
 
-    cfg = dataclasses.replace(HEMTrainConfig(), bf16=False, grad_accum=1, remat=False)
+    cfg = dataclasses.replace(HEMTrainConfig(), bf16=False, grad_accum=1, remat=False,
+                              attn_impl=attn_impl)
     trainer = HEMTrainer(cfg, device=dev)
     trainer.init_state(seed + 1)
     with torch.no_grad():  # trained-looking layer scales: the init's 1e-5 would leave the
@@ -714,7 +731,7 @@ def phase_train_card_vs_cpu(dev, seed: int):
                           {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
     (loss_card, g_card), (loss_cpu, g_cpu), (_, g_nudged) = results.values()
     loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
-    log(f"[train-card-vs-cpu] fp32 loss card {loss_card:.7f} cpu {loss_cpu:.7f}: "
+    log(f"[{tag}] attn_impl={attn_impl!r}: fp32 loss card {loss_card:.7f} cpu {loss_cpu:.7f}: "
         f"rel {loss_rel:.3g} (tol {STEP_LOSS_TOL:g})")
 
     def rel(a, g):
@@ -727,14 +744,15 @@ def phase_train_card_vs_cpu(dev, seed: int):
     # backward kernel's dbias (W-MSA, then SW-MSA with the mask)
     named = ("h_net.encoder_layers.0.layer.0.attn.relative_position_bias_table",
              "h_net.encoder_layers.0.layer.1.attn.relative_position_bias_table",
-             "h_net.encoder_layers.0.layer.0.attn.qkv.weight", "h_net.head2.weight",
+             "h_net.encoder_layers.0.layer.0.attn.qkv.weight",
+             "h_net.encoder_layers.0.layer.1.attn.qkv.weight", "h_net.head2.weight",
              "mask_generator.conv1.0.weight")
     for n in named:
-        log(f"[train-card-vs-cpu] grad {n} {tuple(g_cpu[n].shape)}: max |card - cpu| / "
+        log(f"[{tag}] grad {n} {tuple(g_cpu[n].shape)}: max |card - cpu| / "
             f"max |cpu| = {rels[n]:.3g}; the CPU's own change for an input nudged by "
             f"{STEP_INPUT_NOISE:g}: {noise[n]:.3g}; tol {tols[n]:.3g}")
     order = sorted(rels, key=lambda n: -rels[n] / tols[n])
-    log(f"[train-card-vs-cpu] closest to their tolerance of all {len(rels)} parameters: "
+    log(f"[{tag}] closest to their tolerance of all {len(rels)} parameters: "
         + ", ".join(f"{n} {rels[n]:.3g} (tol {tols[n]:.3g})" for n in order[:3]))
     bad = [n for n in order if not rels[n] <= tols[n]]
     if bad or not loss_rel <= STEP_LOSS_TOL:
@@ -1078,22 +1096,22 @@ def block_bound(x, params, mask):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_swin_build():
+def phase_swin_build(direction: str = "fwd", tag: str = "sb-build"):
     from dmhomo_torch.ops import swin_block as sb
 
     entry = None
     for line in sb.build_log().splitlines():
-        m = re.search(r"swin_block_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", line)
-        if m:  # swin_block_fwd_kernel<T, C, HD>
-            dt = "fp32" if m.group(1) == "f" else "bf16"
-            C = int(m.group(2))
-            new = f"{dt} C={C} hd={m.group(3)}"
-            if new != entry:
-                smem = sb.shared_memory_bytes(C, 3 * C)
-                log(f"[sb-build] {new}: {smem} bytes dynamic shared memory (MLP 3C)")
-            entry = new
+        m = re.search(r"swin_block_(fwd|bwd)_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", line)
+        if m:  # swin_block_{fwd,bwd}_kernel<T, C, HD>
+            dt = "fp32" if m.group(2) == "f" else "bf16"
+            C = int(m.group(3))
+            new = f"{m.group(1)} {dt} C={C} hd={m.group(4)}"
+            if m.group(1) == direction and new != entry:
+                smem = sb.shared_memory_bytes(C, 3 * C, backward=direction == "bwd")
+                log(f"[{tag}] {new}: {smem} bytes dynamic shared memory (MLP 3C)")
+            entry = new if m.group(1) == direction else None
         elif entry and ("registers" in line or "spill" in line):
-            log(f"[sb-build] {entry}: {line.split(':', 1)[-1].strip()}")
+            log(f"[{tag}] {entry}: {line.split(':', 1)[-1].strip()}")
 
 
 def seeded_swin_blocks(s, dev, gen):
@@ -1238,6 +1256,231 @@ def phase_fused_slice(dev, pairs, seed: int, window_batch_ms: float):
             "peak": peak, "flow_px": flow_px, "idle": idle, "dev_ms": dev_ms}
 
 
+def block_bwd_bound(x, params, mask):
+    """(ms, 'bytes' | 'operations') of one whole Swin block backward on x (B,
+    H, W, C), counting the Pallas ``_bwd_kernel``'s own work: x and dy read
+    and dx written once, every parameter and the mask read once and every
+    fp32 parameter gradient written once; per token the forward recompute
+    without its last product (2*C*(4C + hidden) flops of projections, two
+    64 x 64 x hd attention products per head), two products per projection
+    (2*2*C*(4C + 2*hidden)) and six 64 x 64 x hd products per head."""
+    B, H, W, C = x.shape
+    hidden = params[10].shape[0]
+    el = x.element_size()
+    nbytes = (3 * x.numel() * el + 2 * sum(p.numel() * 4 for p in params)
+              + (mask.numel() * 4 if mask is not None else 0))
+    flops = 2.0 * B * H * W * C * (12 * C + 5 * hidden + 8 * 64)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(x.dtype).split(".")[-1]]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def train_block_dtype(sub: int) -> str:
+    """The I/O dtype of a Swin block of sub-level ``sub`` in the bf16
+    training step: each encoder level's tokens enter in bf16 (both halves of
+    the concat cast to the autocast dtype, as the JAX bf16 estimator casts
+    them), and a PatchMerging's BatchNorm hands the next sub-level fp32."""
+    return "bfloat16" if sub == 0 else "float32"
+
+
+def train_block_dtypes(model) -> list:
+    """``train_block_dtype`` of each Swin block of one estimator forward, in
+    call order: the encoder levels coarsest first, twice (``h_net`` runs
+    once per direction)."""
+    out = []
+    for layer in reversed(model.h_net.encoder_layers):
+        sub = 0
+        for m in layer.layer:
+            if hasattr(m, "attn"):
+                out.append(train_block_dtype(sub))
+            else:  # PatchMerging closes a sub-level
+                sub += 1
+    return out * 2
+
+
+def phase_swin_bwd_kernels(shapes, dev, seed: int):
+    """The whole-block backward kernel vs its plain version at every
+    Swin-block shape of a training microbatch (B=8), +-shift, fp32 and bf16."""
+    import torch
+
+    from dmhomo_torch.ops import swin_block as sb
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    results, worst = [], {}
+    for s in shapes:
+        B, H, W, C, h = MICROBATCH, s["H"], s["W"], s["C"], s["heads"]
+        blocks = seeded_swin_blocks(s, dev, gen)
+        x32 = torch.randn(B, H, W, C, generator=gen, device=dev)
+        dy32 = torch.randn(B, H, W, C, generator=gen, device=dev)
+        for dtype in ("float32", "bfloat16"):
+            x, dy = x32.to(getattr(torch, dtype)), dy32.to(getattr(torch, dtype))
+            for masked in (False, True):
+                blk = blocks[masked]
+                params = tuple(p.detach() for p in blk.fused_params())
+                mask, shift = blk.attn_mask, blk.shift_size
+                kw = dict(num_heads=h, shift=shift)
+                dx, grads = sb.swin_block_backward(x, params, mask, dy, **kw)
+                want_dx, want = sb.swin_block_backward_reference(x, params, mask, dy, **kw)
+                torch.cuda.synchronize()
+                errs, rels, finite = {}, {}, True
+                for name, got, w in zip(("dx",) + sb.PARAM_NAMES, (dx,) + grads, (want_dx,) + want):
+                    errs[name] = float((got.float() - w.float()).abs().max())
+                    rels[name] = errs[name] / max(1.0, float(w.float().abs().max()))
+                    finite = finite and bool(torch.isfinite(got).all())
+                    worst[(dtype, name)] = max(worst.get((dtype, name), 0.0), errs[name])
+                rel = max(rels.values())
+                ok = finite and rel <= BWD_TOL[dtype]
+                del dx, grads, want_dx, want
+                xu = x.reshape(B, H * W, C).detach().requires_grad_()
+                dyu = dy.reshape(B, H * W, C)
+                weights = list(blk.parameters())
+
+                def unfused():
+                    with torch.autocast(dev.type, torch.bfloat16, enabled=dtype == "bfloat16"):
+                        y = blk(xu)
+                    return torch.autograd.grad(y, [xu] + weights, dyu)
+
+                ms = cuda_ms(lambda: sb.swin_block_backward(x, params, mask, dy, **kw), iters=10)
+                plain_ms = cuda_ms(lambda: sb.swin_block_backward_reference(x, params, mask, dy,
+                                                                            **kw),
+                                   iters=3, warmup=1)
+                unfused_ms = cuda_ms(unfused, iters=5, warmup=1)
+                b_ms, b_by = block_bwd_bound(x, params, mask)
+                per_step = (s["masked_launches"] if masked else s["plain_launches"]) * (
+                    BATCH // MICROBATCH)
+                r = {"level": s["level"], "B": B, "H": H, "W": W, "C": C, "heads": h,
+                     "hd": s["hd"], "dtype": dtype, "mask": masked, "launches_per_step": per_step,
+                     "train_dtype": train_block_dtype(int(s["level"][-1])), "max_abs_err": errs,
+                     "rel_err": rel,
+                     "worst": max(rels, key=rels.get), "tol": BWD_TOL[dtype], "ms": ms,
+                     "plain_ms": plain_ms, "unfused_ms": unfused_ms, "bound_ms": b_ms,
+                     "bound_by": b_by}
+                results.append(r)
+                log(f"[sb-bwd-kernel] {s['level']} {H}x{W} C={C} h={h} hd={s['hd']} B={B} "
+                    f"{dtype} shift={shift}: rel err {rel:.3g} (worst {r['worst']}; dx "
+                    f"{rels['dx']:.3g}, bias {rels['bias']:.3g}, wq {rels['wq']:.3g}; tol "
+                    f"{BWD_TOL[dtype]:g}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                    f"unfused_ms={unfused_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"whole-block backward kernel disagrees with its plain "
+                                     f"version: {r}")
+        del blocks, x32, dy32, x, dy
+        torch.cuda.empty_cache()
+    return results, worst
+
+
+def phase_train_fused(dev, batch, seed: int, window_step_ms: float):
+    """Phase 8 with ``attn_impl='fused_block'``: every Swin block of the step
+    is one whole-block forward launch (and one more in the remat recompute)
+    and one backward launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import dmhomo_torch.models.swin as swin_mod
+    from dmhomo_torch.ops import swin_block as sb
+    from dmhomo_torch.ops import window_attention as wa
+    from dmhomo_torch.train.config import HEMTrainConfig
+    from dmhomo_torch.train.hem_trainer import HEMTrainer
+
+    cfg = HEMTrainConfig(attn_impl="fused_block")
+    trainer = HEMTrainer(cfg, steps_per_epoch=1000, device=dev)
+    trainer.init_state(seed)
+    swin = trainer.model.h_net.config
+    if swin.attn_impl != "fused_block" or not swin.remat:
+        raise SystemExit(f"attn_impl={swin.attn_impl!r} remat={swin.remat}: expected "
+                         "'fused_block' with remat on, as the JAX trainer resolves it")
+    counters = {"fwd": sb.swin_block, "bwd": sb.swin_block_backward,
+                "wa_fwd": wa.window_attention, "wa_bwd": wa.window_attention_backward}
+    blocks = sum(isinstance(m, swin_mod.SwinBlock) for m in trainer.model.h_net.modules())
+    per_step = 2 * blocks * (BATCH // MICROBATCH)  # h_net runs twice per forward: 160
+    want = {"fwd": 2 * per_step, "bwd": per_step, "wa_fwd": 0, "wa_bwd": 0}
+    log(f"[sb-train] config bf16={cfg.bf16} grad_accum={cfg.grad_accum} "
+        f"attn_impl={swin.attn_impl!r} remat={swin.remat}")
+    losses, times, launches = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(WARMUP_STEPS + TIMED_STEPS):
+        if step == WARMUP_STEPS:  # count the timed steps of the main path only
+            for fn in counters.values():
+                fn.launches = 0
+        before = {k: fn.launches for k, fn in counters.items()}
+        t0 = time.perf_counter()
+        out = trainer.train_step(batch)
+        loss = float(out["total"])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        launches.append({k: fn.launches - before[k] for k, fn in counters.items()})
+        log(f"[sb-train] step {step + 1}: loss {loss:.5f}, {times[-1]:.1f} ms, launches "
+            f"{launches[-1]}")
+    totals = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.median(times[WARMUP_STEPS:]))
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"training loss not finite: {losses}")
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    if not last < first:
+        raise SystemExit(f"training loss did not fall: first steps {first}, last steps {last}")
+    if any(n != want for n in launches[WARMUP_STEPS:]) or \
+            totals != {k: v * TIMED_STEPS for k, v in want.items()}:
+        raise SystemExit(f"launches per step {launches}, expected {want}")
+    log(f"[sb-train] fused_block B={BATCH} (microbatches of {MICROBATCH}), bf16: first step "
+        f"{times[0]:.1f} ms, steady {step_ms:.2f} ms (timed "
+        f"{', '.join(f'{t:.1f}' for t in times[WARMUP_STEPS:])}), {1e3 * BATCH / step_ms:.2f} "
+        f"training pairs/s, peak {peak / 2**30:.2f} GiB; phase 8's window-attention step "
+        f"{window_step_ms:.2f} ms")
+    log(f"[sb-train] loss mean of the first 3 steps {first:.5f} > last 3 {last:.5f}; launches "
+        f"over {TIMED_STEPS} timed steps {totals} = per step {per_step} whole-block forwards, "
+        f"{per_step} remat recomputes of them, {per_step} backwards, no window attention")
+
+    # the I/O dtype of each whole-block call of one step, in call order
+    seen = []
+    block = swin_mod.swin_block
+
+    def spy(x, *args, **kw):
+        seen.append(str(x.dtype).split(".")[-1])
+        return block(x, *args, **kw)
+
+    swin_mod.swin_block = spy
+    try:
+        trainer.train_step(batch)
+    finally:
+        swin_mod.swin_block = block
+    expected = train_block_dtypes(trainer.model)
+    # every forward of the step (4 microbatches, each recomputed) has that mix
+    forwards = len(seen) // len(expected)
+    counts = {d: seen.count(d) for d in sorted(set(seen))}
+    if seen[:len(expected)] != expected or len(seen) != forwards * len(expected) or \
+            counts != {d: forwards * expected.count(d) for d in counts}:
+        raise SystemExit(f"block I/O dtypes of one forward {seen[:len(expected)]}, expected "
+                         f"{expected}; {counts} over the step")
+    log(f"[sb-train] block I/O dtypes of one forward (in call order, matching the JAX bf16 "
+        f"estimator): {' '.join('bf16' if d == 'bfloat16' else 'f32' for d in expected[:20])} "
+        f"(x2); the {len(seen)} whole-block forward calls of the step: {counts}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if dev_ms <= 0:
+        raise SystemExit("the profiler saw no device time")
+    idle = max(0.0, 1.0 - dev_ms / step_ms)
+    kern = {d: sum(e.self_device_time_total for e in events
+                   if f"swin_block_{d}_kernel" in e.key) / 1e3 for d in ("fwd", "bwd")}
+    log(f"[sb-train-profile] one step: device busy {dev_ms:.2f} ms of the {step_ms:.2f} ms "
+        f"unprofiled step: idle {100 * idle:.1f}%; whole-block forward kernel {kern['fwd']:.2f} "
+        f"ms, backward kernel {kern['bwd']:.2f} ms")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
+        log(f"[sb-train-profile] {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+            f"{e.key[:90]}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "peak": peak, "launches": totals, "idle": idle,
+            "dev_ms": dev_ms, "kernel_ms": kern, "dtypes": expected[:20]}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1277,7 +1520,8 @@ def main(argv=None):
     step_diffs = phase_train_card_vs_cpu(dev, args.seed)
     dev_ms, idle, attn_ms = phase_train_profile(train["trainer"], train["batch"],
                                                 train["step_ms"])
-    del train["trainer"], train["batch"]
+    train_batch = train.pop("batch")
+    del train["trainer"]
     torch.cuda.empty_cache()
 
     from dmhomo_torch.models.unet import UNetConfig
@@ -1295,6 +1539,13 @@ def main(argv=None):
     sb_results, sb_worst = phase_swin_kernels(shapes, dev, args.seed)
     sb_slice = phase_fused_slice(dev, pairs, args.seed, batch_ms)
     sb_diffs = phase_card_vs_cpu(sb_slice.pop("model"), args.seed, tag="sb-card-vs-cpu")
+    torch.cuda.empty_cache()
+
+    phase_swin_build("bwd", tag="sb-bwd-build")
+    sbb_results, sbb_worst = phase_swin_bwd_kernels(train_shapes, dev, args.seed)
+    sb_train = phase_train_fused(dev, train_batch, args.seed, train["step_ms"])
+    sb_step_diffs = phase_train_card_vs_cpu(dev, args.seed, attn_impl="fused_block",
+                                            tag="sb-train-card-vs-cpu")
 
     # per-forward totals at the eval path's dtype (fp32) and launch mix
     main = [r for r in results if r["dtype"] == "float32"]
@@ -1415,6 +1666,7 @@ def main(argv=None):
                  f"attn_impl='fused_block', B={BATCH}, fp32"),
         "max_abs_err_bf16": sb_worst["bfloat16"],
         "eval_batch_ms": sb_slice["batch_ms"],
+        "launches_train": sb_train["launches"]["fwd"],
         "shapes": sb_results,
     }
     log(f"[summary] fused_block eval slice {1e3 * BATCH / sb_slice['batch_ms']:.2f} pairs/s, batch "
@@ -1422,10 +1674,53 @@ def main(argv=None):
         f"{sb_slice['peak'] / 2**30:.2f} GiB, device idle {100 * sb_slice['idle']:.1f}%; whole-block "
         f"kernel {sb_kernel['ms']:.3f} ms per forward (bound {sb_kernel['bound_ms']:.3f}, plain "
         f"{sb_kernel['plain_ms']:.3f}, unfused SwinBlock {unfused_ms:.3f}); flows vs phase 4 "
-        f"{json.dumps(sb_slice['flow_px'])}; card-vs-cpu {json.dumps(sb_diffs)}; "
-        f"total {time.perf_counter() - t_start:.0f} s")
+        f"{json.dumps(sb_slice['flow_px'])}; card-vs-cpu {json.dumps(sb_diffs)}")
+
+    # per-training-step totals of the fused_block step: each block shape at
+    # the dtype the bf16 step gives it, launches per step of microbatches of 8
+    sbb_main = [r for r in sbb_results if r["dtype"] == r["train_dtype"]]
+
+    def sbb_per_step(key):
+        return sum(r[key] * r["launches_per_step"] for r in sbb_main)
+
+    sbb_launches = sum(r["launches_per_step"] for r in sbb_main)
+    sbb_unfused_ms = sbb_per_step("unfused_ms")
+    sbb_kernel = {
+        "name": "swin_block_bwd", "route": "cuda",
+        "source": "dmhomo_torch/csrc/swin_block.cu",
+        "replaces": "dmhomo_tpu/ops/swin_block.py:158",
+        "launches": sb_train["launches"]["bwd"],
+        "max_abs_err": max(v for (dt, _), v in sbb_worst.items() if dt == "bfloat16"),
+        "ms": sbb_per_step("ms"), "plain_ms": sbb_per_step("plain_ms"),
+        "bound_ms": sbb_per_step("bound_ms"),
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in sbb_main)
+                     else "operations"),
+        "library_ms": None,
+        "library": ("none: no one PyTorch call computes a Swin block's backward; yardstick "
+                    "unfused_ms = the port's unfused SwinBlock forward + backward on the card "
+                    f"(window-attention kernels, cuBLAS, LayerNorm) per step, {sbb_unfused_ms:.3f}"),
+        "unfused_ms": sbb_unfused_ms,
+        "unit": (f"sum over the {sbb_launches} launches of one training step with "
+                 f"attn_impl='fused_block', B={BATCH} in microbatches of {MICROBATCH}, each "
+                 "block at its bf16-step dtype (each encoder level's first sub-level bf16, the "
+                 "rest fp32)"),
+        "max_abs_err_fp32": max(v for (dt, _), v in sbb_worst.items() if dt == "float32"),
+        "max_rel_err": {dt: max(r["rel_err"] for r in sbb_results if r["dtype"] == dt)
+                        for dt in ("float32", "bfloat16")},
+        "max_abs_err_by_output": {f"{dt} {n}": v for (dt, n), v in sbb_worst.items()},
+        "profiled_ms_per_step": sb_train["kernel_ms"]["bwd"],
+        "train_step_ms": sb_train["step_ms"],
+        "shapes": sbb_results,
+    }
+    log(f"[summary] fused_block training {1e3 * BATCH / sb_train['step_ms']:.2f} pairs/s, step "
+        f"{sb_train['step_ms']:.2f} ms (window-attention step {train['step_ms']:.2f}), peak "
+        f"{sb_train['peak'] / 2**30:.2f} GiB, device idle {100 * sb_train['idle']:.1f}%; "
+        f"whole-block backward kernel {sbb_kernel['ms']:.3f} ms per step (bound "
+        f"{sbb_kernel['bound_ms']:.3f}, plain {sbb_kernel['plain_ms']:.3f}, unfused SwinBlock "
+        f"fwd+bwd {sbb_unfused_ms:.3f}; profiled {sb_train['kernel_ms']['bwd']:.2f}); step "
+        f"card-vs-cpu {json.dumps(sb_step_diffs)}; total {time.perf_counter() - t_start:.0f} s")
     log(smi)  # nvidia-smi: card name, power limit
-    log(json.dumps({"kernels": [kernel, bwd_kernel] + la_kernels + [sb_kernel]}))
+    log(json.dumps({"kernels": [kernel, bwd_kernel] + la_kernels + [sb_kernel, sbb_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}), flush=True)
 

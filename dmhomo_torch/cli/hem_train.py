@@ -9,6 +9,12 @@ stage-2 params.json or --stage2, and --resume --ow from stage 1.
 Example (CPU, tiny config):
   python -m dmhomo_torch.cli.hem_train --synthetic 64 --tiny --steps 10 --device cpu
 
+--attn picks the attention implementation as the JAX CLI's does ('auto':
+the window-attention kernel on the card, the plain path on the CPU;
+'fused_block': each Swin block as one whole-block kernel, forward and
+backward).  The kernels take the shipped widths only: --tiny with
+--attn fused_block raises on the card and trains on --device cpu.
+
 Runs on ``cuda`` (raises without a card) unless ``--device cpu``.
 """
 
@@ -48,6 +54,10 @@ def main(argv=None):
     parser.add_argument("--torch-ckpt", type=str, default=None, help="init from a HEM .pth")
     parser.add_argument("--steps", type=int, default=0, help="total steps (default: epochs)")
     parser.add_argument("--tiny", action="store_true", help="tiny config")
+    parser.add_argument("--attn", type=str, default=None,
+                        choices=("auto", "xla", "pallas", "fused_block"),
+                        help="attention impl (default: the config's 'auto' = the "
+                             "window-attention kernel on the card, plain on the CPU)")
     parser.add_argument("--out", type=str, default="experiments/hem")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda")
@@ -77,6 +87,10 @@ def main(argv=None):
         cfg = HEMTrainConfig.stage2(model_dir=args.out)
     else:
         cfg = HEMTrainConfig(model_dir=args.out)
+    if args.attn:
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, attn_impl=args.attn)
 
     crop, ori, rho = cfg.estimator.crop_size, cfg.estimator.ori_size, cfg.rho
     if args.samples:

@@ -16,8 +16,10 @@ Window attention goes through ``ops.window_attention`` (the CUDA kernels on
 the card, forward and backward; their plain versions on the CPU).  With
 ``SwinConfig.attn_impl == 'fused_block'`` (per encoder level, see
 ``config.level_impl``) a Swin block whose resolution the window divides runs
-as one whole-block kernel instead (``ops.swin_block``; forward only), with
-the same parameters.  With ``SwinConfig.remat`` each Swin block is
+as one whole-block kernel instead (``ops.swin_block``, forward and
+backward), with the same parameters.  Under autocast each level's tokens
+enter the encoder in the autocast dtype, as the JAX package casts them to
+its activation dtype.  With ``SwinConfig.remat`` each Swin block is
 recomputed in the backward (``torch.utils.checkpoint``), as the JAX
 package's ``nn.remat``.
 """
@@ -368,6 +370,10 @@ class SwinTransformer(nn.Module):
             else:
                 flow_l = upsample_flow_to(self.flow(weight), (h_x, w_x))
                 x2_warp = warp_by_flow(x2, flow_l, mode="collapse")
+            dev = x1.device.type
+            if torch.is_autocast_enabled(dev):  # the warp returns fp32
+                dt = torch.get_autocast_dtype(dev)
+                x1, x2_warp = x1.to(dt), x2_warp.to(dt)
             tok = torch.cat([x1, x2_warp], dim=-1).reshape(B, h_x * w_x, -1)
             enc_idx = nL - l - 1
             tok = self.encoder_layers[enc_idx](tok)

@@ -1,14 +1,13 @@
 """HEM training config (the JAX package's ``HEMTrainConfig``; reference
-HEM/experiments/params.json and its stage2 variant).
-
-The JAX ``attn_impl`` switch has no counterpart: on the card the port's
-window attention always runs its kernels.
+HEM/experiments/params.json and its stage2 variant), and how the trainer
+resolves its ``attn_impl`` and ``remat`` as the JAX trainer does, with the
+port's ``'cuda'`` in the place of JAX's ``'tpu'`` backend.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Union
 
 from dmhomo_torch.config import EstimatorConfig, Params
 from dmhomo_torch.losses.hem_losses import LossWeights
@@ -22,8 +21,12 @@ class HEMTrainConfig:
     ``bf16`` runs the forward under bf16 autocast (parameters, BatchNorm and
     the losses stay fp32).  ``grad_accum`` splits each batch into that many
     microbatches (BatchNorm statistics per microbatch, one optimizer step);
-    it is clamped to what divides the batch.  ``remat`` 'auto' recomputes
-    each Swin block in the backward only when ``grad_accum`` < 4.
+    it is clamped to what divides the batch.  ``attn_impl`` 'auto' is the
+    window-attention kernel ('pallas') on the card and 'xla' on the CPU;
+    'xla', 'pallas', 'fused_block' or a per-level spec force the choice;
+    None keeps ``estimator.swin.attn_impl``.  ``remat`` 'auto' recomputes
+    each Swin block in the backward unless the impl is 'pallas' and
+    ``grad_accum`` >= 4.
     """
 
     estimator: EstimatorConfig = EstimatorConfig()
@@ -41,6 +44,7 @@ class HEMTrainConfig:
     bf16: bool = True
     remat: Union[bool, str] = "auto"
     grad_accum: int = 4
+    attn_impl: Optional[str] = "auto"
 
     @staticmethod
     def stage2(**overrides) -> "HEMTrainConfig":
@@ -76,18 +80,32 @@ class HEMTrainConfig:
         return cls(**kw)
 
 
-def resolve_remat(requested: Union[bool, str], grad_accum: int) -> bool:
-    """'auto' -> off when ``grad_accum`` >= 4 (the microbatch's saved
-    activations fit), on otherwise; booleans pass through."""
+def resolve_attn_impl(requested: Optional[str], device_type: str) -> Optional[str]:
+    """'auto' -> 'pallas' (the window-attention kernel) on the card, 'xla'
+    on the CPU, as the JAX trainer resolves it on TPU and CPU; other values,
+    and None (keep the Swin config's), pass through."""
+    if requested != "auto":
+        return requested
+    return "pallas" if device_type == "cuda" else "xla"
+
+
+def resolve_remat(requested: Union[bool, str], attn_impl: Optional[str], grad_accum: int) -> bool:
+    """'auto' -> off only for ``attn_impl == 'pallas'`` (the whole spec) with
+    ``grad_accum`` >= 4, where a microbatch's saved activations fit; on
+    otherwise.  Booleans pass through."""
     if requested != "auto":
         return bool(requested)
-    return grad_accum < 4
+    return not (attn_impl == "pallas" and grad_accum >= 4)
 
 
-def estimator_for_training(config: HEMTrainConfig) -> EstimatorConfig:
-    """The estimator config with ``remat`` resolved into its Swin config."""
+def estimator_for_training(config: HEMTrainConfig, device_type: str) -> EstimatorConfig:
+    """The estimator config with ``attn_impl`` and ``remat`` resolved into
+    its Swin config for a trainer on ``device_type`` ('cuda' or 'cpu')."""
     est = config.estimator
-    remat = resolve_remat(config.remat, config.grad_accum)
-    return dataclasses.replace(est, swin=dataclasses.replace(est.swin, remat=remat))
-
-
+    swin = est.swin
+    impl = resolve_attn_impl(config.attn_impl, device_type)
+    if impl is not None and swin.attn_impl != impl:
+        swin = dataclasses.replace(swin, attn_impl=impl)
+    if resolve_remat(config.remat, swin.attn_impl, config.grad_accum) and not swin.remat:
+        swin = dataclasses.replace(swin, remat=True)
+    return dataclasses.replace(est, swin=swin)

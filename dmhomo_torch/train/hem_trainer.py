@@ -7,7 +7,9 @@ for step k, counted from 0 as optax counts), the loss of
 accumulation with BatchNorm statistics per microbatch, bf16 autocast, eval
 every ``train_num_steps`` with best tracking on the major metric, and
 checkpoints in the reference Manager layout.  On the card every window
-attention of the step runs the CUDA forward and backward kernels.
+attention of the step runs the CUDA forward and backward kernels; with
+``attn_impl='fused_block'`` every Swin block runs the whole-block forward
+and backward kernels instead.
 """
 
 from __future__ import annotations
@@ -54,7 +56,8 @@ class HEMTrainer:
         (default ``config.seed``), a fresh optimizer and LR staircase, step 0."""
         cfg = self.config
         gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
-        self.model = random_init_(HomographyEstimator(estimator_for_training(cfg)), gen)
+        est = estimator_for_training(cfg, self.device.type)
+        self.model = random_init_(HomographyEstimator(est), gen)
         self.model.to(self.device)
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=cfg.lr,
                                           betas=(0.9, 0.999), eps=1e-8)

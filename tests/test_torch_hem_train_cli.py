@@ -88,3 +88,21 @@ def tr_batch(tr):
 
     est = tr.config.estimator
     return next(iter(DataLoader(SyntheticHomoPairs(8, est.crop_size, est.ori_size, rho=3), 8)))
+
+
+def test_hem_train_cli_fused_block_on_cpu(tmp_path):
+    """``--attn fused_block`` with the tiny config trains on the CPU through
+    the whole-block plain versions (remat on, as the JAX trainer resolves
+    it) and writes a checkpoint."""
+    from dmhomo_torch.models.swin import SwinBlock
+
+    out = str(tmp_path / "run")
+    tr = hem_train.main(["--synthetic", "16", "--tiny", "--device", "cpu", "--out", out,
+                         "--steps", "2", "--attn", "fused_block"])
+    assert tr.config.attn_impl == "fused_block" and tr.step == 2
+    assert all(m.fused for m in tr.model.modules() if isinstance(m, SwinBlock))
+    assert tr.model.h_net.encoder_layers[0].remat
+    ckpt = torch.load(checkpoint_path(out, "latest"), map_location="cpu", weights_only=True)
+    assert ckpt["step"] == 2
+    losses = tr.train_step(tr_batch(tr))
+    assert np.isfinite(float(losses["total"])) and float(losses["total"]) > 0

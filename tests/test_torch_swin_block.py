@@ -15,7 +15,8 @@ the JAX package's.
   the jitted JAX estimator with ``fused_block`` (flows 1e-4, masks 1e-5);
 * ``level_impl`` vs the JAX ``_level_impl``; the argument checks;
 * on the card: the kernel vs the plain version at the six block shapes of
-  the shipped estimator, and what the kernel refuses (skips here).
+  the shipped estimator, what the kernel refuses, and that a grad-requiring
+  input runs the backward kernel (skips here).
 
 JAX is imported inside the tests that use it, so that the card's tests run
 where JAX is not installed:
@@ -296,11 +297,11 @@ def _check_case(case):
     (dict(dtype=torch.float16), "float32 or bfloat16"),
     (dict(param_dtype=torch.float64), "g1 must be float32"),
     (dict(strided=True), "wq must be contiguous"),
-    (dict(grad=True), "forward-only"),
+    (dict(grad=True), None),
 ])
 def test_kernel_argument_checks(case, match):
-    """What the kernel does not take is refused before any launch; so is an
-    input that requires grad, since there is no backward kernel."""
+    """What the kernel does not take is refused before any launch; an input
+    that requires grad is taken (the backward kernel gives its gradient)."""
     args = _check_case(case)
     if match is None:
         sb._check_cuda_args(*args)
@@ -344,17 +345,28 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, shift, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("what", ["grad", "shape", "build"])
 def test_cuda_refuses_without_falling_back(cuda_device, monkeypatch, what):
-    """A grad-requiring input, an unsupported shape or a failed build raises;
-    nothing runs the plain or the unfused path instead."""
+    """A grad-requiring input runs the backward kernel; an unsupported shape
+    or a failed build raises; nothing runs the plain or the unfused path
+    instead."""
     C = 32 if what == "shape" else 48
     x, params, _ = _inputs(3, 1, 16, 16, C, 4 if what == "shape" else 3, 3 * C, 0)
-    xt = torch.from_numpy(x).to(cuda_device).requires_grad_(what == "grad")
+    xt = torch.from_numpy(x).to(cuda_device).requires_grad_(what != "build")
+    if what == "grad":
+        before = (sb.swin_block.launches, sb.swin_block_backward.launches)
+        pp = [p.requires_grad_() for p in _port_params(params, cuda_device)]
+        y = sb.swin_block(xt, pp, num_heads=3)
+        grads = torch.autograd.grad(y, [xt] + pp, torch.ones_like(y))
+        torch.cuda.synchronize()
+        assert (sb.swin_block.launches, sb.swin_block_backward.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
+        return
     if what == "build":
         def broken():
             raise RuntimeError("nvcc failed")
 
         monkeypatch.setattr(sb, "_library", broken)
     before = sb.swin_block.launches
-    with pytest.raises((NotImplementedError, ValueError, RuntimeError)):
+    with pytest.raises((ValueError, RuntimeError)):
         sb.swin_block(xt, _port_params(params, cuda_device), num_heads=4 if what == "shape" else 3)
     assert sb.swin_block.launches == before

@@ -39,13 +39,20 @@ from dmhomo_tpu.parallel import make_mesh
 from dmhomo_tpu.train.config import HEMTrainConfig as JaxTrainConfig
 from dmhomo_tpu.train.config import Params as JaxParams
 from dmhomo_tpu.train.hem_trainer import HEMTrainer as JaxTrainer
+from dmhomo_tpu.train.hem_trainer import resolve_attn_impl as jax_resolve_attn_impl
+from dmhomo_tpu.train.hem_trainer import resolve_remat as jax_resolve_remat
 
 from dmhomo_torch.cli.hem_train import tiny_config
-from dmhomo_torch.config import Params
+from dmhomo_torch.config import EstimatorConfig, Params, SwinConfig
 from dmhomo_torch.losses.hem_losses import compute_losses
 from dmhomo_torch.models.convert import estimator_state_dict_from_jax
 from dmhomo_torch.models.swin import BatchNorm2d
-from dmhomo_torch.train.config import HEMTrainConfig, resolve_remat
+from dmhomo_torch.train.config import (
+    HEMTrainConfig,
+    estimator_for_training,
+    resolve_attn_impl,
+    resolve_remat,
+)
 from dmhomo_torch.train.hem_trainer import HEMTrainer
 
 B = 4
@@ -223,10 +230,82 @@ def test_remat_gives_the_same_gradients():
         torch.testing.assert_close(grads[1][n], g, rtol=0, atol=1e-6, msg=n)
 
 
-def test_resolve_remat():
-    assert resolve_remat("auto", 4) is False and resolve_remat("auto", 8) is False
-    assert resolve_remat("auto", 2) is True and resolve_remat("auto", 1) is True
-    assert resolve_remat(True, 4) is True and resolve_remat(False, 1) is False
+IMPLS = ("auto", None, "xla", "pallas", "fused_block", "pallas,pallas,fused_block")
+JAX_BACKEND = {"cuda": "tpu", "cpu": "cpu"}  # the port's card in the place of JAX's TPU
+
+
+@pytest.mark.parametrize("requested", [True, False, "auto"])
+@pytest.mark.parametrize("impl", IMPLS[1:])
+@pytest.mark.parametrize("accum", [1, 2, 4, 8])
+def test_resolve_remat(requested, impl, accum):
+    """As the JAX trainer's: 'auto' is off only for the whole spec 'pallas'
+    at grad_accum >= 4."""
+    assert resolve_remat(requested, impl, accum) is jax_resolve_remat(requested, impl, accum)
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("requested", IMPLS)
+def test_resolve_attn_impl_matches_jax(requested, device):
+    assert resolve_attn_impl(requested, device) == jax_resolve_attn_impl(
+        requested, JAX_BACKEND[device])
+
+
+@pytest.mark.parametrize("attn_impl", ["auto", None, "pallas", "fused_block"])
+def test_trainers_resolve_the_same_estimator(attn_impl):
+    """Both trainers built from a config whose estimator asks for
+    'fused_block' end with the same Swin impl and remat: on the CPU (both
+    trainers) and on the card against JAX's resolution on TPU."""
+    swin = SwinConfig(attn_impl="fused_block")
+    cfg = HEMTrainConfig(estimator=EstimatorConfig(swin=swin), attn_impl=attn_impl)
+    jcfg = JaxTrainConfig(estimator=JaxEstimatorConfig(swin=JaxSwinConfig(attn_impl="fused_block")),
+                          attn_impl=attn_impl)
+    jswin = JaxTrainer(jcfg, mesh=make_mesh(jax.devices()[:1])).model.config.swin
+    port = estimator_for_training(cfg, "cpu").swin
+    assert (port.attn_impl, port.remat) == (jswin.attn_impl, jswin.remat)
+    tr = HEMTrainer(cfg, device="cpu")
+    tr.init_state()
+    assert tr.model.h_net.encoder_layers[0].remat is port.remat
+    card = estimator_for_training(cfg, "cuda").swin
+    impl = jax_resolve_attn_impl(attn_impl, "tpu") or "fused_block"
+    assert (card.attn_impl, card.remat) == (impl, jax_resolve_remat("auto", impl, 4))
+    shipped = estimator_for_training(HEMTrainConfig(), "cuda").swin
+    assert (shipped.attn_impl, shipped.remat) == ("pallas", False)
+
+
+def test_bf16_token_dtypes_match_jax(monkeypatch):
+    """Under bf16 the dtype entering each whole-block call, in call order,
+    is the JAX bf16 estimator's: both halves of each level's token concat
+    are cast to the activation dtype, as JAX does after its fp32 warp."""
+    import dmhomo_tpu.ops.swin_block as jax_sb
+
+    import dmhomo_torch.models.swin as port_swin
+    from dmhomo_torch.models.estimator import HomographyEstimator
+
+    seen = {"jax": [], "port": []}
+    jax_block, port_block = jax_sb.fused_swin_block, port_swin.swin_block
+
+    def jax_spy(x, *args, **kw):
+        seen["jax"].append(jnp.dtype(x.dtype).name)
+        return jax_block(x, *args, **kw)
+
+    def port_spy(x, *args, **kw):
+        seen["port"].append(str(x.dtype).split(".")[-1])
+        return port_block(x, *args, **kw)
+
+    monkeypatch.setattr(jax_sb, "fused_swin_block", jax_spy)
+    monkeypatch.setattr(port_swin, "swin_block", port_spy)
+    est = _jax_config(1).estimator
+    est = dataclasses.replace(est, dtype=jnp.bfloat16, swin=dataclasses.replace(
+        est.swin, dtype=jnp.bfloat16, sim_dtype=jnp.bfloat16, attn_impl="fused_block"))
+    model = JaxEstimator(est)
+    jax.eval_shape(lambda k: model.init(k, jnp.zeros((2, 32, 64, 2)), train=False),
+                   jax.random.PRNGKey(0))
+    cfg = _port_config(1).estimator
+    cfg = dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, attn_impl="fused_block"))
+    with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16):
+        HomographyEstimator(cfg)(torch.zeros(2, 32, 64, 2))
+    assert len(seen["port"]) == 12 and seen["port"].count("bfloat16") == 6
+    assert seen["port"] == seen["jax"]
 
 
 def test_config_matches_jax(tmp_path):
@@ -243,7 +322,7 @@ def test_config_matches_jax(tmp_path):
     for ours, theirs in pairs:
         for f in ("lr", "gamma", "train_batch_size", "eval_batch_size", "num_epochs",
                   "train_num_steps", "rho", "major_metric", "seed", "bf16", "remat",
-                  "grad_accum"):
+                  "grad_accum", "attn_impl"):
             assert getattr(ours, f) == getattr(theirs, f), f
         assert dataclasses.asdict(ours.loss) == dataclasses.asdict(theirs.loss)
         assert ours.estimator.crop_size == theirs.estimator.crop_size

@@ -44,19 +44,24 @@ Phases, each printing its results; any failure exits non-zero:
     kernel, and the idle share of phase 8's unprofiled step time.
 11. linear-attention build: registers, spills and dynamic shared memory of
     each variant of ``dmhomo_torch/csrc/linear_attention.cu`` (built in
-    phase 2, in parallel with the window-attention source).
+    phase 2, in parallel with the window-attention source): the fp32
+    CUDA-core kernels and the bf16 tensor-core kernels.
 12. linear-attention kernels vs plain: pass 1, pass 2 and both together
     against their plain PyTorch versions at the 8 LinearAttention sites of
     the shipped UNet (B=50, the CFG-doubled batch of 25; prenorm folded;
     the UNet's NCHW layout), fp32 and bf16: errors against the stated
-    tolerances, and CUDA-event times of each pass, its plain version and one
-    cuBLAS ``x @ W_qkv`` (a yardstick only: no one PyTorch call computes
-    linear attention), beside each pass's bound.
+    tolerances, and CUDA-event times of each pass (the wrapper's call, its
+    bf16 weight preparation included), its plain version and one cuBLAS
+    ``x @ W_qkv`` (a yardstick only: no one PyTorch call computes linear
+    attention), beside each pass's bound and the share of it reached; in
+    bf16 the launch plan of each pass (loader, heads per block, ring), and
+    a failure if a site takes the element-wise loader.
 13. generation slice: ``dgm_sample``'s generate step at its defaults (bf16,
     bs 25, 32 DDIM steps, CFG 3, 256x256, seeded random weights) on
     synthetic conditions (numpy, from ``--seed``): one warm-up batch, then 2
     timed ones; images finite and in [0, 1], exactly 8 + 8 kernel launches
-    per UNet forward, fitted H within 1e-2 px of the condition flow;
+    per UNet forward, none through the element-wise loader, fitted H within
+    1e-2 px of the condition flow;
     samples/s, ms per batch and per DDIM step, peak memory.
 14. generation card vs CPU: one fp32 CFG UNet forward at 256x256 (1
     condition, doubled) with the same weights on the card (kernels) and on
@@ -825,15 +830,24 @@ def phase_linear_build():
 
     entry = None
     for line in la.build_log().splitlines():
-        m = re.search(r"linear_attention_pass(1|2)_kernelI(f|13__nv_bfloat16)Lb([01])E"
-                      r"(?:Lb([01])E)?", line)
-        if m:  # pass1<T, PRENORM, COMPUTE_STATS>, pass2<T, PRENORM>
-            dt = "fp32" if m.group(2) == "f" else "bf16"
-            new = f"pass{m.group(1)} {dt} prenorm={m.group(3)}" + (
-                f" stats={m.group(4)}" if m.group(4) is not None else "")
+        fp32 = re.search(r"linear_attention_pass(1|2)_kernelIfLb([01])E(?:Lb([01])E)?", line)
+        tc = re.search(r"linear_attention_pass(1|2)_kernel_tcILb([01])ELb([01])E"
+                       r"(?:Lb([01])ELi(\d)E)?", line)
+        if fp32:  # pass1<float, PRENORM, COMPUTE_STATS>, pass2<float, PRENORM>
+            new = f"pass{fp32.group(1)} fp32 prenorm={fp32.group(2)}" + (
+                f" stats={fp32.group(3)}" if fp32.group(3) is not None else "")
             if new != entry:
-                smem = la.shared_memory_bytes(int(m.group(1)))
+                smem = la.shared_memory_bytes(int(fp32.group(1)))
                 log(f"[la-build] {new}: {smem} bytes dynamic shared memory")
+            entry = new
+        elif tc:  # tc::pass1<PRENORM, STATS, ALIGNED, HG>, tc::pass2<PRENORM, ALIGNED>
+            if tc.group(1) == "1":
+                new = (f"pass1 bf16 tensor cores prenorm={tc.group(2)} stats={tc.group(3)} "
+                       f"aligned={tc.group(4)} heads={tc.group(5)}")
+            else:
+                new = f"pass2 bf16 tensor cores prenorm={tc.group(2)} aligned={tc.group(3)}"
+            if new != entry:
+                log(f"[la-build] {new}: dynamic shared memory by plan (phase 12)")
             entry = new
         elif entry and ("registers" in line or "spill" in line):
             log(f"[la-build] {entry}: {line.split(':', 1)[-1].strip()}")
@@ -896,15 +910,32 @@ def phase_linear_kernels(sites, dev, seed: int):
                  "err_pass2": errs["pass2"], "rel_err_pass2": errs["pass2_rel"],
                  "tol": LA_TOL[dtype], "pass1_ms": ms1, "pass2_ms": ms2,
                  "plain1_ms": plain1, "plain2_ms": plain2, "gemm_ms": gemm,
-                 "bound1_ms": b1, "bound1_by": by1, "bound2_ms": b2, "bound2_by": by2}
+                 "bound1_ms": b1, "bound1_by": by1, "bound2_ms": b2, "bound2_by": by2,
+                 "share1": b1 / ms1, "share2": b2 / ms2}
+            plans = ""
+            if dtype == "bfloat16":  # the tensor-core kernels' plans, as the UNet's call takes them
+                r["plan1"] = la.launch_plan(x, 1)
+                r["plan2"] = la.launch_plan(x, 2, (mean, rstd), out)
+                for p in (1, 2):
+                    r[f"plan{p}"]["blocks_per_sm"] = la.blocks_per_sm(p, r[f"plan{p}"])
+                plans = "; " + "; ".join(
+                    f"pass{p} {pl['loader']} loader{' / ' + pl['store'] + ' stores' if 'store' in pl else ''}, "
+                    f"{pl['heads_per_block'] if p == 1 else 4} heads per block, {pl['chunks']} x "
+                    f"{pl['chunk']} channels per tile, {pl['stages']} slots, {pl['weights']} "
+                    f"weights, {pl['smem']} bytes, {pl['blocks_per_sm']} blocks per SM"
+                    for p, pl in ((1, r["plan1"]), (2, r["plan2"])))
+                if "elementwise" in (r["plan1"]["loader"], r["plan2"]["loader"], r["plan2"]["store"]):
+                    ok = False
             results.append(r)
             log(f"[la-kernel] {site} {hw}x{hw} N={N} C={C} B={B} {dtype}: rel err out "
                 f"{errs['out_rel']:.3g} pass1 {errs['pass1_rel']:.3g} pass2 {errs['pass2_rel']:.3g} "
                 f"(abs {errs['out']:.3g}; tol {LA_TOL[dtype]:g}) pass1 {ms1:.4f} ms (bound {b1:.4f} "
-                f"{by1}, plain {plain1:.4f}) pass2 {ms2:.4f} ms (bound {b2:.4f} {by2}, plain "
-                f"{plain2:.4f}) cuBLAS x@W_qkv {gemm:.4f} ms {'ok' if ok else 'FAIL'}")
+                f"{by1}: {100 * b1 / ms1:.1f}% of it; plain {plain1:.4f}) pass2 {ms2:.4f} ms (bound "
+                f"{b2:.4f} {by2}: {100 * b2 / ms2:.1f}%; plain {plain2:.4f}) cuBLAS x@W_qkv "
+                f"{gemm:.4f} ms{plans} {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise SystemExit(f"linear-attention kernels disagree with their plain versions: {r}")
+                raise SystemExit("linear-attention kernels disagree with their plain versions, or "
+                                 f"a main-path site took the element-wise loader: {r}")
             del want, got, sums_ref, sums, sums_t, out_ref, out, mean, rstd, x, wd
         del x32
         torch.cuda.empty_cache()
@@ -942,8 +973,8 @@ def phase_generate(dev, seed: int):
     first_ms = 1e3 * (time.perf_counter() - t0)
     torch.cuda.reset_peak_memory_stats()
     # the main path: counts from zero just before it, read just after
-    la.linear_attention_pass1.launches = 0
-    la.linear_attention_pass2.launches = 0
+    la.linear_attention_pass1.launches = la.linear_attention_pass1.elementwise = 0
+    la.linear_attention_pass2.launches = la.linear_attention_pass2.elementwise = 0
     forwards[0] = 0
     times, per_batch, outs = [], [], []
     for cond, classes in conds[1:]:
@@ -956,7 +987,10 @@ def phase_generate(dev, seed: int):
                           la.linear_attention_pass2.launches - c2, forwards[0] - f0))
         outs.append((imgs, homos, cond))
     launches = (la.linear_attention_pass1.launches, la.linear_attention_pass2.launches)
+    elementwise = (la.linear_attention_pass1.elementwise, la.linear_attention_pass2.elementwise)
     peak = torch.cuda.max_memory_allocated()
+    if elementwise != (0, 0):
+        raise SystemExit(f"(pass 1, pass 2) took the element-wise loader {elementwise} times")
     n_sites = len(linear_attention_sites(gd.model.config, GEN_SIZE))
     want = (n_sites * GEN_STEPS, n_sites * GEN_STEPS, GEN_STEPS)
     if any(p != want for p in per_batch):
@@ -981,7 +1015,7 @@ def phase_generate(dev, seed: int):
     log(f"[gen] images in [{lo:.3f}, {hi:.3f}], finite; fitted H reproduces the condition flow "
         f"to {fit_err:.3g} px (tol {FIT_TOL_PX:g}); launches over {GEN_TIMED_BATCHES} batches: "
         f"pass 1 {launches[0]}, pass 2 {launches[1]} = {n_sites} + {n_sites} per UNet forward "
-        f"({per_batch[0][2]} forwards per batch)")
+        f"({per_batch[0][2]} forwards per batch), every one through the aligned loader")
     return {"gd": gd, "cond": conds[0], "batch_ms": batch_ms, "step_ms": batch_ms / GEN_STEPS,
             "peak": peak, "launches": launches, "fit_err": fit_err, "first_ms": first_ms}
 

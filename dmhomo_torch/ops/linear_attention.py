@@ -20,6 +20,12 @@ each block's share of (E, s) into a zeroed fp32 buffer with atomics, so its
 sum order changes between runs.  :func:`linear_attention` runs
 :func:`linear_attention_reference` for CPU tensors only; for a CUDA tensor
 it launches both kernels or raises.  The kernels are forward-only.
+
+bf16 runs on tensor cores; :func:`launch_plan` picks, from the shapes and
+strides, the loader (16-byte asynchronous copies where x has token stride
+1 and 16-byte aligned rows, else element loads), the heads per block, the
+channels per ring slot and the number of slots.  fp32 runs the CUDA-core
+kernels.
 """
 
 from __future__ import annotations
@@ -133,20 +139,108 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fn = lib.dmh_linear_attention_pass1
-    fn.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i32, ptr, i32, i32, i32, i32, ptr]
+    fn.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i32, ptr, i32, i32, i32, ptr]
     fn.restype = i32
     fn = lib.dmh_linear_attention_pass2
     fn.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
-                   i32, i32, i32, i32, ptr]
+                   i32, i32, i32, ptr]
+    fn.restype = i32
+    fn = lib.dmh_linear_attention_pass1_bf16
+    fn.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i32, ptr,
+                   i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
+    fn.restype = i32
+    fn = lib.dmh_linear_attention_pass2_bf16
+    fn.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
+                   i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
     fn.restype = i32
     lib.dmh_linear_attention_smem_bytes.argtypes = [i32]
     lib.dmh_linear_attention_smem_bytes.restype = i32
+    for name in ("dmh_linear_attention_bf16_smem_bytes", "dmh_linear_attention_bf16_blocks_per_sm"):
+        getattr(lib, name).argtypes = [i32] * 6
+        getattr(lib, name).restype = i32
     return lib
 
 
-def shared_memory_bytes(pass_: int) -> int:
-    """Dynamic shared memory one block of pass 1 or pass 2 asks for."""
-    return _library().dmh_linear_attention_smem_bytes(pass_)
+def _plan_args(plan: dict):
+    return (plan["padded_channels"], plan["heads_per_block"], plan["chunk"], plan["stages"],
+            int(plan["weights"] == "streamed"))
+
+
+def shared_memory_bytes(pass_: int, plan: dict | None = None) -> int:
+    """Dynamic shared memory one block of pass 1 or pass 2 asks for: the
+    fp32 kernels', or with a bf16 ``plan`` (:func:`launch_plan`) the
+    tensor-core kernels' as the library computes it."""
+    if plan is None:
+        return _library().dmh_linear_attention_smem_bytes(pass_)
+    return _library().dmh_linear_attention_bf16_smem_bytes(pass_, *_plan_args(plan))
+
+
+def blocks_per_sm(pass_: int, plan: dict) -> int:
+    """Blocks of the UNet's bf16 variant of ``pass_`` (prenorm, aligned
+    loader) that one SM holds under ``plan``, as the card reports it."""
+    return _library().dmh_linear_attention_bf16_blocks_per_sm(pass_, *_plan_args(plan))
+
+
+# the bf16 kernels' tile and shared-memory layout (csrc/linear_attention.cu, namespace tc)
+TILE = 64
+_ROW_BYTES = (TILE + 8) * 2  # a staged channel row of 64 tokens, padded
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+SM_SMEM = 233472  # bytes of shared memory of an SM, 1 KB of it reserved per block
+
+
+def _plan_smem(pass_: int, padded: int, heads: int, chunk: int, stages: int,
+               streamed: bool = False) -> int:
+    slot = chunk * _ROW_BYTES + 2 * TILE * 4  # x rows, then mean and rstd
+    row = ((chunk if streamed else padded) + 8) * 2  # a weight row, bf16
+    if pass_ == 1:
+        return 64 * heads * row + stages * slot + 64 * heads * 4 + 4 * TILE * 4
+    context = HEADS * DIM_HEAD * (DIM_HEAD + 8) * 2
+    return HIDDEN * row + stages * slot + HIDDEN * _ROW_BYTES + context + HIDDEN * 4
+
+
+def _aligned_rows(t: torch.Tensor, n_tokens: int) -> bool:
+    """16-byte copies reach every 8-token group of t (B, N, C'): token stride
+    1, the other strides and N multiples of 8 bf16, a 16-byte aligned base."""
+    sb, sn, sc = t.stride()
+    return (sn == 1 and sc % 8 == 0 and sb % 8 == 0 and n_tokens % 8 == 0
+            and t.data_ptr() % 16 == 0)
+
+
+def launch_plan(x: torch.Tensor, pass_: int, stats=(), out: torch.Tensor | None = None) -> dict:
+    """How the bf16 kernel of ``pass_`` runs on x (B, N, C): ``loader``
+    'aligned' (16-byte cp.async copies) or 'elementwise' (element loads
+    through any strides), ``store`` likewise for pass 2's ``out``, the
+    channels padded to a multiple of 16, ``heads_per_block`` (pass 1: 4, or
+    2 where four heads' weights do not fit; 4 takes one chunk), ``chunk``
+    channels per ring slot, ``stages`` slots, ``weights`` 'resident' (made
+    once per block) or 'streamed' (made again for each chunk of each tile,
+    where the resident ones do not fit: C above about 800) and the block's
+    ``smem`` bytes.  Among the resident plans of the most heads, one that
+    lets two blocks share an SM (at most two chunks) comes first.
+    ``stats``: the (B, N) fp32 mean and rstd the kernel reads, if any."""
+    B, N, C = x.shape
+    padded = -(-C // 16) * 16
+    aligned = _aligned_rows(x, N) and all(t.data_ptr() % 16 == 0 for t in stats)
+    plan = {"loader": "aligned" if aligned else "elementwise", "padded_channels": padded}
+    if out is not None:
+        plan["store"] = "aligned" if _aligned_rows(out, N) else "elementwise"
+    for heads in ((4, 2) if pass_ == 1 else (4,)):
+        fits = []
+        for n_chunks in ((1,) if pass_ == 1 and heads == 4 else (1, 2, 4, 8)):
+            chunk = -(-padded // (16 * n_chunks)) * 16
+            for stages in (3, 2):
+                smem = _plan_smem(pass_, padded, heads, chunk, stages)
+                if smem <= SMEM_LIMIT:
+                    fits.append({**plan, "heads_per_block": heads, "chunk": chunk,
+                                 "chunks": -(-padded // chunk), "stages": stages,
+                                 "weights": "resident", "smem": smem})
+        shared = [p for p in fits if 2 * (p["smem"] + 1024) <= SM_SMEM and p["chunks"] <= 2]
+        if fits:
+            return (shared or fits)[0]
+    heads, chunk = (2 if pass_ == 1 else 4), 64
+    return {**plan, "heads_per_block": heads, "chunk": chunk, "chunks": -(-padded // chunk),
+            "stages": 3, "weights": "streamed",
+            "smem": _plan_smem(pass_, padded, heads, chunk, 3, streamed=True)}
 
 
 def _check_fp32(name, t, shape, device):
@@ -188,18 +282,25 @@ def linear_attention_pass1(x, w_qkv, g, mean, rstd, compute_stats: bool,
     the caller zeroes.  With ``g``, mean and rstd (B, N) fp32 are computed
     and written (``compute_stats``) or read.  ``launches`` counts each launch."""
     B, N, C = x.shape
+    stats = () if g is None else (mean, rstd)
+    args = (x.data_ptr(), *x.stride(), w_qkv.data_ptr(), None if g is None else g.data_ptr(),
+            *(tuple(t.data_ptr() for t in stats) or (None, None)),
+            int(compute_stats), sums.data_ptr(), B, N, C)
     with torch.cuda.device(x.device):
-        err = _library().dmh_linear_attention_pass1(
-            x.data_ptr(), *x.stride(), w_qkv.data_ptr(),
-            None if g is None else g.data_ptr(), None if g is None else mean.data_ptr(),
-            None if g is None else rstd.data_ptr(), int(compute_stats), sums.data_ptr(),
-            B, N, C, int(x.dtype == torch.bfloat16), _stream(x))
+        if x.dtype == torch.bfloat16:
+            plan = launch_plan(x, 1, () if compute_stats else stats)
+            err = _library().dmh_linear_attention_pass1_bf16(
+                *args, *_plan_args(plan), int(plan["loader"] == "aligned"), _stream(x))
+            linear_attention_pass1.elementwise += plan["loader"] == "elementwise"
+        else:
+            err = _library().dmh_linear_attention_pass1(*args, _stream(x))
     if err != 0:
         raise RuntimeError(f"linear attention pass 1 launch failed: cudaError {err}")
     linear_attention_pass1.launches += 1
 
 
 linear_attention_pass1.launches = 0
+linear_attention_pass1.elementwise = 0  # bf16 launches that took the element-wise loader
 
 
 def linear_attention_pass2(x, w_qkv, g, mean, rstd, sums: torch.Tensor,
@@ -208,18 +309,27 @@ def linear_attention_pass2(x, w_qkv, g, mean, rstd, sums: torch.Tensor,
     from x and pass 1's ``sums`` (and mean, rstd with ``g``).  ``launches``
     counts each launch."""
     B, N, C = x.shape
+    stats = () if g is None else (mean, rstd)
+    args = (x.data_ptr(), *x.stride(), w_qkv.data_ptr(), None if g is None else g.data_ptr(),
+            *(tuple(t.data_ptr() for t in stats) or (None, None)), sums.data_ptr(),
+            out.data_ptr(), *out.stride(), B, N, C)
     with torch.cuda.device(x.device):
-        err = _library().dmh_linear_attention_pass2(
-            x.data_ptr(), *x.stride(), w_qkv.data_ptr(),
-            None if g is None else g.data_ptr(), None if g is None else mean.data_ptr(),
-            None if g is None else rstd.data_ptr(), sums.data_ptr(), out.data_ptr(),
-            *out.stride(), B, N, C, int(x.dtype == torch.bfloat16), _stream(x))
+        if x.dtype == torch.bfloat16:
+            plan = launch_plan(x, 2, stats, out)
+            padded, _, chunk, stages, streamed = _plan_args(plan)
+            err = _library().dmh_linear_attention_pass2_bf16(
+                *args, padded, chunk, stages, streamed, int(plan["loader"] == "aligned"),
+                int(plan["store"] == "aligned"), _stream(x))
+            linear_attention_pass2.elementwise += plan["loader"] == "elementwise"
+        else:
+            err = _library().dmh_linear_attention_pass2(*args, _stream(x))
     if err != 0:
         raise RuntimeError(f"linear attention pass 2 launch failed: cudaError {err}")
     linear_attention_pass2.launches += 1
 
 
 linear_attention_pass2.launches = 0
+linear_attention_pass2.elementwise = 0  # bf16 launches that took the element-wise loader
 
 
 def linear_attention(x: torch.Tensor, w_qkv: torch.Tensor, heads: int = HEADS,

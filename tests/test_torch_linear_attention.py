@@ -10,7 +10,11 @@
   the Pallas kernels subtract a tile max and merge tiles by logsumexp where
   the production function clips at +-60, the same function while
   |logits| < 60;
-* the CUDA kernels vs the plain version (needs the card; skips here).
+* the bf16 kernels' launch plan (loader, heads per block, ring) and their
+  weights (round(diag(g) W)^T, g . W) against the plain version's;
+* the CUDA kernels vs the plain version (needs the card; skips here): small,
+  ragged and unaligned cases (the element-wise loader), and the UNet's
+  eight LinearAttention sites at the generation batch (the aligned loader).
 
 JAX is imported inside the tests that use it, so that the card's tests run
 where JAX is not installed:
@@ -41,14 +45,15 @@ def _rel_err(got, want):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("prenorm", [False, True])
 @pytest.mark.parametrize("N", [64, 200])
-def test_plain_matches_blockdiag(N, prenorm, dtype):
+@pytest.mark.parametrize("C", [24, 64, 512])  # 64 and 512: the UNet's narrowest and widest
+def test_plain_matches_blockdiag(C, N, prenorm, dtype):
     import jax
     import jax.numpy as jnp
 
     from dmhomo_tpu.ops.linear_attention import blockdiag_linear_attention
 
     rng = np.random.default_rng(N)
-    x, w, g = _inputs(rng, 2, N, 24)
+    x, w, g = _inputs(rng, 2, N, C)
     jdt = getattr(jnp, dtype)
     xj = jnp.asarray(x, jdt)
     pn = None
@@ -112,6 +117,70 @@ def test_kernel_argument_checks(case, match):
         la._check_cuda_args(x, w, case.get("heads", 4), 32, g)
 
 
+# (N, C) of the UNet's eight LinearAttention sites at 256x256 (dim 64, mults
+# (1, 2, 4, 8)): down_0..3, then up_0..3
+UNET_SITES = [(65536, 64), (16384, 64), (4096, 128), (1024, 256),
+              (1024, 512), (4096, 256), (16384, 128), (65536, 64)]
+
+
+def _channel_major(B, N, C, dtype=torch.bfloat16, device="cpu"):
+    """x (B, N, C) as the UNet hands it over: an NCHW activation, token stride 1."""
+    return torch.zeros((B, C, N), dtype=dtype, device=device).transpose(1, 2)
+
+
+@pytest.mark.parametrize("N, C", sorted(set(UNET_SITES)))
+def test_unet_sites_take_the_aligned_loader(N, C):
+    x = _channel_major(1, N, C)
+    out = torch.empty((1, la.HIDDEN, N), dtype=torch.bfloat16).transpose(1, 2)
+    stats = torch.empty((2, 1, N))
+    for pass_, kw in ((1, {}), (1, {"stats": tuple(stats)}), (2, {"stats": tuple(stats), "out": out})):
+        plan = la.launch_plan(x, pass_, **kw)
+        assert plan["loader"] == "aligned" and plan.get("store", "aligned") == "aligned"
+        assert plan["smem"] <= la.SMEM_LIMIT
+        assert plan["chunk"] * plan["chunks"] >= plan["padded_channels"] >= C
+    # four heads' resident weights fit up to C = 256, so x is read once per pass
+    assert la.launch_plan(x, 1)["heads_per_block"] == (4 if C <= 256 else 2)
+
+
+@pytest.mark.parametrize("N, C, channel_major", [(70001, 32, True), (1000, 100, False),
+                                                  (64, 16, True), (200, 64, False)])
+def test_loader_follows_the_strides(N, C, channel_major):
+    """16-byte copies need token stride 1 and rows a multiple of 8 bf16:
+    token-major x or N = 70001 take element loads; C is zero-padded to a
+    multiple of 16 in shared memory either way."""
+    if channel_major:  # out in x's layout, as linear_attention makes it
+        x, out = _channel_major(1, N, C), _channel_major(1, N, la.HIDDEN)
+    else:
+        x, out = (torch.zeros((1, N, c), dtype=torch.bfloat16) for c in (C, la.HIDDEN))
+    plan = la.launch_plan(x, 2, out=out)
+    aligned = channel_major and N % 8 == 0
+    assert plan["loader"] == plan["store"] == ("aligned" if aligned else "elementwise")
+    assert plan["padded_channels"] == -(-C // 16) * 16
+
+
+def test_offset_base_takes_the_elementwise_loader():
+    x = _channel_major(1, 1032, 64)[:, 1:1025]  # token stride 1, base 2 bytes off
+    assert la.launch_plan(x, 1)["loader"] == "elementwise"
+
+
+@pytest.mark.parametrize("pass_", [1, 2])
+@pytest.mark.parametrize("C", [16, 64, 100, 128, 256, 512, 1024])
+def test_plans_fit_shared_memory(C, pass_):
+    """Every plan fits a block's shared memory and covers the padded
+    channels; four heads per pass-1 block take one chunk; at C <= 128 two
+    blocks share an SM; beyond resident weights' room they are streamed."""
+    plan = la.launch_plan(_channel_major(1, 1024, C), pass_)
+    assert plan["smem"] == la._plan_smem(
+        pass_, plan["padded_channels"], plan["heads_per_block"], plan["chunk"], plan["stages"],
+        plan["weights"] == "streamed") <= la.SMEM_LIMIT
+    assert plan["weights"] == ("streamed" if C > 800 else "resident")
+    assert plan["chunk"] % 16 == 0 and plan["chunk"] * plan["chunks"] >= plan["padded_channels"]
+    if pass_ == 1 and plan["heads_per_block"] == 4:
+        assert plan["chunks"] == 1
+    if C <= 128:
+        assert 2 * (plan["smem"] + 1024) <= la.SM_SMEM
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -143,3 +212,70 @@ def test_cuda_kernels_match_plain(cuda_device, N, C, channel_major, prenorm, dty
     assert got.dtype == tdt and got.shape == want.shape
     err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
     assert err <= TOL[dtype], err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", range(len(UNET_SITES)))
+def test_bf16_kernels_at_unet_sites(cuda_device, site):
+    """The bf16 kernels at the generation batch (B = 50, the CFG-doubled 25),
+    channel-major, prenorm: the aligned loader and stores, no element-wise
+    launch, the library's shared memory as planned, and both passes within
+    the bf16 tolerance of their plain versions."""
+    N, C = UNET_SITES[site]
+    B = 50
+    gen = torch.Generator(device=cuda_device).manual_seed(site)
+    x = (1.5 * torch.randn(B, C, N, generator=gen, device=cuda_device) + 0.3).to(
+        torch.bfloat16).transpose(1, 2)
+    w = torch.randn(C, 3 * la.HIDDEN, generator=gen, device=cuda_device) / C**0.5
+    g = 0.5 + torch.rand(C, generator=gen, device=cuda_device)
+    for pass_ in (1, 2):
+        plan = la.launch_plan(x, pass_)
+        assert la.shared_memory_bytes(pass_, plan) == plan["smem"]
+    before = (la.linear_attention_pass1.elementwise, la.linear_attention_pass2.elementwise)
+    got = la.linear_attention(x, w, prenorm=(g,))
+    sums = torch.zeros((B, la.SUMS), device=cuda_device)
+    mean = torch.empty((B, N), device=cuda_device)
+    rstd = torch.empty_like(mean)
+    la.linear_attention_pass1(x, w, g, mean, rstd, True, sums)
+    torch.cuda.synchronize()
+    assert (la.linear_attention_pass1.elementwise, la.linear_attention_pass2.elementwise) == before
+    assert got.stride(1) == 1  # channel-major out, as x
+    want_sums = la.linear_attention_pass1_reference(x, w, prenorm=(g,))
+    want = la.linear_attention_pass2_reference(x, w, want_sums, prenorm=(g,))
+    for a, b in ((got, want), (sums, want_sums)):
+        err = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+        assert bool(torch.isfinite(a).all()) and err <= TOL["bfloat16"], err
+    m_ref, r_ref = la.layer_norm_stats(x)
+    torch.testing.assert_close(mean, m_ref.reshape(B, N), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, r_ref.reshape(B, N), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channel_major", [True, False])
+def test_bf16_streamed_weights(cuda_device, channel_major):
+    """Past the resident weights' room (C = 1000) each tile's chunks bring
+    their weights along; the result stays the plain version's."""
+    N, C = 3000, 1000
+    rng = np.random.default_rng(C)
+    x, w, g = _inputs(rng, 2, N, C)
+    xt = torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+    if channel_major:
+        xt = xt.transpose(1, 2).contiguous().transpose(1, 2)
+    wt, gt = torch.from_numpy(w).to(cuda_device), torch.from_numpy(g).to(cuda_device)
+    for pass_ in (1, 2):
+        assert la.launch_plan(xt, pass_)["weights"] == "streamed"
+    got = la.linear_attention(xt, wt, prenorm=(gt,))
+    want = la.linear_attention_reference(xt, wt, prenorm=(gt,))
+    err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    assert err <= TOL["bfloat16"], err
+
+
+def test_breakdown_edits_apply():
+    """Each part the breakdown tool removes is still found once in the
+    kernel source, so its copies differ from the source by that part."""
+    from dmhomo_torch.ops import linear_attention_breakdown as bd
+
+    src = la._SOURCE.read_text()
+    copies = bd.variants(src)
+    assert copies.pop("unchanged") == src
+    assert len(copies) == 7 and all(text != src for text in copies.values())

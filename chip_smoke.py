@@ -88,19 +88,25 @@ Phases, each printing its results; any failure exits non-zero:
 18. whole-block card vs CPU: phase 5 for the ``fused_block`` model (layer
     scales 0.5).
 19. whole-block backward vs plain: registers, spills and dynamic shared
-    memory of each backward variant of ``csrc/swin_block.cu``; then the
-    backward kernel and its plain PyTorch version at every Swin-block shape
-    of a training microbatch (B=8), with and without the shift and its
-    mask, fp32 and bf16: errors of dx and the 13 parameter gradients against
-    the stated tolerance, and CUDA-event times of the kernel, the plain
-    backward and the port's unfused ``SwinBlock`` forward + backward on the
-    card (a yardstick only), beside the bound.
+    memory of each of the backward's five kernels in ``csrc/swin_block.cu``,
+    and the atomic instructions in their machine code (cuobjdump's SASS of
+    the library; any one fails the phase); then the backward (its five
+    launches) and its plain PyTorch version at every Swin-block shape of a
+    training microbatch (B=8), with and without the shift and its mask,
+    fp32 and bf16: each shape's ``backward_plan`` (grids, windows or tokens
+    per block, shared memory, blocks per SM, scratch, the replaced
+    per-window kernel's atomics by its formula), errors of dx and the 13
+    parameter gradients against the stated tolerance, and CUDA-event times
+    of the backward, the plain backward and the port's unfused
+    ``SwinBlock`` forward + backward on the card (a yardstick only), beside
+    the bound.
 20. whole-block training slice: ``HEMTrainer(HEMTrainConfig(attn_impl=
     'fused_block'))``, otherwise shipped (remat resolves on, as in JAX), on
     phase 8's batch: the loss is finite and falls; exactly 320 whole-block
     forward launches per step (160 forwards and their 160 remat recomputes),
     160 backward launches and no window-attention launch; step ms, pairs/s,
-    peak memory, a profile, and the I/O dtype of each block in one forward.
+    peak memory, a profile (each backward kernel's device time), and the I/O
+    dtype of each block in one forward.
 21. whole-block training card vs CPU: phase 9 with ``attn_impl='fused_block'``.
 
 The line before the last is a JSON object with the six kernels' numbers;
@@ -1131,19 +1137,29 @@ def block_bound(x, params, mask):
 
 
 def phase_swin_build(direction: str = "fwd", tag: str = "sb-build"):
+    """ptxas's registers and spills of each forward (or backward) variant of
+    ``csrc/swin_block.cu``, with its dynamic shared memory (MLP 3C)."""
+    import torch
+
     from dmhomo_torch.ops import swin_block as sb
 
     entry = None
     for line in sb.build_log().splitlines():
-        m = re.search(r"swin_block_(fwd|bwd)_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", line)
-        if m:  # swin_block_{fwd,bwd}_kernel<T, C, HD>
-            dt = "fp32" if m.group(2) == "f" else "bf16"
-            C = int(m.group(3))
-            new = f"{m.group(1)} {dt} C={C} hd={m.group(4)}"
-            if m.group(1) == direction and new != entry:
-                smem = sb.shared_memory_bytes(C, 3 * C, backward=direction == "bwd")
+        # swin_block_fwd_kernel<T, C, HD>; swin_block_bwd_<part>_kernel<T, C[, HD]>
+        m = re.search(r"swin_block_(fwd|bwd_([a-z]+))_kernel"
+                      r"(?:I(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?)?", line)
+        if m:
+            kind = "fwd" if m.group(1) == "fwd" else "bwd"
+            dt = {"f": "fp32", None: ""}.get(m.group(3), "bf16")
+            C, hd = int(m.group(4) or 0), int(m.group(5) or 8)
+            new = f"{m.group(1)} {dt} C={C}" + (f" hd={m.group(5)}" if m.group(5) else "")
+            if kind == direction and new != entry:
+                smem = (sb.shared_memory_bytes(C, 3 * C) if kind == "fwd" else
+                        sb.backward_shared_memory_bytes(
+                            C, hd, m.group(2), torch.float32 if dt == "fp32" else torch.bfloat16)
+                        if C else 0)
                 log(f"[{tag}] {new}: {smem} bytes dynamic shared memory (MLP 3C)")
-            entry = new if m.group(1) == direction else None
+            entry = new if kind == direction else None
         elif entry and ("registers" in line or "spill" in line):
             log(f"[{tag}] {entry}: {line.split(':', 1)[-1].strip()}")
 
@@ -1332,6 +1348,21 @@ def train_block_dtypes(model) -> list:
     return out * 2
 
 
+def phase_swin_bwd_sass():
+    """Atomic instructions in the built backward kernels' machine code
+    (cuobjdump's SASS of the library): any one fails the phase, since the
+    design sums every gradient without atomics; none means no launch makes
+    a global atomic."""
+    from dmhomo_torch.ops import swin_block as sb
+
+    counts = sb.backward_atomic_instructions()
+    log(f"[sb-bwd-sass] atomic instructions (ATOM, ATOMG, ATOMS, RED, REDG) in the backward "
+        f"kernels' SASS, over their instantiations: {json.dumps(counts)}")
+    if any(counts.values()):
+        raise SystemExit(f"the backward kernels' machine code holds atomics: {counts}")
+    return counts
+
+
 def phase_swin_bwd_kernels(shapes, dev, seed: int):
     """The whole-block backward kernel vs its plain version at every
     Swin-block shape of a training microbatch (B=8), +-shift, fp32 and bf16."""
@@ -1382,6 +1413,9 @@ def phase_swin_bwd_kernels(shapes, dev, seed: int):
                 b_ms, b_by = block_bwd_bound(x, params, mask)
                 per_step = (s["masked_launches"] if masked else s["plain_launches"]) * (
                     BATCH // MICROBATCH)
+                plan = sb.backward_plan(x, h, params[10].shape[0], mask)
+                kplan = {k: {kk: v for kk, v in kern.items() if kk != "threads"}
+                         for k, kern in plan["kernels"].items()}
                 r = {"level": s["level"], "B": B, "H": H, "W": W, "C": C, "heads": h,
                      "hd": s["hd"], "dtype": dtype, "mask": masked, "launches_per_step": per_step,
                      "train_dtype": train_block_dtype(int(s["level"][-1])), "max_abs_err": errs,
@@ -1390,6 +1424,11 @@ def phase_swin_bwd_kernels(shapes, dev, seed: int):
                      "plain_ms": plain_ms, "unfused_ms": unfused_ms, "bound_ms": b_ms,
                      "bound_by": b_by}
                 results.append(r)
+                log(f"[sb-bwd-plan] {s['level']} {H}x{W} C={C} h={h} B={B} {dtype} "
+                    f"shift={shift}: {json.dumps(kplan)}; scratch {plan['scratch_bytes']} bytes "
+                    f"(partials {plan['partial_bytes']}); global atomics per launch "
+                    f"{plan['atomics']} by design (the machine code: phase 19's sb-bwd-sass), "
+                    f"the per-window kernel's by its formula {plan['atomics_old']}")
                 log(f"[sb-bwd-kernel] {s['level']} {H}x{W} C={C} h={h} hd={s['hd']} B={B} "
                     f"{dtype} shift={shift}: rel err {rel:.3g} (worst {r['worst']}; dx "
                     f"{rels['dx']:.3g}, bias {rels['bias']:.3g}, wq {rels['wq']:.3g}; tol "
@@ -1502,17 +1541,20 @@ def phase_train_fused(dev, batch, seed: int, window_step_ms: float):
         raise SystemExit("the profiler saw no device time")
     idle = max(0.0, 1.0 - dev_ms / step_ms)
     kern = {d: sum(e.self_device_time_total for e in events
-                   if f"swin_block_{d}_kernel" in e.key) / 1e3 for d in ("fwd", "bwd")}
+                   if f"swin_block_{d}_" in e.key) / 1e3 for d in ("fwd", "bwd")}
+    parts = {p: sum(e.self_device_time_total for e in events
+                    if f"swin_block_bwd_{p}_kernel" in e.key) / 1e3
+             for p in sb.BACKWARD_KERNELS}
     log(f"[sb-train-profile] one step: device busy {dev_ms:.2f} ms of the {step_ms:.2f} ms "
         f"unprofiled step: idle {100 * idle:.1f}%; whole-block forward kernel {kern['fwd']:.2f} "
-        f"ms, backward kernel {kern['bwd']:.2f} ms")
+        f"ms, backward kernels {kern['bwd']:.2f} ms ({', '.join(f'{p} {t:.2f}' for p, t in parts.items())})")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
         log(f"[sb-train-profile] {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
     del trainer
     torch.cuda.empty_cache()
     return {"step_ms": step_ms, "peak": peak, "launches": totals, "idle": idle,
-            "dev_ms": dev_ms, "kernel_ms": kern, "dtypes": expected[:20]}
+            "dev_ms": dev_ms, "kernel_ms": kern, "bwd_parts_ms": parts, "dtypes": expected[:20]}
 
 
 def main(argv=None):
@@ -1576,6 +1618,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     phase_swin_build("bwd", tag="sb-bwd-build")
+    sbb_atomics = phase_swin_bwd_sass()
     sbb_results, sbb_worst = phase_swin_bwd_kernels(train_shapes, dev, args.seed)
     sb_train = phase_train_fused(dev, train_batch, args.seed, train["step_ms"])
     sb_step_diffs = phase_train_card_vs_cpu(dev, args.seed, attn_impl="fused_block",
@@ -1743,7 +1786,13 @@ def main(argv=None):
                         for dt in ("float32", "bfloat16")},
         "max_abs_err_by_output": {f"{dt} {n}": v for (dt, n), v in sbb_worst.items()},
         "profiled_ms_per_step": sb_train["kernel_ms"]["bwd"],
+        "profiled_ms_per_step_by_kernel": sb_train["bwd_parts_ms"],
         "train_step_ms": sb_train["step_ms"],
+        "train_peak_bytes": sb_train["peak"],
+        "train_idle": sb_train["idle"],
+        # counted in the built machine code; phase 19 fails on any, so the step runs none
+        "atomic_instructions": sbb_atomics,
+        "atomics_per_step": 0,
         "shapes": sbb_results,
     }
     log(f"[summary] fused_block training {1e3 * BATCH / sb_train['step_ms']:.2f} pairs/s, step "
@@ -1751,7 +1800,9 @@ def main(argv=None):
         f"{sb_train['peak'] / 2**30:.2f} GiB, device idle {100 * sb_train['idle']:.1f}%; "
         f"whole-block backward kernel {sbb_kernel['ms']:.3f} ms per step (bound "
         f"{sbb_kernel['bound_ms']:.3f}, plain {sbb_kernel['plain_ms']:.3f}, unfused SwinBlock "
-        f"fwd+bwd {sbb_unfused_ms:.3f}; profiled {sb_train['kernel_ms']['bwd']:.2f}); step "
+        f"fwd+bwd {sbb_unfused_ms:.3f}; profiled {sb_train['kernel_ms']['bwd']:.2f}; atomic "
+        f"instructions in its machine code {sum(sbb_atomics.values())}, so global atomics per "
+        f"step {sbb_kernel['atomics_per_step']}); step "
         f"card-vs-cpu {json.dumps(sb_step_diffs)}; total {time.perf_counter() - t_start:.0f} s")
     log(smi)  # nvidia-smi: card name, power limit
     log(json.dumps({"kernels": [kernel, bwd_kernel] + la_kernels + [sb_kernel, sbb_kernel]}))

@@ -37,8 +37,7 @@
 //
 // What this simple design does about it: one block of 256 threads owns one
 // window and keeps its 64 tokens in shared memory, so device memory sees x
-// once and y once (the backward reads x three times and dy once, and writes
-// dx once).  Forward buffers: x, then h; one C-wide buffer for n1, the
+// once and y once.  Forward buffers: x, then h; one C-wide buffer for n1, the
 // attention output, n2 and y; one buffer of max(3C, hidden) columns for qkv
 // and then the GELU output; and one C x C block of a weight matrix (row =
 // output column), which every projection streams in turn from L2 (Wq in 3
@@ -52,22 +51,47 @@
 // LayerNorm takes four threads per token.  At C = 96 the buffers take 164
 // KB: one block per SM.
 //
-// The backward holds four C-wide buffers, one 3C-wide and the weight block
-// (212 KB at C = 96), planned by liveness: the MLP goes one C-column block of
-// the hidden layer at a time (m1, gm and dm1 of the block in the 3C buffer,
-// dn2 summed in registers), since the qkv it would share that buffer with is
-// recomputed after it; dq overwrites dao, dk and dv overwrite k and v row by
-// row.  The attention's backward takes window_attention.cu's two passes
-// (query rows, then key rows recomputing their logits column).  Every weight
-// gradient is a C x C tile reduced over the window's 64 tokens in registers
-// and added to the zeroed fp32 output with one global atomicAdd per element
-// per window, as dbias (one per element of dsim) and the vector gradients
-// are.  Tensor cores, TMA, double-buffered weight blocks and summing
-// gradients over several windows before the atomics are later work.
+// The backward is five kernels, so that no gradient is summed with global
+// atomics, which one block per window would need: every window's 10 C^2
+// weight-gradient and heads * 4096 dbias values go to the same addresses.
+//  1. recompute, one block per window: the forward (LN1, qkv, the attention,
+//     the projection and residual, LN2, the MLP's first product), then the
+//     MLP's and LN2's backward and dao = round(round(dh) . round(Wp)).  It
+//     writes the window's rows of n1, qkv, ao, n2, gm, dao (I/O dtype), dm1
+//     and dh (fp32) to a scratch buffer, and its dg2, db2 to its own slot.
+//  2. attention, one block of four warps per head and chunk of windows: the
+//     head's bias tile is staged once, its dbias summed in registers over
+//     the chunk and written once.  Per window the logits are computed once
+//     per head and e and dsim kept in shared memory for dq, dk and dv, which
+//     replace q, k, v.
+//  3. input, one block per window: dn1 = dqkv . round(Wq) and dx = round(dh
+//     + LN1'(dn1)), with its dg1, db1.
+//  4. weights: each weight gradient as C x C blocks of a product over the
+//     token axis (dW2 = dy^T gm, dW1 = dm1^T n2, dWp = dh^T ao, dWq = dqkv^T
+//     n1, with the bias-vector gradients as column sums), split into token
+//     ranges; each block stores its range's partial.
+//  5. reduce: every gradient summed over its partials in a fixed order, so
+//     a launch's gradients are the same bits run to run.
+// The bf16 launches run every product on tensor cores (mma.sync m16n8k16,
+// m16n8k8 for head dims 4 and 8 and for C = 24's last step), operands
+// rounded to bf16 as they are packed from fp32 shared memory, as the Pallas
+// kernel rounds them; the two products over an fp32 gradient (dW1 over dm1,
+// dWp over dh) split it into two bf16 parts and two products (its value to
+// 2^-17).  The fp32 launches keep fp32 CUDA cores: the forward's register
+// tiles for the projections and the weight products, the mma layout
+// computed with FMAs for the attention.  The bias and mask are read as
+// float2s where each value is used once (the recompute kernel), the bias
+// staged where a block reuses it (the attention's backward).  Global loads
+// are fetched into registers one step ahead (the next weight block, window
+// or token chunk) so that they are in flight while the current one is used.
+// The bf16 window buffers have row strides of 8 (mod 16) floats for the
+// fragments' float2 reads.  The scratch costs about 0.9 KB a token in bf16
+// and 1.4 KB in fp32, written once and read once or twice.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
 
@@ -167,12 +191,11 @@ __device__ __forceinline__ void st4(float* p, float4 v) {
 }
 
 // dst = round(LN(src)) for the window's 64 tokens, C channels each; rows
-// padded to pad(C).  Four threads per token, combined with shuffles.
-template <typename T, int C>
+// LD floats apart.  Four threads per token, combined with shuffles.
+template <typename T, int C, int LD = pad(C)>
 __device__ __forceinline__ void layer_norm(const float* src, float* dst,
                                            const float* __restrict__ g,
                                            const float* __restrict__ b, int tid) {
-  constexpr int LD = pad(C);
   const int t = tid / LN_THREADS;
   const int part = tid % LN_THREADS;
   const float* row = src + t * LD;
@@ -226,9 +249,8 @@ __device__ __forceinline__ float4 round4(float4 v) {
   return make_float4(IO<T>::round(v.x), IO<T>::round(v.y), IO<T>::round(v.z), IO<T>::round(v.w));
 }
 
-// acc[i][j] += sum_k R(a[(rg + RG*i) * lda + k0 + k]) * ws[(cg + CG*j) * pad(C) + k], with
-// R the rounding to R's dtype (none for float)
-template <int C, typename R = float>
+// acc[i][j] += sum_k a[(rg + RG*i) * lda + k0 + k] * ws[(cg + CG*j) * pad(C) + k]
+template <int C>
 __device__ __forceinline__ void mma_block(const float* a, int lda, int k0, const float* ws,
                                           float (&acc)[Tiling<C>::TR][Tiling<C>::TC],
                                           int rg, int cg) {
@@ -240,7 +262,7 @@ __device__ __forceinline__ void mma_block(const float* a, int lda, int k0, const
   for (int k = 0; k < C; k += 4) {
     float4 av[Tl::TR], bv[Tl::TC];
 #pragma unroll
-    for (int i = 0; i < Tl::TR; ++i) av[i] = round4<R>(ld4(arow + Tl::RG * i * lda + k));
+    for (int i = 0; i < Tl::TR; ++i) av[i] = ld4(arow + Tl::RG * i * lda + k);
 #pragma unroll
     for (int j = 0; j < Tl::TC; ++j) bv[j] = ld4(wrow + Tl::CG * j * LD + k);
 #pragma unroll
@@ -403,17 +425,17 @@ struct WindowTokens {
     w0 = (w % nwc) * WS + shift;
   }
   __device__ __forceinline__ size_t operator()(int t) const {
-    const int gh = (h0 + t / WS) % H;
-    const int gw = (w0 + t % WS) % W;
+    int gh = h0 + t / WS, gw = w0 + t % WS;  // h0 < H and w0 < W: one wrap at most
+    if (gh >= H) gh -= H;
+    if (gw >= W) gw -= W;
     return ((static_cast<size_t>(b) * H + gh) * W + gw) * C;
   }
 };
 
-// dst (N x pad(C) floats) = the window's C-channel tokens of src.
-template <typename T, int C>
+// dst (N rows LD floats apart) = the window's C-channel tokens of src.
+template <typename T, int C, int LD = pad(C)>
 __device__ __forceinline__ void load_window(const T* __restrict__ src, const WindowTokens& token,
                                             float* dst, int tid) {
-  constexpr int LD = pad(C);
   constexpr int Q = C / 4;
   for (int e = tid; e < N * Q; e += THREADS) {
     const int t = e / Q, c = 4 * (e % Q);
@@ -501,7 +523,7 @@ swin_block_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, const Params p
 // backward
 // ---------------------------------------------------------------------------
 
-struct Grads {  // fp32, zeroed by the caller; the kernel adds every window's part
+struct Grads {  // fp32, in the parameters' layouts; written once, by the reduction
   float* g1;
   float* b1;
   float* wq;    // (3C, C)
@@ -517,92 +539,365 @@ struct Grads {  // fp32, zeroed by the caller; the kernel adds every window's pa
   float* c2;
 };
 
-// Floats of the backward's shared memory: four C-wide buffers, one 3C-wide,
-// the weight block, LayerNorm statistics and the ds column of each head in
-// flight.
-constexpr size_t bwd_smem_floats(int C) {
-  return static_cast<size_t>(4 * N * pad(C) + N * pad(3 * C) + C * pad(C) + 2 * N + GROUPS * N);
-}
-
-// ws[c][k] = round(w[(r0 + k) * ldw + c0 + c]) for c, k < C: one C x C block
-// of a weight read along its rows, for a product that reduces over the
-// weight's output axis (an input gradient).
-template <typename T, int C>
-__device__ __forceinline__ void stage_weights_t(const float* __restrict__ w, int ldw, int r0,
-                                                int c0, float* ws, int tid) {
-  constexpr int LD = pad(C);
-  for (int e = tid; e < C * C; e += THREADS) {
-    const int k = e / C, c = e % C;
-    ws[c * LD + k] = IO<T>::round(__ldg(w + static_cast<size_t>(r0 + k) * ldw + c0 + c));
-  }
-}
-
-// A C x C weight-gradient tile on 256 threads: CG column groups (columns
-// cg + CG*j) by RG row groups (rows rg + RG*i; rows past C idle).
-template <int C>
-struct WTiling {
-  static constexpr int CG = C % 16 == 0 ? 16 : 8;
-  static constexpr int TC = C / CG;
-  static constexpr int RG = THREADS / CG;
-  static constexpr int TR = (C + RG - 1) / RG;
+// What the window kernels hand the weight-gradient product and each other.
+// Token rows in window order (row = window * 64 + token in the window).
+struct Scratch {
+  void* n1;      // (tokens, C) I/O dtype: round(LN1(x))
+  void* qkv;     // (tokens, 3C) I/O: qkv; the attention's backward writes round(dq, dk, dv) over it
+  void* ao;      // (tokens, C) I/O: the attention output
+  void* n2;      // (tokens, C) I/O: round(LN2(h))
+  void* gm;      // (tokens, hidden) I/O: round(gelu(m1))
+  float* dm1;    // (tokens, hidden) fp32
+  float* dh;     // (tokens, C) fp32
+  void* dao;     // (tokens, C) I/O: the attention output's gradient
+  float* ln;     // (windows, 4C): dg1, db1, dg2, db2 of each window
+  float* wpart;  // (splits, PartLayout::size): weight and bias-vector gradients of each token split
+  float* bpart;  // (chunks, heads, 64, 64): dbias of each chunk of windows
 };
 
-// dst[n * ldd + k] += sum over the window's tokens t of a[t * lda + n] *
-// b[t * ldb + k] for n, k < C: one global atomicAdd per element.
-template <int C>
-__device__ __forceinline__ void weight_grad(const float* a, int lda, const float* b, int ldb,
-                                            float* dst, int ldd, int tid) {
-  using Wt = WTiling<C>;
-  const int rg = tid / Wt::CG, cg = tid % Wt::CG;
-  float acc[Wt::TR][Wt::TC];
-#pragma unroll
-  for (int i = 0; i < Wt::TR; ++i)
-#pragma unroll
-    for (int j = 0; j < Wt::TC; ++j) acc[i][j] = 0.0f;
-#pragma unroll 4
-  for (int t = 0; t < N; ++t) {
-    float av[Wt::TR], bv[Wt::TC];
-#pragma unroll
-    for (int i = 0; i < Wt::TR; ++i) {
-      const int n = rg + Wt::RG * i;
-      av[i] = n < C ? a[t * lda + n] : 0.0f;
-    }
-#pragma unroll
-    for (int j = 0; j < Wt::TC; ++j) bv[j] = b[t * ldb + cg + Wt::CG * j];
-#pragma unroll
-    for (int i = 0; i < Wt::TR; ++i)
-#pragma unroll
-      for (int j = 0; j < Wt::TC; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+// Offsets (floats) of the gradients within one token split's partial.
+struct PartLayout {
+  int C, hidden;
+  __host__ __device__ int w2() const { return 0; }
+  __host__ __device__ int w1() const { return C * hidden; }
+  __host__ __device__ int wp() const { return 2 * C * hidden; }
+  __host__ __device__ int wq() const { return 2 * C * hidden + C * C; }
+  __host__ __device__ int c2() const { return 2 * C * hidden + 4 * C * C; }
+  __host__ __device__ int c1() const { return c2() + C; }
+  __host__ __device__ int bp() const { return c1() + hidden; }
+  __host__ __device__ int bq() const { return bp() + C; }
+  __host__ __device__ int size() const { return bq() + 3 * C; }
+};
+
+// Byte offsets of Scratch's buffers (in its field order) within one
+// allocation, each at a multiple of 256 bytes, and the allocation's size
+// (off[SCRATCH_BUFFERS]), for a launch of `windows` windows with chunks of
+// per_block windows (the attention) and token ranges of split_tokens (the
+// weight products).
+constexpr int SCRATCH_BUFFERS = 11;
+void scratch_layout(long long windows, int C, int heads, int hidden, int per_block,
+                    int split_tokens, bool bf16, long long* off) {
+  const long long tokens = windows * N, io = bf16 ? 2 : 4, f = 4;
+  const long long chunks = (windows + per_block - 1) / per_block;
+  const long long splits = (tokens + split_tokens - 1) / split_tokens;
+  const long long bytes[SCRATCH_BUFFERS] = {
+      io * tokens * C,     io * tokens * 3 * C, io * tokens * C,  io * tokens * C,
+      io * tokens * hidden, f * tokens * hidden, f * tokens * C,   io * tokens * C,
+      f * windows * 4 * C, f * splits * PartLayout{C, hidden}.size(),
+      f * chunks * heads * N * N};
+  long long o = 0;
+  for (int i = 0; i < SCRATCH_BUFFERS; ++i) {
+    off[i] = o;
+    o += (bytes[i] + 255) / 256 * 256;
   }
+  off[SCRATCH_BUFFERS] = o;
+}
+
+template <typename T>
+struct Bf16 {
+  static constexpr bool value = false;
+};
+template <>
+struct Bf16<__nv_bfloat16> {
+  static constexpr bool value = true;
+};
+
+// Row stride (floats) of the backward's window buffers, `width` floats wide:
+// the forward's for fp32 (float4 reads of the register-tiled SGEMM); for bf16
+// 8 (mod 16), so that the float2 reads of a tensor-core fragment (rows g,
+// columns 2t) fall in 16 distinct bank pairs per half-warp.
+template <typename T>
+__host__ __device__ constexpr int bpad(int width) {
+  return Bf16<T>::value ? width + ((width + 8) % 16 == 8 ? 8 : 16) : pad(width);
+}
+
+__device__ __forceinline__ void put2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void put2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// packed bf16 pair (lo in the low half) and its two values
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ float bf16_lo(uint32_t p) { return __uint_as_float(p << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t p) { return __uint_as_float(p & 0xffff0000u); }
+
+// d += a . b on tensor cores, bf16 operands, fp32 accumulation
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma8(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+template <int M>
+__device__ __forceinline__ void zero_tiles(float (&a)[M][4]) {
 #pragma unroll
-  for (int i = 0; i < Wt::TR; ++i) {
-    const int n = rg + Wt::RG * i;
-    if (n < C) {
+  for (int i = 0; i < M; ++i) a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0.0f;
+}
+
+// One warp's 16 x 8NT tile in mma.sync's accumulator layout: with g = lane / 4
+// and t = lane % 4, acc[j][q] is row g + 8 (q / 2), column 8 j + 2 t + q % 2.
+//   acc[j] += sum over k < K of a(m, k) b(k, n),  m < 16, n < 8 NT,
+// with the operands read in pairs along k through the callers' functions:
+// a(m, k) gives (a(m, k), a(m, k + 1)) and b(k, n) gives (b(k, n), b(k + 1,
+// n)) for even k, as float2s (0 outside the operands).  bf16: mma.sync on
+// tensor cores, each operand rounded to bf16 as it is packed (exact for the
+// rounded values the callers give it); with SPLIT, a is taken as hi + lo,
+// two bf16 parts and two products, which keeps an fp32 operand to 2^-17 of
+// itself.  K a multiple of 8 (m16n8k16 steps, one m16n8k8 for the rest).
+// fp32: FMAs on CUDA cores, the same layout, K even.
+template <typename T, int NT, int K, bool SPLIT = false>
+struct WarpMma;
+
+template <int NT, int K, bool SPLIT>
+struct WarpMma<float, NT, K, SPLIT> {
+  template <typename FA, typename FB>
+  static __device__ __forceinline__ void run(float (&acc)[NT][4], FA a, FB b) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll 2
+    for (int k = 0; k < K; k += 2) {
+      const float2 a0 = a(g, k), a1 = a(g + 8, k);
 #pragma unroll
-      for (int j = 0; j < Wt::TC; ++j) atomicAdd(dst + n * ldd + cg + Wt::CG * j, acc[i][j]);
+      for (int j = 0; j < NT; ++j) {
+        const float2 b0 = b(k, 8 * j + 2 * t), b1 = b(k, 8 * j + 2 * t + 1);
+        acc[j][0] = fmaf(a0.y, b0.y, fmaf(a0.x, b0.x, acc[j][0]));
+        acc[j][1] = fmaf(a0.y, b1.y, fmaf(a0.x, b1.x, acc[j][1]));
+        acc[j][2] = fmaf(a1.y, b0.y, fmaf(a1.x, b0.x, acc[j][2]));
+        acc[j][3] = fmaf(a1.y, b1.y, fmaf(a1.x, b1.x, acc[j][3]));
+      }
     }
+  }
+};
+
+template <int NT, int K, bool SPLIT>
+struct WarpMma<__nv_bfloat16, NT, K, SPLIT> {
+  static_assert(K % 8 == 0, "the reduction must be a multiple of 8");
+
+  // the pair a(m, k), a(m, k + 1) packed, and with SPLIT its remainder
+  template <typename FA>
+  static __device__ __forceinline__ void frag(FA a, int m, int k, uint32_t& hi, uint32_t& lo) {
+    const float2 x = a(m, k);
+    hi = pack_bf16(x.x, x.y);
+    lo = SPLIT ? pack_bf16(x.x - bf16_lo(hi), x.y - bf16_hi(hi)) : 0u;
+  }
+
+  template <typename FB>
+  static __device__ __forceinline__ uint32_t bfrag(FB b, int k, int n) {
+    const float2 x = b(k, n);
+    return pack_bf16(x.x, x.y);
+  }
+
+  template <typename FA, typename FB>
+  static __device__ __forceinline__ void run(float (&acc)[NT][4], FA a, FB b) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int k0 = 0; k0 + 16 <= K; k0 += 16) {
+      uint32_t ah[4], al[4];
+      frag(a, g, k0 + 2 * t, ah[0], al[0]);
+      frag(a, g + 8, k0 + 2 * t, ah[1], al[1]);
+      frag(a, g, k0 + 8 + 2 * t, ah[2], al[2]);
+      frag(a, g + 8, k0 + 8 + 2 * t, ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = 8 * j + g;
+        const uint32_t b0 = bfrag(b, k0 + 2 * t, n), b1 = bfrag(b, k0 + 8 + 2 * t, n);
+        mma16(acc[j], ah, b0, b1);
+        if (SPLIT) mma16(acc[j], al, b0, b1);
+      }
+    }
+    if constexpr (K % 16 != 0) {
+      constexpr int k0 = K - 8;
+      uint32_t ah0, al0, ah1, al1;
+      frag(a, g, k0 + 2 * t, ah0, al0);
+      frag(a, g + 8, k0 + 2 * t, ah1, al1);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const uint32_t b0 = bfrag(b, k0 + 2 * t, 8 * j + g);
+        mma8(acc[j], ah0, ah1, b0);
+        if (SPLIT) mma8(acc[j], al0, al1, b0);
+      }
+    }
+  }
+};
+
+// operand pairs for WarpMma: p[i] and p[i + 1] (i even), or p[i] and p[i + ld]
+__device__ __forceinline__ float2 pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 pair(const float* p, int ld) { return make_float2(p[0], p[ld]); }
+__device__ __forceinline__ float2 zero2() { return make_float2(0.0f, 0.0f); }
+
+// cdf = Phi(m) and phi = exp(-m^2 / 2) / sqrt(2 pi) of the exact GELU, by
+// erff and expf as the forward computes its GELU
+__device__ __forceinline__ void gelu_parts(float m, float& cdf, float& phi) {
+  cdf = 0.5f * (1.0f + erff(m * 0.70710678118654752f));
+  phi = 0.3989422804014327f * expf(-0.5f * m * m);
+}
+
+// round(|v|) of a pair (the attention's e from its stored +-e32)
+template <typename T>
+__device__ __forceinline__ float2 rounded_abs(float2 v) {
+  return make_float2(IO<T>::round(fabsf(v.x)), IO<T>::round(fabsf(v.y)));
+}
+
+// exp(clip(v, +-60)) by expf, as the forward's attention computes it
+__device__ __forceinline__ float clipped_exp(float v) {
+  return expf(fminf(fmaxf(v, -CLIP), CLIP));
+}
+
+// A 64 x C projection tile (rows the window's tokens, columns output
+// features) on the block's 256 threads, in its dtype's layout:
+//   acc[r][n] += sum over k < C of a[r * lda + k] ws[n * bpad<T>(C) + k].
+// fp32: the register-tiled SGEMM of the forward (mma_block); bf16: warp w
+// takes rows 16 (w % 4) .. and every other 8-column tile from w / 4, on
+// tensor cores (a rounded to bf16 as it is packed, as every product here
+// wants it).
+template <typename T, int C>
+struct Proj;
+
+template <int C>
+struct Proj<float, C> {
+  using Tl = Tiling<C>;
+  float acc[Tl::TR][Tl::TC];
+  int rg, cg;
+  __device__ explicit Proj(int tid) : rg(tid / Tl::CG), cg(tid % Tl::CG) { zero<C>(acc); }
+  __device__ __forceinline__ void mma(const float* a, int lda, const float* ws) {
+    mma_block<C>(a, lda, 0, ws, acc, rg, cg);
+  }
+  template <typename F>
+  __device__ __forceinline__ void for_each(F f) {
+#pragma unroll
+    for (int i = 0; i < Tl::TR; ++i)
+#pragma unroll
+      for (int j = 0; j < Tl::TC; ++j) f(rg + Tl::RG * i, cg + Tl::CG * j, acc[i][j]);
+  }
+};
+
+template <int C>
+struct Proj<__nv_bfloat16, C> {
+  static constexpr int TILES = C / 8;            // 8-column tiles of the output
+  static constexpr int NT = (TILES + 1) / 2;     // a warp's: every other one
+  float acc[NT][4];
+  int m0, half;
+  __device__ explicit Proj(int tid) : m0(16 * ((tid >> 5) & 3)), half(tid >> 7) { zero_tiles(acc); }
+  __device__ __forceinline__ void mma(const float* a, int lda, const float* ws) {
+    const float* ar = a + m0 * lda;
+    const int hf = half;
+    WarpMma<__nv_bfloat16, NT, C>::run(
+        acc, [&](int m, int k) { return pair(ar + m * lda + k); },
+        [&](int k, int n) {
+          const int tile = hf + 2 * (n >> 3);
+          return tile < TILES ? pair(ws + (8 * tile + (n & 7)) * bpad<__nv_bfloat16>(C) + k) : zero2();
+        });
+  }
+  template <typename F>
+  __device__ __forceinline__ void for_each(F f) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int tile = half + 2 * j;
+      if (tile < TILES) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) f(m0 + g + 8 * (q >> 1), 8 * tile + 2 * t + (q & 1), acc[j][q]);
+      }
+    }
+  }
+};
+
+// dst[t * ldd + c] = src[t * lds + c] in S, for the window's 64 rows, c < K
+template <typename S, int K>
+__device__ __forceinline__ void store_rows(S* dst, int ldd, const float* src, int lds, int tid) {
+  constexpr int Q = K / 4;
+  for (int e = tid; e < N * Q; e += THREADS) {
+    const int t = e / Q, c = 4 * (e % Q);
+    IO<S>::store4(dst + static_cast<size_t>(t) * ldd + c, src + t * lds + c);
   }
 }
 
-// dst[c] += sum over the window's tokens of a[t * lda + c], for c < n.
-__device__ __forceinline__ void column_sums(const float* a, int lda, int n, float* dst, int tid) {
-  for (int c = tid; c < n; c += THREADS) {
-    float s = 0.0f;
-    for (int t = 0; t < N; ++t) s += a[t * lda + c];
-    atomicAdd(dst + c, s);
+// dst[t * ldd + c] = src[t * lds + c] for the window's 64 rows, c < K
+template <typename S, int K>
+__device__ __forceinline__ void load_rows(const S* src, int lds, float* dst, int ldd, int tid) {
+  constexpr int Q = K / 4;
+  for (int e = tid; e < N * Q; e += THREADS) {
+    const int t = e / Q, c = 4 * (e % Q);
+    float v[4];
+    IO<S>::load4(src + static_cast<size_t>(t) * lds + c, v);
+    st4(dst + t * ldd + c, make_float4(v[0], v[1], v[2], v[3]));
   }
 }
+
+// One C x C block of an (out, in) fp32 weight w (rows ldw apart), fetched
+// into registers, so that the next block's loads are in flight while the
+// current one is used, then put into ws (rows bpad<T>(C) floats apart)
+// rounded to T: row n of ws holds
+//   plain:      w[(r0 + n) * ldw + c0 + k] for k < C (output column r0 + n);
+//   transposed: w[(r0 + k) * ldw + c0 + n] for k < C (input column c0 + n),
+// for a product that reduces over the weight's output axis.  A transposed
+// block is fetched down the rows, so that the puts are free of bank
+// conflicts.
+template <typename T, int C>
+struct WeightStage {
+  static constexpr int Q = C / 4, ELEMS = C * Q, E = (ELEMS + THREADS - 1) / THREADS;
+  float4 v[E];
+  bool transposed;
+
+  __device__ __forceinline__ void fetch(const float* __restrict__ w, int ldw, int r0, int c0,
+                                        bool t, int tid) {
+    transposed = t;
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int e = tid + i * THREADS;
+      const int row = t ? e % C : e / Q, c = 4 * (t ? e / C : e % Q);
+      if (e < ELEMS)
+        v[i] = __ldg(reinterpret_cast<const float4*>(w + static_cast<size_t>(r0 + row) * ldw +
+                                                     c0 + c));
+    }
+  }
+
+  __device__ __forceinline__ void put(float* ws, int tid) const {
+    constexpr int LD = bpad<T>(C);
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int e = tid + i * THREADS;
+      if (e >= ELEMS) continue;
+      const float4 r = round4<T>(v[i]);
+      if (transposed) {
+        const int k = e % C, n = 4 * (e / C);
+        ws[n * LD + k] = r.x;
+        ws[(n + 1) * LD + k] = r.y;
+        ws[(n + 2) * LD + k] = r.z;
+        ws[(n + 3) * LD + k] = r.w;
+      } else {
+        st4(ws + (e / Q) * LD + 4 * (e % Q), r);
+      }
+    }
+  }
+};
 
 // LayerNorm backward over the window, in fp32: with xhat and rstd of src (C
-// channels; statistics as layer_norm computes them) and dxh = dn * g,
+// channels, rows LD floats apart, as dres's; statistics as layer_norm
+// computes them) and dxh = dn * g,
 //   dres += rstd * (dxh - mean(dxh) - xhat * mean(dxh * xhat))   (in place)
-//   dg += sum_t dn * xhat,  db += sum_t dn.
-// Ends with a barrier.
-template <int C>
+// and the window's gain and bias gradients dg = sum_t dn * xhat, db = sum_t
+// dn stored (not added) to dg[0..C), db[0..C).  Ends with a barrier.
+template <int C, int LD>
 __device__ __forceinline__ void layer_norm_bwd(const float* src, const float* dn, int ldn,
                                                float* dres, const float* __restrict__ g,
                                                float* dg, float* db, float* st, int tid) {
-  constexpr int LD = pad(C);
   const int t = tid / LN_THREADS;
   const int part = tid % LN_THREADS;
   const float* row = src + t * LD;
@@ -635,8 +930,8 @@ __device__ __forceinline__ void layer_norm_bwd(const float* src, const float* dn
       sg = fmaf(d, (src[u * LD + c] - st[2 * u]) * st[2 * u + 1], sg);
       sb += d;
     }
-    atomicAdd(dg + c, sg);
-    atomicAdd(db + c, sb);
+    dg[c] = sg;
+    db[c] = sb;
   }
   float m1 = 0.0f, m2 = 0.0f;
   for (int c = 4 * part; c < C; c += 4 * LN_THREADS) {
@@ -672,251 +967,820 @@ __device__ __forceinline__ void layer_norm_bwd(const float* src, const float* dn
   __syncthreads();
 }
 
-// The window attention's backward for the window's heads, four in flight.
-// qkv (rows LDQ apart) holds round(n1 . Wq + bq); dq_io (C wide) holds
-// dao = the attention output's gradient.  Per head g, pass A gives thread i
-// query row i (recompute e_i, s_i and ctx_i; then gg_i, ds_i and dq_i) and
-// pass B thread j key row j (column j of the logits from the q and gg rows
-// pass A left in shared memory: dk_j, dv_j, column j of dsim).  On return
-// dq_io holds round(dq) over dao, qkv's k and v columns round(dk) and
-// round(dv), its q columns q scaled; gg_s the round(gg) rows.  dbias gets
-// one global atomicAdd per element of dsim.
+constexpr int ELD = N + 4;          // row stride of a 64 x 64 tile (e, dsim, bias)
+constexpr int ATT_THREADS = 128;    // the attention's backward: four warps, one head
+
+// the reduction over a head dim: bf16 pads it to the mma's k (8)
+template <typename T, int HD>
+struct HeadK {
+  static constexpr int value = Bf16<T>::value && HD < 8 ? 8 : HD;
+};
+
+__host__ __device__ constexpr int head_ld(int hd) { return hd + 4; }
+
+// Floats of the region that holds one weight block, or (fp32) the forward
+// attention's e tiles of the two heads in flight.
+template <typename T>
+__host__ __device__ constexpr int weight_region(int C) {
+  return Bf16<T>::value || C * bpad<T>(C) > 2 * N * ELD ? C * bpad<T>(C) : 2 * N * ELD;
+}
+
+// Floats of shared memory of each backward kernel.
+template <typename T>
+__host__ __device__ constexpr size_t recompute_smem_floats(int C) {
+  return static_cast<size_t>(3 * N * bpad<T>(C) + N * bpad<T>(3 * C) + weight_region<T>(C) +
+                             2 * N);
+}
+__host__ __device__ constexpr size_t attention_smem_floats(int hd) {
+  return static_cast<size_t>(3 * N * ELD + 5 * N * head_ld(hd));
+}
+// attention blocks an SM holds (their launch bounds; head dim 32's shared
+// memory allows two)
+__host__ __device__ constexpr int attention_blocks_per_sm(int hd) { return hd < 32 ? 3 : 2; }
+template <typename T>
+__host__ __device__ constexpr size_t input_smem_floats(int C) {
+  return static_cast<size_t>(2 * N * bpad<T>(C) + N * bpad<T>(3 * C) + C * bpad<T>(C) + 2 * N);
+}
+// windows of tokens the weight-gradient kernel stages at a time (three
+// float4s of each operand per thread)
+__host__ __device__ constexpr int weight_windows(int C) { return C <= 24 ? 2 : 1; }
+// weight-gradient blocks an SM holds (its launch bounds; the plan sizes the
+// splits to fill the card with them once)
+__host__ __device__ constexpr int weight_blocks_per_sm(int C) { return C <= 24 ? 4 : 2; }
+__host__ __device__ constexpr size_t weights_smem_floats(int C) {
+  return static_cast<size_t>(2 * weight_windows(C) * N * pad(C));
+}
+
+// out[i][h HD + d] = round((e v)_i / s_i), the window attention of qkv (rows
+// bpad<T>(3C) apart) for every head: two heads in flight, four warps each, a
+// warp's 16 query rows; the logits on tensor cores (bf16) or CUDA cores
+// (fp32).  bf16 keeps e in registers, the A fragments of e v; fp32 stages
+// it in et (2 x 64 x ELD).  Each bias and mask value is read once, as a
+// float2.  No barrier at the end.
 template <typename T, int C, int HD>
-__device__ __forceinline__ void attention_bwd(float* qkv, float* dq_io, float* gg_s, float* ds_all,
-                                              const Params& p, float* dbias, int w, float scale_io,
-                                              float scale, int tid) {
-  constexpr int LD = pad(C);
-  constexpr int LDQ = pad(3 * C);
-  constexpr int HEADS = C / HD;
-  const int grp = tid / N, i = tid % N;
-  float* ds_s = ds_all + grp * N;
+__device__ __forceinline__ void attention_fwd(const float* qs, float* out, const Params& p, int w,
+                                              float scale_io, float* et, int tid) {
+  constexpr int LD = bpad<T>(C), LDQ = bpad<T>(3 * C), HEADS = C / HD;
+  constexpr int HK = HeadK<T, HD>::value, NO = (HD + 7) / 8;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int m0 = 16 * (warp & 3);
+  float* e_s = et + (warp >> 2) * N * ELD;
   const float* mask_w = p.mask ? p.mask + static_cast<size_t>(w) * N * N : nullptr;
-  for (int g0 = 0; g0 < HEADS; g0 += GROUPS) {
-    const int g = g0 + grp;
-    const bool active = g < HEADS;
-    const float* bias_g = p.bias + static_cast<size_t>(g) * N * N;
-    float* qcol = qkv + g * HD;
-    float* kcol = qkv + C + g * HD;
-    float* vcol = qkv + 2 * C + g * HD;
-    if (active) {  // pass A: query row i
-      float q[HD], acc[HD], gg[HD];
-      float* qrow = qcol + i * LDQ;
+  for (int h0 = 0; h0 < HEADS; h0 += 2) {
+    const int h = h0 + (warp >> 2);
+    if (h >= HEADS) break;
+    const float* q = qs + h * HD;
+    const float* k = qs + C + h * HD;
+    const float* v = qs + 2 * C + h * HD;
+    float sim[8][4];
+    zero_tiles(sim);
+    WarpMma<T, 8, HK>::run(
+        sim,
+        [&](int m, int kk) {
+          if (kk >= HD) return zero2();
+          const float2 v2 = pair(q + (m0 + m) * LDQ + kk);
+          return make_float2(IO<T>::round(v2.x * scale_io), IO<T>::round(v2.y * scale_io));
+        },
+        [&](int kk, int n) { return kk < HD ? pair(k + n * LDQ + kk) : zero2(); });
+    const float* bias_h = p.bias + static_cast<size_t>(h) * N * N;
+    float s[2] = {0.0f, 0.0f};
 #pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        q[d] = IO<T>::round(qrow[d] * scale_io);
-        acc[d] = 0.0f;
-      }
-      const float* brow = bias_g + i * N;
-      const float* mrow = mask_w ? mask_w + i * N : nullptr;
-      float s = 0.0f;
-#pragma unroll 2
-      for (int j = 0; j < N; ++j) {
-        float sim = dot_row<HD>(q, kcol + j * LDQ) + __ldg(brow + j);
-        if (mrow) sim += __ldg(mrow + j);
-        const float e = IO<T>::round(expf(fminf(fmaxf(sim, -CLIP), CLIP)));
-        s += e;
-        axpy_row<HD>(e, vcol + j * LDQ, acc);
-      }
-      float* drow = dq_io + i * LD + g * HD;
-      float ds = 0.0f;
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        gg[d] = drow[d] / s;
-        ds = fmaf(gg[d], acc[d], ds);
-      }
-      ds = -ds / s;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        gg[d] = IO<T>::round(gg[d]);
-        gg_s[i * LD + g * HD + d] = gg[d];
-        qrow[d] = q[d];  // only this thread reads its q row before the barrier
-        acc[d] = 0.0f;
-      }
-      ds_s[i] = ds;
-#pragma unroll 2
-      for (int j = 0; j < N; ++j) {
-        float sim = dot_row<HD>(q, kcol + j * LDQ) + __ldg(brow + j);
-        if (mrow) sim += __ldg(mrow + j);
-        const float e32 = expf(fminf(fmaxf(sim, -CLIP), CLIP));
-        const float de = dot_row<HD>(gg, vcol + j * LDQ) + ds;
-        const float dsim = fabsf(sim) < CLIP ? IO<T>::round(e32 * de) : 0.0f;
-        axpy_row<HD>(dsim, kcol + j * LDQ, acc);
-      }
-#pragma unroll
-      for (int d = 0; d < HD; ++d) drow[d] = IO<T>::round(acc[d] * scale);
-    }
-    __syncthreads();
-    if (active) {  // pass B: key row j = i
-      float kj[HD], vj[HD], dk[HD], dv[HD];
-#pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        kj[d] = kcol[i * LDQ + d];
-        vj[d] = vcol[i * LDQ + d];
-        dk[d] = 0.0f;
-        dv[d] = 0.0f;
-      }
-      float* dcol = dbias + static_cast<size_t>(g) * N * N + i;
-#pragma unroll 2
-      for (int r = 0; r < N; ++r) {
-        float sim = dot_row<HD>(kj, qcol + r * LDQ) + __ldg(bias_g + r * N + i);
-        if (mask_w) sim += __ldg(mask_w + r * N + i);
-        const float e32 = expf(fminf(fmaxf(sim, -CLIP), CLIP));
-        const float de = dot_row<HD>(vj, gg_s + r * LD + g * HD) + ds_s[r];
-        const float dsim = fabsf(sim) < CLIP ? IO<T>::round(e32 * de) : 0.0f;
-        axpy_row<HD>(dsim, qcol + r * LDQ, dk);
-        axpy_row<HD>(IO<T>::round(e32), gg_s + r * LD + g * HD, dv);
-        atomicAdd(dcol + r * N, dsim);
-      }
-      // row j of k and v is read by this thread only
-#pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        kcol[i * LDQ + d] = IO<T>::round(dk[d]);
-        vcol[i * LDQ + d] = IO<T>::round(dv[d]);
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = m0 + g + 8 * hr, c = 8 * j + 2 * t;
+        const float2 b2 = __ldg(reinterpret_cast<const float2*>(bias_h + r * N + c));
+        float x0 = sim[j][2 * hr] + b2.x, x1 = sim[j][2 * hr + 1] + b2.y;
+        if (mask_w) {
+          const float2 m2 = __ldg(reinterpret_cast<const float2*>(mask_w + r * N + c));
+          x0 += m2.x;
+          x1 += m2.y;
+        }
+        const float e0 = IO<T>::round(clipped_exp(x0)), e1 = IO<T>::round(clipped_exp(x1));
+        if constexpr (Bf16<T>::value) {  // e stays in registers
+          sim[j][2 * hr] = e0;
+          sim[j][2 * hr + 1] = e1;
+        } else {
+          put2(e_s + r * ELD + c, e0, e1);
+        }
+        s[hr] += e0 + e1;
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      s[hr] += __shfl_xor_sync(0xffffffffu, s[hr], 1);
+      s[hr] += __shfl_xor_sync(0xffffffffu, s[hr], 2);
+    }
+    float o[NO][4];
+    zero_tiles(o);
+    if constexpr (Bf16<T>::value) {
+      // e v with e's accumulator tiles as the A fragments: tiles 2kk and
+      // 2kk + 1 are keys 16kk .. 16kk + 15
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t a[4] = {pack_bf16(sim[2 * kk][0], sim[2 * kk][1]),
+                               pack_bf16(sim[2 * kk][2], sim[2 * kk][3]),
+                               pack_bf16(sim[2 * kk + 1][0], sim[2 * kk + 1][1]),
+                               pack_bf16(sim[2 * kk + 1][2], sim[2 * kk + 1][3])};
+#pragma unroll
+        for (int j = 0; j < NO; ++j) {
+          const int n = 8 * j + g;
+          const float2 b0 = n < HD ? pair(v + (16 * kk + 2 * t) * LDQ + n, LDQ) : zero2();
+          const float2 b1 = n < HD ? pair(v + (16 * kk + 8 + 2 * t) * LDQ + n, LDQ) : zero2();
+          mma16(o[j], a, pack_bf16(b0.x, b0.y), pack_bf16(b1.x, b1.y));
+        }
+      }
+    } else {
+      __syncwarp();
+      WarpMma<T, NO, N>::run(
+          o, [&](int m, int kk) { return pair(e_s + (m0 + m) * ELD + kk); },
+          [&](int kk, int n) { return n < HD ? pair(v + kk * LDQ + n, LDQ) : zero2(); });
+    }
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+#pragma unroll
+      for (int q4 = 0; q4 < 4; ++q4) {
+        const int r = m0 + g + 8 * (q4 >> 1), c = 8 * j + 2 * t + (q4 & 1);
+        if (c < HD) out[r * LD + h * HD + c] = IO<T>::round(o[j][q4] / s[q4 >> 1]);
+      }
+    }
+    __syncwarp();  // the next head overwrites the warp's e rows
   }
 }
 
-// grid: one block per window, as the forward.  dx is written once per
-// element; every parameter gradient is added to with global atomics.
+// Kernel 1 of the backward, one block per window: the forward recomputed
+// (LN1, qkv, the attention, the projection and residual, LN2, the MLP's first
+// product), the MLP's and LN2's backward and the projection's input
+// gradient.  Writes the window's rows of n1, qkv, ao, n2, gm, dm1, dh and dao
+// and its dg2, db2; no atomics.
 template <typename T, int C, int HD>
 __global__ void __launch_bounds__(THREADS)
-swin_block_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
-                      const Params p, const Grads gr, int H, int W, int hidden, int shift,
-                      float scale_io, float scale) {
-  using Tl = Tiling<C>;
-  constexpr int LD = pad(C);
-  constexpr int LDQ = pad(3 * C);
-  constexpr int Q = C / 4;
+swin_block_bwd_recompute_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                                const Params p, const Scratch s, int H, int W, int hidden,
+                                int shift, float scale_io) {
+  constexpr int LD = bpad<T>(C), LDQ = bpad<T>(3 * C);
   const int mlp_blocks = hidden / C;
 
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // N x LD: x, h, then dao and dq
-  float* as = xs + N * LD;                      // n1, n2, n1 again, then dn1
-  float* os = as + N * LD;                      // att, x, round(gg), then x
-  float* es = os + N * LD;                      // dy, then dh (fp32), then dx
-  float* qs = es + N * LD;                      // N x LDQ: qkv; gm | dm1 blocks; dn2; qkv, dk, dv
-  float* ws = qs + N * LDQ;                     // C x LD: one weight block
-  float* st = ws + C * LD;                      // N x 2: LayerNorm statistics
-  float* dss = st + 2 * N;                      // GROUPS x N: ds of the heads in flight
+  float* xs = reinterpret_cast<float*>(smem4);  // N x LD: x, then h
+  float* as = xs + N * LD;                      // n1, then att, then n2
+  float* es = as + N * LD;                      // dy, then dh (fp32)
+  float* qs = es + N * LD;                      // N x LDQ: qkv; gm | gelu'(m1), dm1 blocks; dn2
+  float* ws = qs + N * LDQ;                     // a weight block, or the attention's e tiles
+  float* st = ws + weight_region<T>(C);         // N x 2: LayerNorm statistics
 
-  const WindowTokens token(blockIdx.x, H, W, C, shift);
-  const int w = blockIdx.x % ((H / WS) * (W / WS));
-  const int tid = threadIdx.x;
-  const int rg = tid / Tl::CG, cg = tid % Tl::CG;
-  float acc[Tl::TR][Tl::TC];
+  const int win = blockIdx.x, tid = threadIdx.x;
+  const WindowTokens token(win, H, W, C, shift);
+  const int w = win % ((H / WS) * (W / WS));
+  const size_t row0 = static_cast<size_t>(win) * N;
+  T* n1_g = static_cast<T*>(s.n1) + row0 * C;
+  T* qkv_g = static_cast<T*>(s.qkv) + row0 * 3 * C;
+  T* ao_g = static_cast<T*>(s.ao) + row0 * C;
+  T* n2_g = static_cast<T*>(s.n2) + row0 * C;
+  T* gm_g = static_cast<T*>(s.gm) + row0 * hidden;
+  float* dm1_g = s.dm1 + row0 * hidden;
+  float* dh_g = s.dh + row0 * C;
+  T* dao_g = static_cast<T*>(s.dao) + row0 * C;
+  float* ln_w = s.ln + static_cast<size_t>(win) * 4 * C;
 
-  // ---- the forward, recomputed: h in xs, att in os, n2 in as ----
-  load_window<T, C>(x, token, xs, tid);
+  // ---- the forward: n1, qkv, att, h, n2 ----
+  // the weight blocks in order, each fetched while the one before is used:
+  // Wq (3), Wp, then per MLP block W1, W2^T, W1^T, and Wp^T
+  WeightStage<T, C> wst;
+  wst.fetch(p.wq, C, 0, 0, false, tid);
+  load_window<T, C, LD>(x, token, xs, tid);
   __syncthreads();
-  layer_norm<T, C>(xs, as, p.g1, p.b1, tid);
-  project_qkv<T, C>(as, qs, LDQ, p, ws, tid);
-  attention<T, C, HD>(qs, LDQ, os, p, w, scale_io, tid);
-  project_residual<T, C>(os, xs, p, ws, tid);
-  layer_norm<T, C>(xs, as, p.g2, p.b2, tid);
-  load_window<T, C>(dy, token, es, tid);
+  layer_norm<T, C, LD>(xs, as, p.g1, p.b1, tid);
   __syncthreads();
-  column_sums(es, LD, C, gr.c2, tid);
-
-  // ---- MLP, one hidden block of C columns at a time; dn2 in registers ----
-  float dn2[Tl::TR][Tl::TC];
-  zero<C>(dn2);
-  float* gm_s = qs;      // round(gelu(m1)) of the block
-  float* dm_s = qs + C;  // gelu'(m1), then dm1 (fp32)
-  for (int blk = 0; blk < mlp_blocks; ++blk) {
-    stage_weights<T, C>(p.w1, C, blk * C, 0, ws, tid);
+  store_rows<T, C>(n1_g, C, as, LD, tid);
+  for (int blk = 0; blk < 3; ++blk) {
+    wst.put(ws, tid);
     __syncthreads();
-    zero<C>(acc);
-    mma_block<C>(as, LD, 0, ws, acc, rg, cg);
-#pragma unroll
-    for (int i = 0; i < Tl::TR; ++i)
-#pragma unroll
-      for (int j = 0; j < Tl::TC; ++j) {
-        const int r = rg + Tl::RG * i, n = cg + Tl::CG * j;
-        const float m = acc[i][j] + __ldg(p.c1 + blk * C + n);
-        const float cdf = 0.5f * (1.0f + erff(m * 0.70710678118654752f));
-        gm_s[r * LDQ + n] = IO<T>::round(m * cdf);
-        dm_s[r * LDQ + n] = cdf + m * 0.3989422804014327f * expf(-0.5f * m * m);
-      }
-    __syncthreads();
-    // dW2[:, block] += dy^T gm
-    weight_grad<C>(es, LD, gm_s, LDQ, gr.w2 + blk * C, hidden, tid);
-    // dm1 = (dy . round(W2[:, block])) * gelu'(m1)
-    stage_weights_t<T, C>(p.w2, hidden, 0, blk * C, ws, tid);
-    __syncthreads();
-    zero<C>(acc);
-    mma_block<C>(es, LD, 0, ws, acc, rg, cg);
-#pragma unroll
-    for (int i = 0; i < Tl::TR; ++i)
-#pragma unroll
-      for (int j = 0; j < Tl::TC; ++j) {
-        const int r = rg + Tl::RG * i, n = cg + Tl::CG * j;
-        dm_s[r * LDQ + n] *= acc[i][j];
-      }
-    __syncthreads();
-    // dW1[block] += dm1^T n2, dc1[block] += sum dm1, dn2 += round(dm1) . round(W1[block])
-    weight_grad<C>(dm_s, LDQ, as, LD, gr.w1 + blk * C * C, C, tid);
-    column_sums(dm_s, LDQ, C, gr.c1 + blk * C, tid);
-    stage_weights_t<T, C>(p.w1, C, blk * C, 0, ws, tid);
-    __syncthreads();
-    mma_block<C, T>(dm_s, LDQ, 0, ws, dn2, rg, cg);
+    if (blk < 2)
+      wst.fetch(p.wq, C, (blk + 1) * C, 0, false, tid);
+    else
+      wst.fetch(p.wp, C, 0, 0, false, tid);
+    Proj<T, C> pr(tid);
+    pr.mma(as, LD, ws);
+    pr.for_each([&](int r, int n, float v) {
+      qs[r * LDQ + blk * C + n] = IO<T>::round(v + __ldg(p.bq + blk * C + n));
+    });
     __syncthreads();
   }
-#pragma unroll
-  for (int i = 0; i < Tl::TR; ++i)
-#pragma unroll
-    for (int j = 0; j < Tl::TC; ++j) qs[(rg + Tl::RG * i) * LDQ + cg + Tl::CG * j] = dn2[i][j];
+  store_rows<T, 3 * C>(qkv_g, 3 * C, qs, LDQ, tid);
+  attention_fwd<T, C, HD>(qs, as, p, w, scale_io, ws, tid);
+  __syncthreads();
+  store_rows<T, C>(ao_g, C, as, LD, tid);
+  wst.put(ws, tid);
+  __syncthreads();
+  wst.fetch(p.w1, C, 0, 0, false, tid);
+  {
+    Proj<T, C> pr(tid);
+    pr.mma(as, LD, ws);
+    pr.for_each([&](int r, int n, float v) {
+      const float pv = IO<T>::round(v + __ldg(p.bp + n));
+      xs[r * LD + n] = IO<T>::round(xs[r * LD + n] + pv);
+    });
+  }
+  __syncthreads();
+  layer_norm<T, C, LD>(xs, as, p.g2, p.b2, tid);
+  load_window<T, C, LD>(dy, token, es, tid);
+  __syncthreads();
+  store_rows<T, C>(n2_g, C, as, LD, tid);
+
+  // ---- the MLP, one hidden block of C columns at a time; dn2 in registers ----
+  Proj<T, C> dn2(tid);
+  for (int blk = 0; blk < mlp_blocks; ++blk) {
+    wst.put(ws, tid);  // W1[block]
+    __syncthreads();
+    wst.fetch(p.w2, hidden, 0, blk * C, true, tid);
+    {
+      Proj<T, C> pr(tid);
+      pr.mma(as, LD, ws);
+      pr.for_each([&](int r, int n, float v) {
+        const float m = v + __ldg(p.c1 + blk * C + n);
+        float cdf, phi;
+        gelu_parts(m, cdf, phi);
+        qs[r * LDQ + n] = IO<T>::round(m * cdf);
+        qs[r * LDQ + C + n] = cdf + m * phi;
+      });
+    }
+    __syncthreads();
+    store_rows<T, C>(gm_g + blk * C, hidden, qs, LDQ, tid);
+    // dm1 = (dy . round(W2[:, block])) * gelu'(m1)
+    wst.put(ws, tid);
+    __syncthreads();
+    wst.fetch(p.w1, C, blk * C, 0, true, tid);
+    {
+      Proj<T, C> pd(tid);
+      pd.mma(es, LD, ws);
+      pd.for_each([&](int r, int n, float v) { qs[r * LDQ + C + n] *= v; });
+    }
+    __syncthreads();
+    store_rows<float, C>(dm1_g + blk * C, hidden, qs + C, LDQ, tid);
+    // dn2 += round(dm1) . round(W1[block])
+    wst.put(ws, tid);
+    __syncthreads();
+    if (blk + 1 < mlp_blocks)
+      wst.fetch(p.w1, C, (blk + 1) * C, 0, false, tid);
+    else
+      wst.fetch(p.wp, C, 0, 0, true, tid);
+    dn2.mma(qs + C, LDQ, ws);
+    __syncthreads();
+  }
+  dn2.for_each([&](int r, int n, float v) { qs[r * LDQ + n] = v; });
   __syncthreads();
   // dh = dy + LN2'(dn2), in place of dy
-  layer_norm_bwd<C>(xs, qs, LDQ, es, p.g2, gr.g2, gr.b2, st, tid);
-
-  // ---- the projection: dWp += dh^T att, dbp += sum dh, dao = round(round(dh) . round(Wp)) ----
-  weight_grad<C>(es, LD, os, LD, gr.wp, C, tid);
-  column_sums(es, LD, C, gr.bp, tid);
-  stage_weights_t<T, C>(p.wp, C, 0, 0, ws, tid);
+  layer_norm_bwd<C, LD>(xs, qs, LDQ, es, p.g2, ln_w + 2 * C, ln_w + 3 * C, st, tid);
+  store_rows<float, C>(dh_g, C, es, LD, tid);
+  // dao = round(round(dh) . round(Wp)), over h
+  wst.put(ws, tid);
   __syncthreads();
-  zero<C>(acc);
-  mma_block<C, T>(es, LD, 0, ws, acc, rg, cg);
-#pragma unroll
-  for (int i = 0; i < Tl::TR; ++i)
-#pragma unroll
-    for (int j = 0; j < Tl::TC; ++j)
-      xs[(rg + Tl::RG * i) * LD + cg + Tl::CG * j] = IO<T>::round(acc[i][j]);
+  {
+    Proj<T, C> pa(tid);
+    pa.mma(es, LD, ws);
+    pa.for_each([&](int r, int n, float v) { xs[r * LD + n] = IO<T>::round(v); });
+  }
   __syncthreads();
+  store_rows<T, C>(dao_g, C, xs, LD, tid);
+}
 
-  // ---- the attention: n1 and qkv again, then dq over dao, dk and dv over k and v ----
-  load_window<T, C>(x, token, os, tid);
-  __syncthreads();
-  layer_norm<T, C>(os, as, p.g1, p.b1, tid);
-  project_qkv<T, C>(as, qs, LDQ, p, ws, tid);
-  attention_bwd<T, C, HD>(qs, xs, os, dss, p, gr.bias, w, scale_io, scale, tid);
+// One window's q, k, v and dao columns of one head (64 x HD each, from
+// qkv and dao rows 3C and C apart), fetched into registers and put into
+// four 64 x head_ld(HD) tiles, q scaled by hd^-0.5 in the I/O dtype.
+template <typename T, int C, int HD>
+struct HeadStage {
+  static constexpr int Q = HD / 4, ELEMS = 4 * N * Q;
+  static constexpr int E = (ELEMS + ATT_THREADS - 1) / ATT_THREADS;
+  float v[E][4];
 
-  // ---- qkv: dWq += dqkv^T n1, dbq += sum dqkv, dn1 = dqkv . round(Wq) ----
-  const float* dqkv[3] = {xs, qs + C, qs + 2 * C};
-  const int ldd[3] = {LD, LDQ, LDQ};
-  zero<C>(acc);
+  __device__ __forceinline__ void fetch(const T* qkv_w, const T* dao_w, int tid) {
 #pragma unroll
-  for (int blk = 0; blk < 3; ++blk) {
-    weight_grad<C>(dqkv[blk], ldd[blk], as, LD, gr.wq + blk * C * C, C, tid);
-    column_sums(dqkv[blk], ldd[blk], C, gr.bq + blk * C, tid);
-    stage_weights_t<T, C>(p.wq, C, blk * C, 0, ws, tid);
+    for (int i = 0; i < E; ++i) {
+      const int e = tid + i * ATT_THREADS;
+      const int a = e / (N * Q), t = (e / Q) % N, c = 4 * (e % Q);
+      if (e < ELEMS)
+        IO<T>::load4(a < 3 ? qkv_w + static_cast<size_t>(t) * 3 * C + a * C + c
+                           : dao_w + static_cast<size_t>(t) * C + c,
+                     v[i]);
+    }
+  }
+
+  __device__ __forceinline__ void put(float* q_s, float scale_io, int tid) const {
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int e = tid + i * ATT_THREADS;
+      const int a = e / (N * Q), t = (e / Q) % N, c = 4 * (e % Q);
+      const float mul = a == 0 ? scale_io : 1.0f;
+      if (e < ELEMS)
+        st4(q_s + (a * N + t) * head_ld(HD) + c,
+            make_float4(IO<T>::round(v[i][0] * mul), IO<T>::round(v[i][1] * mul),
+                        IO<T>::round(v[i][2] * mul), IO<T>::round(v[i][3] * mul)));
+    }
+  }
+};
+
+// Kernel 2: the window attention's backward.  Block (h, chunk) owns head h
+// of windows chunk * per_block .. (+ per_block): the head's bias tile is
+// staged once, its dbias summed in registers over those windows and written
+// once to bpart.  Per window, warp w takes query rows 16 w .. 16 w + 15: the
+// logits once (q k^T + bias + mask), e = round(exp(clip)), s, e v, gg =
+// dao / s, ds, de = round(gg) v^T + ds, dsim = round(e32 de) where |sim| <
+// 60, dq = dsim k; then key rows 16 w ..: dk = dsim^T q, dv = e^T round(gg)
+// from the e and dsim tiles in shared memory.  dq, dk, dv (rounded) replace
+// the head's q, k, v columns of qkv.
+template <typename T, int C, int HD>
+__global__ void __launch_bounds__(ATT_THREADS, attention_blocks_per_sm(HD))
+swin_block_bwd_attention_kernel(T* qkv, const T* __restrict__ dao,
+                                const float* __restrict__ bias, const float* __restrict__ mask,
+                                float* bpart, int nW, int windows, int per_block, float scale_io,
+                                float scale) {
+  constexpr int HEADS = C / HD, LH = head_ld(HD), LQ = 3 * C;
+  constexpr int HK = HeadK<T, HD>::value, NO = (HD + 7) / 8;
+  extern __shared__ float4 smem4[];
+  float* bias_s = reinterpret_cast<float*>(smem4);  // 64 x ELD each
+  float* e_s = bias_s + N * ELD;
+  float* ds_s = e_s + N * ELD;
+  float* q_s = ds_s + N * ELD;  // 64 x LH each: q scaled, k, v, dao, round(gg)
+  float* k_s = q_s + N * LH;
+  float* v_s = k_s + N * LH;
+  float* d_s = v_s + N * LH;
+  float* gg_s = d_s + N * LH;
+
+  const int h = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int m0 = 16 * (tid >> 5);
+  const float* bias_h = bias + static_cast<size_t>(h) * N * N;
+  for (int e = tid; e < N * N / 4; e += ATT_THREADS) {
+    const int r = e / (N / 4), c = 4 * (e % (N / 4));
+    st4(bias_s + r * ELD + c, __ldg(reinterpret_cast<const float4*>(bias_h + r * N + c)));
+  }
+  float db[8][4];
+  zero_tiles(db);
+  const int w_begin = blockIdx.y * per_block;
+  const int w_end = min(windows, w_begin + per_block);
+  // the next window's inputs in flight while this one is worked on (up to
+  // head dim 16: 32 registers)
+  constexpr bool AHEAD = HD <= 16;
+  HeadStage<T, C, HD> stage;
+  const auto fetch = [&](int win) {
+    stage.fetch(qkv + static_cast<size_t>(win) * N * LQ + h * HD,
+                dao + static_cast<size_t>(win) * N * C + h * HD, tid);
+  };
+  if (AHEAD && w_begin < w_end) fetch(w_begin);
+  for (int win = w_begin; win < w_end; ++win) {
+    T* qkv_w = qkv + static_cast<size_t>(win) * N * LQ + h * HD;
+    if (!AHEAD) fetch(win);
+    stage.put(q_s, scale_io, tid);
     __syncthreads();
-    mma_block<C>(dqkv[blk], ldd[blk], 0, ws, acc, rg, cg);
+    if (AHEAD && win + 1 < w_end) fetch(win + 1);
+
+    // the logits of the warp's query rows, once; e and its row sums
+    float sim[8][4];
+    zero_tiles(sim);
+    WarpMma<T, 8, HK>::run(
+        sim, [&](int m, int k) { return k < HD ? pair(q_s + (m0 + m) * LH + k) : zero2(); },
+        [&](int k, int n) { return k < HD ? pair(k_s + n * LH + k) : zero2(); });
+    const float* mask_w = mask ? mask + static_cast<size_t>(win % nW) * N * N : nullptr;
+    float s[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = m0 + g + 8 * hr, c = 8 * j + 2 * t;
+        const float2 b2 = *reinterpret_cast<const float2*>(bias_s + r * ELD + c);
+        float x0 = sim[j][2 * hr] + b2.x, x1 = sim[j][2 * hr + 1] + b2.y;
+        if (mask_w) {
+          const float2 m2 = __ldg(reinterpret_cast<const float2*>(mask_w + r * N + c));
+          x0 += m2.x;
+          x1 += m2.y;
+        }
+        const float e0 = clipped_exp(x0), e1 = clipped_exp(x1);
+        // e32, negated outside the clip (dsim is 0 there); e = round(e32)
+        put2(e_s + r * ELD + c, fabsf(x0) < CLIP ? e0 : -e0, fabsf(x1) < CLIP ? e1 : -e1);
+        s[hr] += IO<T>::round(e0) + IO<T>::round(e1);
+      }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      s[hr] += __shfl_xor_sync(0xffffffffu, s[hr], 1);
+      s[hr] += __shfl_xor_sync(0xffffffffu, s[hr], 2);
+    }
+    __syncwarp();
+    // ctx = e v; gg = dao / s; ds = -(gg . ctx) / s
+    float ctx[NO][4];
+    zero_tiles(ctx);
+    WarpMma<T, NO, N>::run(
+        ctx, [&](int m, int k) { return rounded_abs<T>(pair(e_s + (m0 + m) * ELD + k)); },
+        [&](int k, int n) { return n < HD ? pair(v_s + k * LH + n, LH) : zero2(); });
+    float dsum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = m0 + g + 8 * hr, c = 8 * j + 2 * t;
+        if (c < HD) {
+          const float g0 = d_s[r * LH + c] / s[hr], g1 = d_s[r * LH + c + 1] / s[hr];
+          dsum[hr] = fmaf(g0, ctx[j][2 * hr], dsum[hr]);
+          dsum[hr] = fmaf(g1, ctx[j][2 * hr + 1], dsum[hr]);
+          gg_s[r * LH + c] = IO<T>::round(g0);
+          gg_s[r * LH + c + 1] = IO<T>::round(g1);
+        }
+      }
+    }
+    float dsr[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      dsum[hr] += __shfl_xor_sync(0xffffffffu, dsum[hr], 1);
+      dsum[hr] += __shfl_xor_sync(0xffffffffu, dsum[hr], 2);
+      dsr[hr] = -dsum[hr] / s[hr];
+    }
+    __syncwarp();
+    // de = round(gg) v^T + ds; dsim = round(e32 de) inside the clip
+    float de[8][4];
+    zero_tiles(de);
+    WarpMma<T, 8, HK>::run(
+        de, [&](int m, int k) { return k < HD ? pair(gg_s + (m0 + m) * LH + k) : zero2(); },
+        [&](int k, int n) { return k < HD ? pair(v_s + n * LH + k) : zero2(); });
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = m0 + g + 8 * hr, c = 8 * j + 2 * t;
+        const float2 e2 = pair(e_s + r * ELD + c);
+        const float ev[2] = {e2.x, e2.y};
+        float d2[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          d2[u] = ev[u] > 0.0f ? IO<T>::round(ev[u] * (de[j][2 * hr + u] + dsr[hr])) : 0.0f;
+          db[j][2 * hr + u] += d2[u];
+        }
+        put2(ds_s + r * ELD + c, d2[0], d2[1]);
+      }
+    }
+    __syncwarp();
+    // dq = dsim k, scaled by hd^-0.5 (fp32) and rounded
+    float dq[NO][4];
+    zero_tiles(dq);
+    WarpMma<T, NO, N>::run(
+        dq, [&](int m, int k) { return pair(ds_s + (m0 + m) * ELD + k); },
+        [&](int k, int n) { return n < HD ? pair(k_s + k * LH + n, LH) : zero2(); });
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = m0 + g + 8 * hr, c = 8 * j + 2 * t;
+        if (c < HD) put2(qkv_w + r * LQ + c, dq[j][2 * hr] * scale, dq[j][2 * hr + 1] * scale);
+      }
+    }
+    __syncthreads();
+    // key rows m0 ..: dk = dsim^T q, dv = e^T round(gg)
+    float dk[NO][4], dv[NO][4];
+    zero_tiles(dk);
+    zero_tiles(dv);
+    WarpMma<T, NO, N>::run(
+        dk, [&](int m, int k) { return pair(ds_s + k * ELD + m0 + m, ELD); },
+        [&](int k, int n) { return n < HD ? pair(q_s + k * LH + n, LH) : zero2(); });
+    WarpMma<T, NO, N>::run(
+        dv, [&](int m, int k) { return rounded_abs<T>(pair(e_s + k * ELD + m0 + m, ELD)); },
+        [&](int k, int n) { return n < HD ? pair(gg_s + k * LH + n, LH) : zero2(); });
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = m0 + g + 8 * hr, c = 8 * j + 2 * t;
+        if (c < HD) {
+          put2(qkv_w + C + r * LQ + c, dk[j][2 * hr], dk[j][2 * hr + 1]);
+          put2(qkv_w + 2 * C + r * LQ + c, dv[j][2 * hr], dv[j][2 * hr + 1]);
+        }
+      }
+    }
     __syncthreads();
   }
+  float* out = bpart + (static_cast<size_t>(blockIdx.y) * HEADS + h) * N * N;
 #pragma unroll
-  for (int i = 0; i < Tl::TR; ++i)
+  for (int j = 0; j < 8; ++j) {
 #pragma unroll
-    for (int j = 0; j < Tl::TC; ++j) as[(rg + Tl::RG * i) * LD + cg + Tl::CG * j] = acc[i][j];
-  load_window<T, C>(x, token, os, tid);
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = m0 + g + 8 * hr, c = 8 * j + 2 * t;
+      put2(out + r * N + c, db[j][2 * hr], db[j][2 * hr + 1]);
+    }
+  }
+}
+
+// Kernel 3, one block per window: dn1 = dqkv . round(Wq), then dx =
+// round(dh + LN1'(dn1)) and the window's dg1, db1.
+template <typename T, int C>
+__global__ void __launch_bounds__(THREADS)
+swin_block_bwd_input_kernel(const T* __restrict__ x, T* __restrict__ dx, const Params p,
+                            const Scratch s, int H, int W, int shift) {
+  constexpr int LD = bpad<T>(C), LDQ = bpad<T>(3 * C), Q = C / 4;
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);  // N x LD: x
+  float* es = xs + N * LD;                      // dh, then dx
+  float* qs = es + N * LD;                      // N x LDQ: dqkv, then dn1
+  float* ws = qs + N * LDQ;                     // a weight block
+  float* st = ws + C * LD;
+
+  const int win = blockIdx.x, tid = threadIdx.x;
+  const WindowTokens token(win, H, W, C, shift);
+  const size_t row0 = static_cast<size_t>(win) * N;
+  float* ln_w = s.ln + static_cast<size_t>(win) * 4 * C;
+  WeightStage<T, C> wst;
+  wst.fetch(p.wq, C, 0, 0, true, tid);
+  load_window<T, C, LD>(x, token, xs, tid);
+  load_rows<T, 3 * C>(static_cast<const T*>(s.qkv) + row0 * 3 * C, 3 * C, qs, LDQ, tid);
+  load_rows<float, C>(s.dh + row0 * C, C, es, LD, tid);
+  Proj<T, C> acc(tid);
+  for (int blk = 0; blk < 3; ++blk) {
+    wst.put(ws, tid);
+    __syncthreads();
+    if (blk < 2) wst.fetch(p.wq, C, (blk + 1) * C, 0, true, tid);
+    acc.mma(qs + blk * C, LDQ, ws);
+    __syncthreads();
+  }
+  acc.for_each([&](int r, int n, float v) { qs[r * LDQ + n] = v; });
   __syncthreads();
-  // dx = round(dh + LN1'(dn1))
-  layer_norm_bwd<C>(os, as, LD, es, p.g1, gr.g1, gr.b1, st, tid);
+  layer_norm_bwd<C, LD>(xs, qs, LDQ, es, p.g1, ln_w, ln_w + C, st, tid);
   for (int e = tid; e < N * Q; e += THREADS) {
     const int t = e / Q, c = 4 * (e % Q);
     IO<T>::store4(dx + token(t) + c, es + t * LD + c);
   }
+}
+
+// KW windows of tokens from t0 (zeros from t_end on), C columns each:
+// fetched into registers, so that the next chunk's loads are in flight while
+// the current one is used, then put into rows pad(C) floats apart.  The
+// source: window-ordered rows ld apart from column off, or (image) an
+// image-layout tensor's tokens through their windows' coordinates.
+template <int C, int KW>
+struct TokenStage {
+  static constexpr int Q = C / 4, ELEMS = KW * N * Q;
+  static constexpr int E = (ELEMS + THREADS - 1) / THREADS;
+  float v[E][4];
+
+  template <typename S>
+  __device__ __forceinline__ void fetch(const S* __restrict__ src, int ld, int off, int t0,
+                                        int t_end, bool image, int H, int W, int shift,
+                                        int tid) {
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int e = tid + i * THREADS;
+      const int t = e / Q, c = 4 * (e % Q), tok = t0 + t;
+      v[i][0] = v[i][1] = v[i][2] = v[i][3] = 0.0f;
+      if (e < ELEMS && tok < t_end) {
+        const size_t at = image ? WindowTokens(tok / N, H, W, C, shift)(tok % N)
+                                : static_cast<size_t>(tok) * ld + off;
+        IO<S>::load4(src + at + c, v[i]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void put(float* dst, int tid) const {
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int e = tid + i * THREADS;
+      if (e < ELEMS)
+        st4(dst + (e / Q) * pad(C) + 4 * (e % Q), make_float4(v[i][0], v[i][1], v[i][2], v[i][3]));
+    }
+  }
+};
+
+// A C x C weight-gradient tile summed over staged chunks of KT tokens:
+//   acc[n][k] += sum over t < KT of a[t * pad(C) + n] b[t * pad(C) + k],
+// and stored (not added) to out[n * ld + k].
+template <typename T, int C>
+struct WeightAcc;
+
+// fp32: a register tile on CUDA cores, CG column groups by RG row groups
+// (rows past C idle)
+template <int C>
+struct WeightAcc<float, C> {
+  static constexpr int CG = C % 16 == 0 ? 16 : 8;
+  static constexpr int TC = C / CG;
+  static constexpr int RG = THREADS / CG;
+  static constexpr int TR = (C + RG - 1) / RG;
+  float acc[TR][TC];
+  int rg, cg;
+  __device__ explicit WeightAcc(int tid) : rg(tid / CG), cg(tid % CG) {
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TC; ++j) acc[i][j] = 0.0f;
+  }
+  template <int KT>
+  __device__ __forceinline__ void add(const float* a, const float* b, bool) {
+    constexpr int LD = pad(C);
+#pragma unroll 2
+    for (int t = 0; t < KT; ++t) {
+      float av[TR], bv[TC];
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        const int n = rg + RG * i;
+        av[i] = n < C ? a[t * LD + n] : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < TC; ++j) bv[j] = b[t * LD + cg + CG * j];
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int j = 0; j < TC; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+  __device__ __forceinline__ void store(float* out, int ld) const {
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const int n = rg + RG * i;
+      if (n < C) {
+#pragma unroll
+        for (int j = 0; j < TC; ++j) out[n * ld + cg + CG * j] = acc[i][j];
+      }
+    }
+  }
+};
+
+// bf16: tensor cores, the staged tokens the reduction; warp w takes the 16-row
+// tiles w % 2 + 2 i and the 8-column tiles w / 2 + 4 j (rows past C zero).
+// An fp32 operand a (dm1, dh) is split into two bf16 parts (SPLIT).
+template <int C>
+struct WeightAcc<__nv_bfloat16, C> {
+  static constexpr int MT = (C + 15) / 16, NTL = C / 8;
+  static constexpr int MI = (MT + 1) / 2, NJ = (NTL + 3) / 4;
+  float acc[MI][NJ][4];
+  int wr, wc;
+  __device__ explicit WeightAcc(int tid) : wr((tid >> 5) & 1), wc(tid >> 6) {
+#pragma unroll
+    for (int i = 0; i < MI; ++i) zero_tiles(acc[i]);
+  }
+  template <int KT, bool SPLIT>
+  __device__ __forceinline__ void tile(int i, const float* a, const float* b) {
+    constexpr int LD = pad(C);
+    const int mt = wr + 2 * i, c0 = wc;
+    WarpMma<__nv_bfloat16, NJ, KT, SPLIT>::run(
+        acc[i],
+        [&](int m, int k) {
+          const int row = 16 * mt + m;
+          return row < C ? pair(a + k * LD + row, LD) : zero2();
+        },
+        [&](int k, int n) {
+          const int nt = c0 + 4 * (n >> 3);
+          return nt < NTL ? pair(b + k * LD + 8 * nt + (n & 7), LD) : zero2();
+        });
+  }
+  template <int KT>
+  __device__ __forceinline__ void add(const float* a, const float* b, bool split) {
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      if (wr + 2 * i >= MT) continue;
+      if (split)
+        tile<KT, true>(i, a, b);
+      else
+        tile<KT, false>(i, a, b);
+    }
+  }
+  __device__ __forceinline__ void store(float* out, int ld) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      const int mt = wr + 2 * i;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int nt = wc + 4 * j;
+        if (mt >= MT || nt >= NTL) continue;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int row = 16 * mt + g + 8 * (q >> 1);
+          if (row < C) out[row * ld + 8 * nt + 2 * t + (q & 1)] = acc[i][j][q];
+        }
+      }
+    }
+  }
+};
+
+// Kernel 4: every weight gradient as C x C blocks, each a product over the
+// token axis split into ranges of split_tokens.  Block (split, blk) sums its
+// range, weight_windows(C) windows of tokens at a time (the next ones' loads in
+// flight), and stores its tile and the
+// column sums of its left operand (a bias-vector gradient) into its split's
+// partial:
+//   blk < R (= hidden / C):  dW2[:, blk C ..]     = dy^T gm,   dc2 (blk 0)
+//   blk < 2R:               dW1[(blk - R) C ..]  = dm1^T n2,  dc1
+//   blk = 2R:               dWp                  = dh^T ao,   dbp
+//   blk > 2R:               dWq[(blk-2R-1) C ..] = dqkv^T n1, dbq
+template <typename T, int C>
+__global__ void __launch_bounds__(THREADS, weight_blocks_per_sm(C))
+swin_block_bwd_weights_kernel(const T* __restrict__ dy, const Scratch s, int H, int W, int hidden,
+                              int shift, int tokens, int split_tokens) {
+  constexpr int LD = pad(C), KW = weight_windows(C), KT = KW * N;
+  const int R = hidden / C, blk = blockIdx.y, tid = threadIdx.x;
+  const PartLayout L{C, hidden};
+  const void* a_src;
+  const T* b_src;
+  int a_ld, a_off = 0, b_ld = C, b_off = 0, dst, dst_ld = C, vec;
+  bool a_f32 = false, a_image = false;
+  if (blk < R) {
+    a_src = dy;
+    a_ld = C;
+    a_image = true;
+    b_src = static_cast<const T*>(s.gm);
+    b_ld = hidden;
+    b_off = blk * C;
+    dst = L.w2() + blk * C;
+    dst_ld = hidden;
+    vec = blk == 0 ? L.c2() : -1;
+  } else if (blk < 2 * R) {
+    const int b = blk - R;
+    a_src = s.dm1;
+    a_ld = hidden;
+    a_off = b * C;
+    a_f32 = true;
+    b_src = static_cast<const T*>(s.n2);
+    dst = L.w1() + b * C * C;
+    vec = L.c1() + b * C;
+  } else if (blk == 2 * R) {
+    a_src = s.dh;
+    a_ld = C;
+    a_f32 = true;
+    b_src = static_cast<const T*>(s.ao);
+    dst = L.wp();
+    vec = L.bp();
+  } else {
+    const int b = blk - 2 * R - 1;
+    a_src = s.qkv;
+    a_ld = 3 * C;
+    a_off = b * C;
+    b_src = static_cast<const T*>(s.n1);
+    dst = L.wq() + b * C * C;
+    vec = L.bq() + b * C;
+  }
+
+  extern __shared__ float4 smem4[];
+  float* a_s = reinterpret_cast<float*>(smem4);  // KT x LD each
+  float* b_s = a_s + KT * LD;
+  WeightAcc<T, C> acc(tid);
+  constexpr int PARTS = THREADS / C;  // threads per column of the column sums
+  const int col = tid % C, part = tid / C;
+  float colsum = 0.0f;
+  const int t_begin = blockIdx.x * split_tokens;
+  const int t_end = min(tokens, t_begin + split_tokens);
+  TokenStage<C, KW> sa, sb;
+  const auto fetch = [&](int t0) {
+    if (a_f32)
+      sa.fetch(static_cast<const float*>(a_src), a_ld, a_off, t0, t_end, false, H, W, shift, tid);
+    else
+      sa.fetch(static_cast<const T*>(a_src), a_ld, a_off, t0, t_end, a_image, H, W, shift, tid);
+    sb.fetch(b_src, b_ld, b_off, t0, t_end, false, H, W, shift, tid);
+  };
+  if (t_begin < t_end) fetch(t_begin);
+  for (int t0 = t_begin; t0 < t_end; t0 += KT) {
+    sa.put(a_s, tid);
+    sb.put(b_s, tid);
+    __syncthreads();
+    if (t0 + KT < t_end) fetch(t0 + KT);
+    if (part < PARTS) {
+      for (int t = part; t < KT; t += PARTS) colsum += a_s[t * LD + col];
+    }
+    acc.template add<KT>(a_s, b_s, a_f32);
+    __syncthreads();
+  }
+  float* out = s.wpart + static_cast<size_t>(blockIdx.x) * L.size();
+  acc.store(out + dst, dst_ld);
+  if (part < PARTS) a_s[part * C + col] = colsum;
+  __syncthreads();
+  if (vec >= 0 && tid < C) {
+    float sum = 0.0f;
+    for (int q = 0; q < PARTS; ++q) sum += a_s[q * C + tid];
+    out[vec + tid] = sum;
+  }
+}
+
+// Kernel 5: each gradient summed over its partials in a fixed order (one
+// thread per element, or with many partials one warp: lane-strided sums and
+// a shuffle tree), so a launch's gradients are the same bits run to run.
+struct Segment {
+  float* dst;
+  const float* src;  // partial c of element i at src[c * stride + i]
+  long long stride;
+  int n, count, lanes, first_block;
+};
+constexpr int MAX_SEGMENTS = 13;
+struct Segments {
+  Segment seg[MAX_SEGMENTS];
+  int num;
+};
+
+__global__ void __launch_bounds__(THREADS) swin_block_bwd_reduce_kernel(const Segments ss) {
+  int si = 0;
+  while (si + 1 < ss.num && static_cast<int>(blockIdx.x) >= ss.seg[si + 1].first_block) ++si;
+  const Segment& sg = ss.seg[si];
+  const int i = (blockIdx.x - sg.first_block) * (THREADS / sg.lanes) + threadIdx.x / sg.lanes;
+  const int lane = threadIdx.x % sg.lanes;
+  float v = 0.0f;
+  if (i < sg.n) {
+    for (int c = lane; c < sg.count; c += sg.lanes) v += sg.src[c * sg.stride + i];
+  }
+  for (int off = sg.lanes / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  if (i < sg.n && lane == 0) sg.dst[i] = v;
 }
 
 // One launch's arguments, as the C entry points take them.
@@ -926,9 +1790,12 @@ struct Args {
   void* out;       // forward: y; backward: dx
   Params p;
   Grads gr;        // backward only
+  Scratch s;       // backward only
   int B, H, W, C, heads, hidden, shift;
   float scale_io;  // hd^-0.5 rounded to the I/O dtype: scales q
   float scale;     // hd^-0.5 in fp32: scales dq (backward only)
+  int per_block;   // backward: windows per attention block
+  int split_tokens;  // backward: tokens per weight-gradient split (a multiple of 64)
 };
 
 struct Fwd {
@@ -947,18 +1814,83 @@ struct Fwd {
   }
 };
 
+// Launches Kernel with `smem_floats_` floats of dynamic shared memory (the
+// same at every launch of one instantiation) and returns the launch's error.
+// The kernel's shared-memory limit is raised on the first launch on each
+// device, not on every launch.
+template <auto Kernel, typename... A>
+cudaError_t launch(size_t smem_floats_, dim3 grid, int threads, cudaStream_t stream, A... args) {
+  static std::atomic<unsigned long long> ready{0};  // bit d: set on device d
+  const size_t smem = smem_floats_ * sizeof(float);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (!(ready.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    ready.fetch_or(bit, std::memory_order_release);
+  }
+  Kernel<<<grid, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
 struct Bwd {
   template <typename T, int C, int HD>
   static cudaError_t run(const Args& a, cudaStream_t stream) {
-    const size_t smem = bwd_smem_floats(C) * sizeof(float);
-    auto kernel = swin_block_bwd_kernel<T, C, HD>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
+    const int nW = (a.H / WS) * (a.W / WS);
+    const int windows = a.B * nW, tokens = windows * N;
+    const int heads = C / HD, R = a.hidden / C;
+    const int chunks = (windows + a.per_block - 1) / a.per_block;
+    const int splits = (tokens + a.split_tokens - 1) / a.split_tokens;
+    const T* x = static_cast<const T*>(a.x);
+    const T* dy = static_cast<const T*>(a.dy);
+    cudaError_t err = launch<swin_block_bwd_recompute_kernel<T, C, HD>>(
+        recompute_smem_floats<T>(C), dim3(windows), THREADS, stream, x, dy, a.p, a.s, a.H, a.W,
+        a.hidden, a.shift, a.scale_io);
     if (err != cudaSuccess) return err;
-    const long long blocks = static_cast<long long>(a.B) * (a.H / WS) * (a.W / WS);
-    kernel<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
-        static_cast<const T*>(a.x), static_cast<const T*>(a.dy), static_cast<T*>(a.out), a.p,
-        a.gr, a.H, a.W, a.hidden, a.shift, a.scale_io, a.scale);
+    err = launch<swin_block_bwd_attention_kernel<T, C, HD>>(
+        attention_smem_floats(HD), dim3(heads, chunks), ATT_THREADS, stream,
+        static_cast<T*>(a.s.qkv), static_cast<const T*>(a.s.dao), a.p.bias, a.p.mask, a.s.bpart,
+        nW, windows, a.per_block, a.scale_io, a.scale);
+    if (err != cudaSuccess) return err;
+    err = launch<swin_block_bwd_input_kernel<T, C>>(input_smem_floats<T>(C), dim3(windows),
+                                                    THREADS, stream, x, static_cast<T*>(a.out),
+                                                    a.p, a.s, a.H, a.W, a.shift);
+    if (err != cudaSuccess) return err;
+    err = launch<swin_block_bwd_weights_kernel<T, C>>(weights_smem_floats(C),
+                                                      dim3(splits, 2 * R + 4), THREADS, stream,
+                                                      dy, a.s, a.H, a.W, a.hidden, a.shift,
+                                                      tokens, a.split_tokens);
+    if (err != cudaSuccess) return err;
+
+    const PartLayout L{C, a.hidden};
+    const long long P = L.size();
+    Segments ss{};
+    int blocks = 0;
+    const auto add = [&](float* dst, const float* src, long long stride, int n, int count) {
+      Segment& sg = ss.seg[ss.num++];
+      sg = {dst, src, stride, n, count, count >= 64 ? 32 : 1, blocks};
+      const int per = THREADS / sg.lanes;
+      blocks += (n + per - 1) / per;
+    };
+    const float* ln = a.s.ln;
+    const float* wp = a.s.wpart;
+    add(a.gr.g1, ln, 4 * C, C, windows);
+    add(a.gr.b1, ln + C, 4 * C, C, windows);
+    add(a.gr.wq, wp + L.wq(), P, 3 * C * C, splits);
+    add(a.gr.bq, wp + L.bq(), P, 3 * C, splits);
+    add(a.gr.bias, a.s.bpart, static_cast<long long>(heads) * N * N, heads * N * N, chunks);
+    add(a.gr.wp, wp + L.wp(), P, C * C, splits);
+    add(a.gr.bp, wp + L.bp(), P, C, splits);
+    add(a.gr.g2, ln + 2 * C, 4 * C, C, windows);
+    add(a.gr.b2, ln + 3 * C, 4 * C, C, windows);
+    add(a.gr.w1, wp + L.w1(), P, a.hidden * C, splits);
+    add(a.gr.c1, wp + L.c1(), P, a.hidden, splits);
+    add(a.gr.w2, wp + L.w2(), P, C * a.hidden, splits);
+    add(a.gr.c2, wp + L.c2(), P, C, splits);
+    swin_block_bwd_reduce_kernel<<<blocks, THREADS, 0, stream>>>(ss);
     return cudaGetLastError();
   }
 };
@@ -997,6 +1929,7 @@ int checked_dispatch(const Args& a, int is_bf16, void* stream) {
 }
 
 const float* f32(const void* q) { return static_cast<const float*>(q); }
+float* f32w(void* q) { return static_cast<float*>(q); }
 
 }  // namespace
 
@@ -1018,28 +1951,58 @@ extern "C" int dmh_swin_block_fwd(const void* x, void* y, const void* g1, const 
   const Args a{x, nullptr, y,
                {f32(g1), f32(b1), f32(wq), f32(bq), f32(bias), f32(mask), f32(wp), f32(bp),
                 f32(g2), f32(b2), f32(w1), f32(c1), f32(w2), f32(c2)},
-               {}, B, H, W, C, heads, hidden, shift, scale, 0.0f};
+               {}, {}, B, H, W, C, heads, hidden, shift, scale, 0.0f, 0, 0};
   return checked_dispatch<Fwd>(a, is_bf16, stream);
 }
 
+// The backward's scratch for a launch with the plan per_block, split_tokens:
+// off[0..10] the byte offsets of n1, qkv, ao, n2, gm (I/O dtype), dm1, dh
+// (fp32), dao (I/O), each (B * nW * 64, width) in window order; ln (B * nW,
+// 4C), wpart (splits, PartLayout), bpart (chunks, heads, 64, 64), fp32; and
+// off[11] the bytes to allocate.  Returns 0, or cudaErrorInvalidValue for
+// arguments the backward refuses.
+extern "C" int dmh_swin_block_bwd_scratch_layout(int B, int H, int W, int C, int heads,
+                                                 int hidden, int per_block, int split_tokens,
+                                                 int is_bf16, long long* off) {
+  if (B <= 0 || H <= 0 || W <= 0 || H % WS || W % WS || heads <= 0 || C % heads ||
+      hidden <= 0 || per_block <= 0 || split_tokens <= 0 || split_tokens % N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  scratch_layout(static_cast<long long>(B) * (H / WS) * (W / WS), C, heads, hidden, per_block,
+                 split_tokens, is_bf16 != 0, off);
+  return 0;
+}
+
 // The forward's arguments, plus dy (the gradient of y) and dx in the I/O
-// dtype, the 13 fp32 parameter gradients in the parameters' order and
-// layouts, zeroed by the caller (the kernel adds to them), and scale_dq =
-// hd^-0.5 in fp32.
+// dtype; the 13 fp32 parameter gradients in the parameters' order and
+// layouts (written, not added to); one scratch allocation of scratch_bytes
+// bytes, 256-byte aligned, at least dmh_swin_block_bwd_scratch_layout's
+// size; scale_dq = hd^-0.5 in fp32; the plan: per_block windows per
+// attention block and split_tokens tokens per weight-gradient split (a
+// positive multiple of 64).  Five launches on `stream`; returns the first
+// error, cudaErrorInvalidValue for a scratch too small.
 extern "C" int dmh_swin_block_bwd(
     const void* x, const void* dy, void* dx, const void* g1, const void* b1, const void* wq,
     const void* bq, const void* bias, const void* mask, const void* wp, const void* bp,
     const void* g2, const void* b2, const void* w1, const void* c1, const void* w2,
     const void* c2, void* dg1, void* db1, void* dwq, void* dbq, void* dbias, void* dwp, void* dbp,
-    void* dg2, void* db2, void* dw1, void* dc1, void* dw2, void* dc2, int B, int H, int W, int C,
-    int heads, int hidden, int shift, float scale, float scale_dq, int is_bf16, void* stream) {
-  const auto g = [](void* q) { return static_cast<float*>(q); };
+    void* dg2, void* db2, void* dw1, void* dc1, void* dw2, void* dc2, void* scratch,
+    long long scratch_bytes, int B, int H, int W, int C, int heads, int hidden, int shift,
+    float scale, float scale_dq, int per_block, int split_tokens, int is_bf16, void* stream) {
+  long long off[SCRATCH_BUFFERS + 1];
+  if (dmh_swin_block_bwd_scratch_layout(B, H, W, C, heads, hidden, per_block, split_tokens,
+                                        is_bf16, off) != 0 ||
+      scratch_bytes < off[SCRATCH_BUFFERS] || reinterpret_cast<uintptr_t>(scratch) % 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  char* sc = static_cast<char*>(scratch);
   const Args a{x, dy, dx,
                {f32(g1), f32(b1), f32(wq), f32(bq), f32(bias), f32(mask), f32(wp), f32(bp),
                 f32(g2), f32(b2), f32(w1), f32(c1), f32(w2), f32(c2)},
-               {g(dg1), g(db1), g(dwq), g(dbq), g(dbias), g(dwp), g(dbp), g(dg2), g(db2),
-                g(dw1), g(dc1), g(dw2), g(dc2)},
-               B, H, W, C, heads, hidden, shift, scale, scale_dq};
+               {f32w(dg1), f32w(db1), f32w(dwq), f32w(dbq), f32w(dbias), f32w(dwp), f32w(dbp),
+                f32w(dg2), f32w(db2), f32w(dw1), f32w(dc1), f32w(dw2), f32w(dc2)},
+               {sc + off[0], sc + off[1], sc + off[2], sc + off[3], sc + off[4],
+                f32w(sc + off[5]), f32w(sc + off[6]), sc + off[7], f32w(sc + off[8]),
+                f32w(sc + off[9]), f32w(sc + off[10])},
+               B, H, W, C, heads, hidden, shift, scale, scale_dq, per_block, split_tokens};
   return checked_dispatch<Bwd>(a, is_bf16, stream);
 }
 
@@ -1049,7 +2012,16 @@ extern "C" int dmh_swin_block_smem_bytes(int C, int hidden) {
   return static_cast<int>(smem_floats(C, hidden) * sizeof(float));
 }
 
-// Bytes of dynamic shared memory a backward launch at width C asks for.
-extern "C" int dmh_swin_block_bwd_smem_bytes(int C) {
-  return static_cast<int>(bwd_smem_floats(C) * sizeof(float));
+// Bytes of dynamic shared memory of backward kernel `part` (0 recompute, 1
+// attention, 2 input, 3 weights; 4 the reduction: none) at width C and head
+// dim hd, for fp32 or bf16 I/O.
+extern "C" int dmh_swin_block_bwd_smem_bytes(int C, int hd, int part, int is_bf16) {
+  const size_t floats = part == 0   ? (is_bf16 ? recompute_smem_floats<__nv_bfloat16>(C)
+                                               : recompute_smem_floats<float>(C))
+                        : part == 1 ? attention_smem_floats(hd)
+                        : part == 2 ? (is_bf16 ? input_smem_floats<__nv_bfloat16>(C)
+                                               : input_smem_floats<float>(C))
+                        : part == 3 ? weights_smem_floats(C)
+                                    : 0;
+  return static_cast<int>(floats * sizeof(float));
 }

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -43,3 +44,36 @@ def build_library(source: Path, stem: str) -> Path:
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
+
+
+# an atomic or reduction-to-memory instruction (global, shared or generic) in
+# cuobjdump's SASS listing, predicated or not; REDUX (a warp reduction in
+# registers) is not one
+_ATOMIC = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?(?:ATOMG?|ATOMS|REDG?|REDAS)[.\s]")
+_FUNCTION = re.compile(r"Function\s*:\s*(\S+)")
+
+
+def count_atomics(sass: str, name_part: str) -> dict:
+    """Atomic instructions (ATOM, ATOMG, ATOMS, RED, REDG, REDAS) per function
+    of a SASS listing whose (mangled) name contains ``name_part``: name ->
+    count, every such function listed."""
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = _FUNCTION.search(line)
+        if m:
+            name = m.group(1) if name_part in m.group(1) else None
+            if name is not None:
+                counts.setdefault(name, 0)
+        elif name is not None and _ATOMIC.search(line):
+            counts[name] += 1
+    return counts
+
+
+def atomic_instructions(lib: Path, name_part: str) -> dict:
+    """:func:`count_atomics` of the machine code (sm_90a SASS) built into
+    ``lib``, disassembled by the toolkit's ``cuobjdump`` beside nvcc."""
+    tool = Path(nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed ({proc.returncode}): {proc.stderr}")
+    return count_atomics(proc.stdout, name_part)

@@ -14,8 +14,13 @@
   gradients of every parameter and of the input (fp32, 1e-5 of max(1, the
   largest |value|): the gradients sum 512 tokens and reach 30-90);
 * the argument checks of ``swin_block_backward``;
-* on the card: the backward kernel vs the plain backward at the six block
-  shapes of the shipped estimator (skips here).
+* on the card: the backward kernels vs the plain backward at the six block
+  shapes of the shipped estimator; grids with fewer windows than SMs, a
+  short last chunk of windows, shift 4 with its mask at every C; two
+  launches bit-identical; the plan's shared memory and scratch layout as
+  the library computes them, a scratch too small refused; the window
+  kernels' scratch against the plain per-window part's operands; the SASS
+  counter finds the atomics of a kernel built with them (skip here).
 
 JAX is imported inside the tests that use it, so that the card's tests run
 where JAX is not installed:
@@ -28,6 +33,7 @@ import torch
 
 from dmhomo_torch.models.swin import SwinBlock
 from dmhomo_torch.ops import swin_block as sb
+from dmhomo_torch.ops.window_attention import _scale_io
 
 from test_torch_swin_block import KERNELS, SHIPPED, TOL, _inputs, _port_params, _rel_err
 
@@ -168,8 +174,8 @@ def cuda_device():
 @pytest.mark.parametrize("shift", [0, 4])
 @pytest.mark.parametrize("shape", SHIPPED, ids=[f"{h}x{w}c{c}h{n}" for h, w, c, n in SHIPPED])
 def test_cuda_backward_kernel_matches_plain(cuda_device, shape, shift, dtype):
-    """The kernel sums the parameter gradients with atomics, in an order
-    that changes from run to run: fp32 within 1e-5 of max(1, largest |value|)."""
+    """The kernels sum the parameter gradients in another order than the
+    plain version: fp32 within 1e-5 of max(1, largest |value|)."""
     H, W, C, heads = shape
     x, params, mask = _inputs(8, 2, H, W, C, heads, 3 * C, shift)
     tdt = getattr(torch, dtype)
@@ -186,3 +192,150 @@ def test_cuda_backward_kernel_matches_plain(cuda_device, shape, shift, dtype):
     for name, got, w in zip(("dx",) + sb.PARAM_NAMES, (dx,) + grads, (want_dx,) + want):
         assert bool(torch.isfinite(got).all()), name
         assert _rel_err(got, w) <= TOL[dtype], name
+
+
+def _cuda_backward(dev, B, H, W, C, heads, shift, dtype, seed=8):
+    x, params, mask = _inputs(seed, B, H, W, C, heads, 3 * C, shift)
+    dy = np.random.default_rng(seed + 1).normal(0, 1, x.shape).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    args = (torch.from_numpy(x).to(dev, tdt), _port_params(params, dev),
+            None if mask is None else torch.from_numpy(mask).to(dev),
+            torch.from_numpy(dy).to(dev, tdt))
+    return args, sb.swin_block_backward(*args, num_heads=heads, shift=shift)
+
+
+# (B, H, W, C, heads, shift): fewer windows than SMs (B=1 at 40x72: 45);
+# window counts that are no multiple of the attention's windows per block;
+# shift 4 with its mask at every C
+EDGES = [(1, 40, 72, 96, 24, 0), (1, 40, 72, 96, 3, 4), (3, 40, 72, 48, 12, 0),
+         (3, 80, 144, 24, 3, 4), (2, 40, 72, 48, 3, 4), (2, 40, 72, 96, 12, 4),
+         (3, 40, 72, 96, 24, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", EDGES, ids=[f"b{b}_{h}x{w}c{c}h{n}s{s}" for b, h, w, c, n, s in EDGES])
+def test_cuda_backward_edge_grids(cuda_device, case, dtype):
+    B, H, W, C, heads, shift = case
+    args, (dx, grads) = _cuda_backward(cuda_device, B, H, W, C, heads, shift, dtype)
+    plan = sb.backward_plan(args[0], heads, 3 * C, args[2])
+    per = plan["kernels"]["attention"]["windows_per_block"]
+    if B == 1:
+        assert plan["windows"] < sb.SMS
+    want_dx, want = sb.swin_block_backward_reference(*args, num_heads=heads, shift=shift)
+    for name, got, w in zip(("dx",) + sb.PARAM_NAMES, (dx,) + grads, (want_dx,) + want):
+        assert bool(torch.isfinite(got).all()), name
+        assert _rel_err(got, w) <= TOL[dtype], (name, per)
+
+
+def test_edge_grids_cover_short_chunks():
+    """Some edge cases leave the attention's last chunk of windows short."""
+    short = [plan["windows"] % plan["kernels"]["attention"]["windows_per_block"]
+             for plan in (sb.backward_plan(torch.empty(b, h, w, c), n, 3 * c)
+                          for b, h, w, c, n, _ in EDGES)]
+    assert any(short)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_backward_is_deterministic(cuda_device, dtype):
+    """Every sum runs in a fixed order: two launches, the same bits."""
+    args, first = _cuda_backward(cuda_device, 8, 40, 72, 96, 24, 4, dtype)
+    second = sb.swin_block_backward(*args, num_heads=24, shift=4)
+    for name, a, b in zip(("dx",) + sb.PARAM_NAMES, (first[0],) + first[1],
+                          (second[0],) + second[1]):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHIPPED, ids=[f"{h}x{w}c{c}h{n}" for h, w, c, n in SHIPPED])
+def test_cuda_backward_plan_matches_library(cuda_device, shape):
+    """The plan's shared memory and scratch (offsets and size, computed in
+    Python for the CPU) are the library's, which carves the scratch."""
+    H, W, C, heads = shape
+    for dtype in (torch.float32, torch.bfloat16):
+        for B in (8, 1, 3):
+            x = torch.empty(B, H, W, C, dtype=dtype)
+            plan = sb.backward_plan(x, heads, 3 * C)
+            layout = sb.backward_scratch_layout(x, heads, 3 * C)
+            assert layout == {**{n: plan["scratch"][n][0] for n in sb.SCRATCH},
+                              "bytes": plan["scratch_bytes"]}, (dtype, B)
+        for kernel in sb.BACKWARD_KERNELS:
+            assert sb.backward_shared_memory_bytes(C, C // heads, kernel, dtype) == \
+                plan["kernels"][kernel]["smem"], (dtype, kernel)
+
+
+def _raw_backward(args, heads, shift, scratch_bytes=None):
+    """The library's backward launched directly on ``args`` with a scratch
+    of its own layout's size, declared as ``scratch_bytes`` if given:
+    (error, scratch, layout) after the card finishes."""
+    x, params, mask, dy = args
+    B, H, W, C = x.shape
+    hidden, hd = params[10].shape[0], C // heads
+    k = sb.backward_plan(x, heads, hidden, mask)["kernels"]
+    layout = sb.backward_scratch_layout(x, heads, hidden, mask)
+    scratch = torch.empty(layout["bytes"], dtype=torch.uint8, device=x.device)
+    dx, grads = torch.empty_like(x), [torch.empty_like(p) for p in params]
+    err = sb._library().dmh_swin_block_bwd(
+        x.data_ptr(), dy.data_ptr(), dx.data_ptr(), *(t.data_ptr() for t in params[:5]),
+        None if mask is None else mask.data_ptr(), *(t.data_ptr() for t in params[5:]),
+        *(g.data_ptr() for g in grads), scratch.data_ptr(),
+        layout["bytes"] if scratch_bytes is None else scratch_bytes, B, H, W, C, heads, hidden,
+        shift, _scale_io(hd, x.dtype), hd**-0.5, k["attention"]["windows_per_block"],
+        k["weights"]["tokens_per_block"], int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return err, scratch, layout
+
+
+@pytest.mark.gpu
+def test_cuda_backward_refuses_small_scratch(cuda_device):
+    """The library checks the scratch it is given against its own layout."""
+    args, _ = _cuda_backward(cuda_device, 1, 40, 72, 96, 24, 4, "bfloat16")
+    nbytes = sb.backward_scratch_layout(args[0], 24, 288, args[2])["bytes"]
+    assert _raw_backward(args, 24, 4, nbytes - 256)[0] == 1  # cudaErrorInvalidValue
+    assert _raw_backward(args, 24, 4)[0] == 0
+
+
+# scratch slot -> the operand of backward_window_reference it holds once the
+# window kernels are done (the attention's backward writes dq, dk, dv over qkv)
+SLOTS = {"n1": "n1", "qkv": "dqkv", "ao": "ao", "n2": "n2", "gm": "gm", "dm1": "dm1", "dh": "dh"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shift", [0, 4])
+def test_cuda_backward_scratch_matches_window_reference(cuda_device, shift, dtype):
+    """What the window kernels hand the weight-gradient product, row for
+    row (window order) against the plain per-window part's operands."""
+    args, _ = _cuda_backward(cuda_device, 2, 16, 24, 24, 3, shift, dtype)
+    err, scratch, layout = _raw_backward(args, 3, shift)
+    assert err == 0
+    _, operands, _ = sb.backward_window_reference(*args, num_heads=3, shift=shift)
+    for slot, name in SLOTS.items():
+        want = sb._windows(operands[name], sb.WINDOW)
+        want = want.reshape(-1, want.shape[-1])
+        nbytes = want.numel() * want.element_size()
+        got = scratch[layout[slot]:layout[slot] + nbytes].view(want.dtype).reshape(want.shape)
+        assert _rel_err(got, want) <= TOL[dtype], name
+
+
+_PROBE = """
+__global__ void probe_atomic_kernel(float* p) { atomicAdd(p + threadIdx.x, 1.0f); }
+__global__ void probe_plain_kernel(float* p) { p[threadIdx.x] += 1.0f; }
+"""
+
+
+@pytest.mark.gpu
+def test_atomic_instructions_found_in_built_kernels(cuda_device, tmp_path):
+    """The counter chip_smoke.py reads the backward's atomics with sees the
+    atomic a kernel is built with, and none in a kernel without."""
+    from dmhomo_torch.ops.build import atomic_instructions, build_library
+
+    src = tmp_path / "probe.cu"
+    src.write_text(_PROBE)
+    counts = atomic_instructions(build_library(src, "dmh_atomics_probe"), "probe_")
+    (atomic,) = [n for n in counts if "probe_atomic_kernel" in n]
+    (plain,) = [n for n in counts if "probe_plain_kernel" in n]
+    assert counts[atomic] >= 1 and counts[plain] == 0
+    assert set(sb.backward_atomic_instructions().values()) == {0}

@@ -72,10 +72,15 @@ Phases, each printing its results; any failure exits non-zero:
     by kernel, and the idle share of phase 13's unprofiled step.
 16. whole-block kernel vs plain: registers, spills and dynamic shared memory
     of each variant of ``dmhomo_torch/csrc/swin_block.cu`` (built in phase
-    2); then the kernel and its plain PyTorch version at every Swin-block
-    shape of the shipped estimator (B=32), with and without the shift and
-    its mask, fp32 and bf16: error against the stated tolerance, and
-    CUDA-event times of the kernel, the plain version and the port's unfused
+    2), and the tensor-core instructions (HMMA, HGMMA) in each forward
+    instantiation's machine code (cuobjdump's SASS; a bf16 one without any,
+    or an fp32 one with any, fails the phase); then the kernel and its plain
+    PyTorch version at every Swin-block shape of the shipped estimator
+    (B=32), with and without the shift and its mask, fp32 and bf16: each
+    shape's ``forward_plan`` (logged), the library's shared memory and the
+    blocks per SM the card's occupancy calculator gives, error against the
+    stated tolerance, and CUDA-event
+    times of the kernel, the plain version and the port's unfused
     ``SwinBlock`` on the card (window-attention kernel, cuBLAS, LayerNorm; a
     yardstick only: no one PyTorch call computes a Swin block), beside the
     bound.
@@ -106,7 +111,12 @@ Phases, each printing its results; any failure exits non-zero:
     forward launches per step (160 forwards and their 160 remat recomputes),
     160 backward launches and no window-attention launch; step ms, pairs/s,
     peak memory, a profile (each backward kernel's device time), and the I/O
-    dtype of each block in one forward.
+    dtype of each block in one forward; before the step, the whole-block
+    forward's CUDA-event time at each of the step's shapes (B=8, at the
+    step's dtypes); after it, the forward's and phase 19's backward's time
+    per step, each shape weighted by the launches the wrappers counted for
+    it in the timed steps (the rows must cover all 320 and 160), beside the
+    forward's bound.
 21. whole-block training card vs CPU: phase 9 with ``attn_impl='fused_block'``.
 
 The line before the last is a JSON object with the six kernels' numbers;
@@ -1154,7 +1164,9 @@ def phase_swin_build(direction: str = "fwd", tag: str = "sb-build"):
             C, hd = int(m.group(4) or 0), int(m.group(5) or 8)
             new = f"{m.group(1)} {dt} C={C}" + (f" hd={m.group(5)}" if m.group(5) else "")
             if kind == direction and new != entry:
-                smem = (sb.shared_memory_bytes(C, 3 * C) if kind == "fwd" else
+                smem = (sb.shared_memory_bytes(
+                            C, 3 * C, torch.float32 if dt == "fp32" else torch.bfloat16)
+                        if kind == "fwd" else
                         sb.backward_shared_memory_bytes(
                             C, hd, m.group(2), torch.float32 if dt == "fp32" else torch.bfloat16)
                         if C else 0)
@@ -1162,6 +1174,24 @@ def phase_swin_build(direction: str = "fwd", tag: str = "sb-build"):
             entry = new if kind == direction else None
         elif entry and ("registers" in line or "spill" in line):
             log(f"[{tag}] {entry}: {line.split(':', 1)[-1].strip()}")
+
+
+def phase_swin_fwd_sass():
+    """Tensor-core instructions in each forward instantiation's machine code:
+    the bf16 ones run every product on tensor cores, the fp32 ones none (TF32
+    stays off); either way round fails the phase."""
+    from dmhomo_torch.ops import swin_block as sb
+
+    counts = sb.forward_tensor_core_instructions()
+    flat = {f"{'bf16' if dt == 'bfloat16' else 'fp32'} C={C} hd={hd}": n
+            for (dt, C, hd), n in sorted(counts.items())}
+    log(f"[sb-sass] tensor-core instructions (HMMA, HGMMA) per forward instantiation: "
+        f"{json.dumps(flat)}")
+    bad = {k: n for k, n in flat.items() if (n == 0) == k.startswith("bf16")}
+    if bad:
+        raise SystemExit(f"forward instantiations on the wrong units (bf16 without tensor-core "
+                         f"instructions, or fp32 with some): {bad}")
+    return flat
 
 
 def seeded_swin_blocks(s, dev, gen):
@@ -1230,12 +1260,19 @@ def phase_swin_kernels(shapes, dev, seed: int):
                     unfused_ms = cuda_ms(unfused, iters=5, warmup=1)
                     b_ms, b_by = block_bound(x, params, mask)
                     del got, want
+                smem = sb.shared_memory_bytes(C, 3 * C, x.dtype)  # what the launch asks for
+                occupancy = sb.forward_blocks_per_sm(C, h, x.dtype)
+                if not masked:
+                    log(f"[sb-plan] {s['level']} {H}x{W} C={C} h={h} B={B} {dtype}: "
+                        f"{json.dumps(sb.forward_plan(x, h, 3 * C))}; the library's shared "
+                        f"memory {smem} bytes, blocks per SM on this card {occupancy}")
                 r = {"level": s["level"], "B": B, "H": H, "W": W, "C": C, "heads": h,
                      "hd": s["hd"], "dtype": dtype, "mask": masked,
                      "launches_per_forward": s["masked_launches" if masked else "plain_launches"],
                      "max_abs_err": err, "rel_err": err / scale, "tol": SWIN_TOL[dtype],
                      "unfused_rel_err": unfused_rel, "ms": ms, "plain_ms": plain_ms,
-                     "unfused_ms": unfused_ms, "bound_ms": b_ms, "bound_by": b_by}
+                     "unfused_ms": unfused_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "smem": smem, "blocks_per_sm": occupancy}
                 results.append(r)
                 log(f"[sb-kernel] {s['level']} {H}x{W} C={C} h={h} hd={s['hd']} B={B} {dtype} "
                     f"shift={shift}: err={err:.3g} (rel {err / scale:.3g}, tol "
@@ -1325,6 +1362,11 @@ def block_bwd_bound(x, params, mask):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def shape_key(r) -> tuple:
+    """A row's key in the whole-block wrappers' ``launches_by_shape``."""
+    return (r["B"], r["H"], r["W"], r["C"], r["heads"], r["dtype"], r["mask"])
+
+
 def train_block_dtype(sub: int) -> str:
     """The I/O dtype of a Swin block of sub-level ``sub`` in the bf16
     training step: each encoder level's tokens enter in bf16 (both halves of
@@ -1411,13 +1453,11 @@ def phase_swin_bwd_kernels(shapes, dev, seed: int):
                                    iters=3, warmup=1)
                 unfused_ms = cuda_ms(unfused, iters=5, warmup=1)
                 b_ms, b_by = block_bwd_bound(x, params, mask)
-                per_step = (s["masked_launches"] if masked else s["plain_launches"]) * (
-                    BATCH // MICROBATCH)
                 plan = sb.backward_plan(x, h, params[10].shape[0], mask)
                 kplan = {k: {kk: v for kk, v in kern.items() if kk != "threads"}
                          for k, kern in plan["kernels"].items()}
                 r = {"level": s["level"], "B": B, "H": H, "W": W, "C": C, "heads": h,
-                     "hd": s["hd"], "dtype": dtype, "mask": masked, "launches_per_step": per_step,
+                     "hd": s["hd"], "dtype": dtype, "mask": masked,
                      "train_dtype": train_block_dtype(int(s["level"][-1])), "max_abs_err": errs,
                      "rel_err": rel,
                      "worst": max(rels, key=rels.get), "tol": BWD_TOL[dtype], "ms": ms,
@@ -1443,10 +1483,46 @@ def phase_swin_bwd_kernels(shapes, dev, seed: int):
     return results, worst
 
 
-def phase_train_fused(dev, batch, seed: int, window_step_ms: float):
+def time_forward_per_step(shapes, dev, seed: int):
+    """CUDA-event ms of the whole-block forward at every Swin-block shape of a
+    training microbatch (B=8), each at its bf16-step dtype, with and without
+    the shift and its mask; rows with the bound (the step's launches of each
+    are counted in phase 20)."""
+    import torch
+
+    from dmhomo_torch.ops import swin_block as sb
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    rows = []
+    for s in shapes:
+        B, H, W, C, h = MICROBATCH, s["H"], s["W"], s["C"], s["heads"]
+        dtype = train_block_dtype(int(s["level"][-1]))
+        blocks = seeded_swin_blocks(s, dev, gen)
+        x = torch.randn(B, H, W, C, generator=gen, device=dev).to(getattr(torch, dtype))
+        for masked in (False, True):
+            with torch.inference_mode():
+                params = blocks[masked].fused_params()
+                mask, shift = blocks[masked].attn_mask, blocks[masked].shift_size
+                kw = dict(num_heads=h, shift=shift)
+                ms = cuda_ms(lambda: sb.swin_block(x, params, mask, **kw), iters=20)
+                b_ms, b_by = block_bound(x, params, mask)
+            rows.append({"level": s["level"], "B": B, "H": H, "W": W, "C": C, "heads": h,
+                         "dtype": dtype, "mask": masked, "ms": ms, "bound_ms": b_ms,
+                         "bound_by": b_by})
+            log(f"[sb-train-fwd] {s['level']} {H}x{W} C={C} h={h} B={B} {dtype} shift={shift}: "
+                f"ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+        del blocks, x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_train_fused(dev, batch, seed: int, window_step_ms: float, shapes, bwd_rows):
     """Phase 8 with ``attn_impl='fused_block'``: every Swin block of the step
     is one whole-block forward launch (and one more in the remat recompute)
-    and one backward launch."""
+    and one backward launch.  First the forward's CUDA-event time at the
+    step's shapes (``time_forward_per_step``); each of those rows and of
+    phase 19's (``bwd_rows``) gains its launches per step as the wrappers
+    counted them in the timed steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1455,6 +1531,8 @@ def phase_train_fused(dev, batch, seed: int, window_step_ms: float):
     from dmhomo_torch.ops import window_attention as wa
     from dmhomo_torch.train.config import HEMTrainConfig
     from dmhomo_torch.train.hem_trainer import HEMTrainer
+
+    fwd_rows = time_forward_per_step(shapes, dev, seed)
 
     cfg = HEMTrainConfig(attn_impl="fused_block")
     trainer = HEMTrainer(cfg, steps_per_epoch=1000, device=dev)
@@ -1477,6 +1555,8 @@ def phase_train_fused(dev, batch, seed: int, window_step_ms: float):
         if step == WARMUP_STEPS:  # count the timed steps of the main path only
             for fn in counters.values():
                 fn.launches = 0
+            for fn in (sb.swin_block, sb.swin_block_backward):
+                fn.launches_by_shape.clear()
         before = {k: fn.launches for k, fn in counters.items()}
         t0 = time.perf_counter()
         out = trainer.train_step(batch)
@@ -1506,6 +1586,27 @@ def phase_train_fused(dev, batch, seed: int, window_step_ms: float):
     log(f"[sb-train] loss mean of the first 3 steps {first:.5f} > last 3 {last:.5f}; launches "
         f"over {TIMED_STEPS} timed steps {totals} = per step {per_step} whole-block forwards, "
         f"{per_step} remat recomputes of them, {per_step} backwards, no window attention")
+    # each shape's launches per step, as the wrappers counted them over the timed steps
+    by_shape = {d: dict(fn.launches_by_shape)
+                for d, fn in (("fwd", sb.swin_block), ("bwd", sb.swin_block_backward))}
+    for d, rows in (("fwd", fwd_rows), ("bwd", bwd_rows)):
+        step_rows = [r for r in rows if r.get("train_dtype", r["dtype"]) == r["dtype"]]
+        for r in rows:
+            r["launches_per_step"] = by_shape[d].get(shape_key(r), 0) / TIMED_STEPS
+        if not all(r["launches_per_step"] for r in step_rows) or \
+                sum(r["launches_per_step"] for r in rows) != want[d]:
+            raise SystemExit(f"{d} launches per shape {by_shape[d]} do not cover the step's "
+                             f"rows {[shape_key(r) for r in step_rows]}")
+    fwd_step = {k: sum(r[k] * r["launches_per_step"] for r in fwd_rows)
+                for k in ("ms", "bound_ms")}
+    bwd_ms_per_step = sum(r["ms"] * r["launches_per_step"] for r in bwd_rows)
+    log(f"[sb-train-fwd] whole-block forward per fused_block step by CUDA events, each shape "
+        f"weighted by its counted launches: {fwd_step['ms']:.3f} ms over "
+        f"{sum(r['launches_per_step'] for r in fwd_rows):g} launches (bound "
+        f"{fwd_step['bound_ms']:.3f} ms, {100 * fwd_step['bound_ms'] / fwd_step['ms']:.1f}% of "
+        f"it); the backward's per step (phase 19) {bwd_ms_per_step:.3f} ms; per shape "
+        + ", ".join(f"{r['level']} C={r['C']} h={r['heads']} {r['dtype']} mask={r['mask']} "
+                    f"x{r['launches_per_step']:g}" for r in fwd_rows))
 
     # the I/O dtype of each whole-block call of one step, in call order
     seen = []
@@ -1554,7 +1655,9 @@ def phase_train_fused(dev, batch, seed: int, window_step_ms: float):
     del trainer
     torch.cuda.empty_cache()
     return {"step_ms": step_ms, "peak": peak, "launches": totals, "idle": idle,
-            "dev_ms": dev_ms, "kernel_ms": kern, "bwd_parts_ms": parts, "dtypes": expected[:20]}
+            "dev_ms": dev_ms, "kernel_ms": kern, "bwd_parts_ms": parts, "dtypes": expected[:20],
+            "fwd_ms_per_step": fwd_step["ms"], "fwd_bound_ms_per_step": fwd_step["bound_ms"],
+            "fwd_step_shapes": fwd_rows}
 
 
 def main(argv=None):
@@ -1612,6 +1715,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     phase_swin_build()
+    sb_sass = phase_swin_fwd_sass()
     sb_results, sb_worst = phase_swin_kernels(shapes, dev, args.seed)
     sb_slice = phase_fused_slice(dev, pairs, args.seed, batch_ms)
     sb_diffs = phase_card_vs_cpu(sb_slice.pop("model"), args.seed, tag="sb-card-vs-cpu")
@@ -1620,7 +1724,8 @@ def main(argv=None):
     phase_swin_build("bwd", tag="sb-bwd-build")
     sbb_atomics = phase_swin_bwd_sass()
     sbb_results, sbb_worst = phase_swin_bwd_kernels(train_shapes, dev, args.seed)
-    sb_train = phase_train_fused(dev, train_batch, args.seed, train["step_ms"])
+    sb_train = phase_train_fused(dev, train_batch, args.seed, train["step_ms"], train_shapes,
+                                 sbb_results)
     sb_step_diffs = phase_train_card_vs_cpu(dev, args.seed, attn_impl="fused_block",
                                             tag="sb-train-card-vs-cpu")
 
@@ -1744,13 +1849,21 @@ def main(argv=None):
         "max_abs_err_bf16": sb_worst["bfloat16"],
         "eval_batch_ms": sb_slice["batch_ms"],
         "launches_train": sb_train["launches"]["fwd"],
+        # per fused_block training step: the 320 launches at B=8 and the step's dtypes
+        "ms_per_step": sb_train["fwd_ms_per_step"],
+        "bound_ms_per_step": sb_train["fwd_bound_ms_per_step"],
+        "profiled_ms_per_step": sb_train["kernel_ms"]["fwd"],
+        "tensor_core_instructions": sb_sass,
+        "step_shapes": sb_train["fwd_step_shapes"],
         "shapes": sb_results,
     }
     log(f"[summary] fused_block eval slice {1e3 * BATCH / sb_slice['batch_ms']:.2f} pairs/s, batch "
         f"{sb_slice['batch_ms']:.2f} ms (window-attention model {batch_ms:.2f}), peak "
         f"{sb_slice['peak'] / 2**30:.2f} GiB, device idle {100 * sb_slice['idle']:.1f}%; whole-block "
         f"kernel {sb_kernel['ms']:.3f} ms per forward (bound {sb_kernel['bound_ms']:.3f}, plain "
-        f"{sb_kernel['plain_ms']:.3f}, unfused SwinBlock {unfused_ms:.3f}); flows vs phase 4 "
+        f"{sb_kernel['plain_ms']:.3f}, unfused SwinBlock {unfused_ms:.3f}), per fused_block "
+        f"training step {sb_kernel['ms_per_step']:.3f} ms (bound "
+        f"{sb_kernel['bound_ms_per_step']:.3f}); flows vs phase 4 "
         f"{json.dumps(sb_slice['flow_px'])}; card-vs-cpu {json.dumps(sb_diffs)}")
 
     # per-training-step totals of the fused_block step: each block shape at
@@ -1777,7 +1890,7 @@ def main(argv=None):
                     "unfused_ms = the port's unfused SwinBlock forward + backward on the card "
                     f"(window-attention kernels, cuBLAS, LayerNorm) per step, {sbb_unfused_ms:.3f}"),
         "unfused_ms": sbb_unfused_ms,
-        "unit": (f"sum over the {sbb_launches} launches of one training step with "
+        "unit": (f"sum over the {sbb_launches:g} launches (counted) of one training step with "
                  f"attn_impl='fused_block', B={BATCH} in microbatches of {MICROBATCH}, each "
                  "block at its bf16-step dtype (each encoder level's first sub-level bf16, the "
                  "rest fp32)"),

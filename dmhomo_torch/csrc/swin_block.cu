@@ -32,24 +32,45 @@
 // projections plus 4*64*64*C of attention in the forward, about 2.9-3.2
 // times that in the backward: 2,300 flops per fp32 byte and more, far above
 // the 20 where the card's 67 TFLOP/s of fp32 CUDA cores take over from its
-// 3.35 TB/s of HBM.  Both are operations bound; only the weights (10*C^2
-// fp32, 369 KB at C = 96) are read many times, from L2.
+// 3.35 TB/s of HBM.  Both are operations bound; but the weights (10*C^2
+// fp32, 369 KB at C = 96) and the relative-position bias and mask (heads *
+// 16 KB each) are read again for every window, from L2, and in bf16 that
+// traffic outweighs the tensor cores' work.
 //
-// What this simple design does about it: one block of 256 threads owns one
-// window and keeps its 64 tokens in shared memory, so device memory sees x
-// once and y once.  Forward buffers: x, then h; one C-wide buffer for n1, the
-// attention output, n2 and y; one buffer of max(3C, hidden) columns for qkv
-// and then the GELU output; and one C x C block of a weight matrix (row =
-// output column), which every projection streams in turn from L2 (Wq in 3
-// blocks, Wp in 1, W1 and W2 in hidden/C each).  The projections are
-// register-tiled fp32 SGEMMs on CUDA cores: each thread owns TR rows x TC
-// columns of a 64 x C output tile and reads float4s of both operands along
-// the reduction axis; row strides of 4 (mod 8) floats keep those reads free
-// of bank conflicts.  The attention gives each thread one query row of one
-// head (four heads in flight), its q and output row in registers, the 64 keys
-// and values broadcast from shared memory, the bias and mask rows from L2.
-// LayerNorm takes four threads per token.  At C = 96 the buffers take 164
-// KB: one block per SM.
+// The forward, one block of 256 threads per window: the window stays in
+// shared memory from x to y, so device memory sees x twice (the second read
+// from L2, for the residual) and y once.  Three window buffers of 64 rows
+// and one C x C weight block, in the I/O dtype (round() makes every kept
+// value exact in it): n1, then the attention output, then n2; q, k and v
+// (q stored scaled, as the attention uses it); x again, then h, then y.  At
+// C = 96 the heads go in three groups of C / 3 columns, each group's q, k
+// and v made from its rows of Wq and its attention written at once, so
+// that no buffer is 3C wide.  The MLP's hidden axis streams C columns at a
+// time through the q | k | v buffer, its second product summed in
+// registers.  At C = 96: 95 KB in bf16, 113 KB in fp32, two blocks per SM;
+// the launch bounds hold 4, 3 and 2 blocks per SM at C = 24, 48, 96 by
+// registers.  The weights go through the block buffer in use order (Wq in
+// three, Wp, W1 and W2 per hidden block), copied by cp.async, which holds
+// no registers in flight: bf16 copies the next block into an fp32 staging
+// area while the current one is used and rounds it into the buffer; fp32
+// copies straight into the buffer, in flight while the attention or a
+// LayerNorm runs.  The bf16 launches run every product on tensor cores:
+// mma.sync m16n8k16 (m16n8k8 for C = 24's last step and the attention's
+// head dims 4 and 8) fed by ldmatrix from the bf16 buffers, whose row
+// strides are an odd number of 16-byte units; e stays in registers as the
+// A fragments of e v.  The fp32 launches keep fp32 CUDA cores: the
+// register-tiled SGEMM (each thread TR rows x TC columns of a 64 x C tile,
+// float4 reads along the reduction, row strides of 4 (mod 8) floats), the
+// attention's logits in mma.sync's layout by FMAs, e v with e in
+// registers, each thread summing its keys and the four lanes of a row
+// adding by shuffles.  The attention (shared with the backward's recompute
+// kernel) takes two heads at a time, four warps each, 16 query rows a warp,
+// 16 keys at a time in the forward (64 for fp32 at head dim 32), and reads
+// each bias and mask value once as a float2 (bf16 at C = 96: one key chunk
+// ahead).  LayerNorm takes four threads per token.  No wgmma: a window's
+// products are 64 x C x C with C <= 96, a few k16 steps each, and wgmma's
+// shared-memory layouts would need the buffers restaged for the
+// attention's per-head columns.
 //
 // The backward is five kernels, so that no gradient is summed with global
 // atomics, which one block per window would need: every window's 10 C^2
@@ -100,7 +121,6 @@ namespace {
 constexpr int WS = 8;                 // window side
 constexpr int N = WS * WS;            // tokens per window
 constexpr int THREADS = 256;
-constexpr int GROUPS = THREADS / N;   // heads in flight in the attention step
 constexpr int LN_THREADS = 4;         // threads per token in a LayerNorm
 constexpr int MAX_MLP_RATIO = 4;
 constexpr float CLIP = 60.0f;
@@ -109,15 +129,6 @@ constexpr float LN_EPS = 1e-5f;
 // Row stride (floats) of a shared buffer `width` floats wide: 4 (mod 8), so
 // float4 reads of 8 consecutive rows land in 8 distinct groups of 4 banks.
 __host__ __device__ constexpr int pad(int width) { return width + 4; }
-
-__host__ __device__ constexpr int hidden_cols(int C, int hidden) {
-  return hidden > 3 * C ? hidden : 3 * C;
-}
-
-// Floats of shared memory: x/h, the C-wide buffer, the weight block, qkv/hidden.
-constexpr size_t smem_floats(int C, int hidden) {
-  return static_cast<size_t>(2 * N * pad(C) + C * pad(C) + N * pad(hidden_cols(C, hidden)));
-}
 
 // A 64 x C output tile on 256 threads: CG column groups (columns cg + CG*j)
 // by RG row groups (rows rg + RG*i).
@@ -190,15 +201,36 @@ __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
+// The same on bf16 shared buffers (the forward's bf16 launches): four values
+// as floats, four floats stored rounded (exact for the rounded values the
+// kernel stores), and one element either way.
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
+  uint2 u;
+  *reinterpret_cast<__nv_bfloat162*>(&u.x) = __floats2bfloat162_rn(v.x, v.y);
+  *reinterpret_cast<__nv_bfloat162*>(&u.y) = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+__device__ __forceinline__ float ldf(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void stf(float* p, float v) { *p = v; }
+__device__ __forceinline__ void stf(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // dst = round(LN(src)) for the window's 64 tokens, C channels each; rows
-// LD floats apart.  Four threads per token, combined with shuffles.
-template <typename T, int C, int LD = pad(C)>
-__device__ __forceinline__ void layer_norm(const float* src, float* dst,
+// LD elements apart, fp32 or bf16 buffers.  Four threads per token,
+// combined with shuffles.
+template <typename T, int C, int LD = pad(C), typename S>
+__device__ __forceinline__ void layer_norm(const S* src, S* dst,
                                            const float* __restrict__ g,
                                            const float* __restrict__ b, int tid) {
   const int t = tid / LN_THREADS;
   const int part = tid % LN_THREADS;
-  const float* row = src + t * LD;
+  const S* row = src + t * LD;
   float sum = 0.0f;
   for (int c = 4 * part; c < C; c += 4 * LN_THREADS) {
     const float4 v = ld4(row + c);
@@ -225,22 +257,6 @@ __device__ __forceinline__ void layer_norm(const float* src, float* dst,
                     IO<T>::round((v.y - mean) * rstd * gg.y + bb.y),
                     IO<T>::round((v.z - mean) * rstd * gg.z + bb.z),
                     IO<T>::round((v.w - mean) * rstd * gg.w + bb.w)));
-  }
-}
-
-// ws[n][k] = round(w[(n0 + n) * ldw + k0 + k]) for n, k < C: one C x C block
-// of an (out, in) weight, row n holding output column n0 + n.
-template <typename T, int C>
-__device__ __forceinline__ void stage_weights(const float* __restrict__ w, int ldw, int n0,
-                                              int k0, float* ws, int tid) {
-  constexpr int LD = pad(C);
-  constexpr int Q = C / 4;
-  for (int e = tid; e < C * Q; e += THREADS) {
-    const int n = e / Q, k = 4 * (e % Q);
-    const float4 v = __ldg(reinterpret_cast<const float4*>(
-        w + static_cast<size_t>(n0 + n) * ldw + k0 + k));
-    st4(ws + n * LD + k, make_float4(IO<T>::round(v.x), IO<T>::round(v.y),
-                                     IO<T>::round(v.z), IO<T>::round(v.w)));
   }
 }
 
@@ -288,130 +304,6 @@ __device__ __forceinline__ void zero(float (&acc)[Tiling<C>::TR][Tiling<C>::TC])
     for (int j = 0; j < Tiling<C>::TC; ++j) acc[i][j] = 0.0f;
 }
 
-template <int HD>
-__device__ __forceinline__ float dot_row(const float* a, const float* b_s) {
-  float dot = 0.0f;
-#pragma unroll
-  for (int d = 0; d < HD; d += 4) {
-    const float4 bb = ld4(b_s + d);
-    dot = fmaf(a[d], bb.x, dot);
-    dot = fmaf(a[d + 1], bb.y, dot);
-    dot = fmaf(a[d + 2], bb.z, dot);
-    dot = fmaf(a[d + 3], bb.w, dot);
-  }
-  return dot;
-}
-
-template <int HD>
-__device__ __forceinline__ void axpy_row(float a, const float* x_s, float* acc) {
-#pragma unroll
-  for (int d = 0; d < HD; d += 4) {
-    const float4 xx = ld4(x_s + d);
-    acc[d] = fmaf(a, xx.x, acc[d]);
-    acc[d + 1] = fmaf(a, xx.y, acc[d + 1]);
-    acc[d + 2] = fmaf(a, xx.z, acc[d + 2]);
-    acc[d + 3] = fmaf(a, xx.w, acc[d + 3]);
-  }
-}
-
-// qkv = round(n1 . Wq + bq) for the window, three C-column blocks of Wq;
-// qkv rows are ldq floats apart.  Ends with a barrier.
-template <typename T, int C>
-__device__ __forceinline__ void project_qkv(const float* n1, float* qkv, int ldq, const Params& p,
-                                            float* ws, int tid) {
-  using Tl = Tiling<C>;
-  constexpr int LD = pad(C);
-  const int rg = tid / Tl::CG, cg = tid % Tl::CG;
-  float acc[Tl::TR][Tl::TC];
-  for (int blk = 0; blk < 3; ++blk) {
-    stage_weights<T, C>(p.wq, C, blk * C, 0, ws, tid);
-    __syncthreads();
-    zero<C>(acc);
-    mma_block<C>(n1, LD, 0, ws, acc, rg, cg);
-#pragma unroll
-    for (int i = 0; i < Tl::TR; ++i)
-#pragma unroll
-      for (int j = 0; j < Tl::TC; ++j) {
-        const int r = rg + Tl::RG * i, n = blk * C + cg + Tl::CG * j;
-        qkv[r * ldq + n] = IO<T>::round(acc[i][j] + __ldg(p.bq + n));
-      }
-    __syncthreads();
-  }
-}
-
-// out = the window attention of qkv (rows ldq floats apart), C wide: thread i
-// owns query row i of head g, four heads in flight.  No barrier at the end.
-template <typename T, int C, int HD>
-__device__ __forceinline__ void attention(const float* qkv, int ldq, float* out, const Params& p,
-                                          int w, float scale, int tid) {
-  constexpr int LD = pad(C);
-  constexpr int HEADS = C / HD;
-  const int grp = tid / N, i = tid % N;
-  const float* mrow = p.mask ? p.mask + (static_cast<size_t>(w) * N + i) * N : nullptr;
-  for (int g = grp; g < HEADS; g += GROUPS) {
-    float q[HD], o[HD];
-    const float* qrow = qkv + i * ldq + g * HD;
-#pragma unroll
-    for (int d = 0; d < HD; d += 4) {
-      const float4 v = ld4(qrow + d);
-      q[d] = IO<T>::round(v.x * scale);
-      q[d + 1] = IO<T>::round(v.y * scale);
-      q[d + 2] = IO<T>::round(v.z * scale);
-      q[d + 3] = IO<T>::round(v.w * scale);
-      o[d] = o[d + 1] = o[d + 2] = o[d + 3] = 0.0f;
-    }
-    const float* brow = p.bias + (static_cast<size_t>(g) * N + i) * N;
-    const float* kcol = qkv + C + g * HD;
-    const float* vcol = qkv + 2 * C + g * HD;
-    float s = 0.0f;
-    for (int j0 = 0; j0 < N; j0 += 4) {
-      const float4 b4 = __ldg(reinterpret_cast<const float4*>(brow + j0));
-      const float4 m4 = mrow ? __ldg(reinterpret_cast<const float4*>(mrow + j0))
-                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      const float bj[4] = {b4.x, b4.y, b4.z, b4.w};
-      const float mj[4] = {m4.x, m4.y, m4.z, m4.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int j = j0 + u;
-        float sim = dot_row<HD>(q, kcol + j * ldq) + bj[u];
-        if (mrow) sim += mj[u];
-        const float e = IO<T>::round(expf(fminf(fmaxf(sim, -CLIP), CLIP)));
-        s += e;
-        axpy_row<HD>(e, vcol + j * ldq, o);
-      }
-    }
-    float* orow = out + i * LD + g * HD;
-#pragma unroll
-    for (int d = 0; d < HD; d += 4)
-      st4(orow + d, make_float4(IO<T>::round(o[d] / s), IO<T>::round(o[d + 1] / s),
-                                IO<T>::round(o[d + 2] / s), IO<T>::round(o[d + 3] / s)));
-  }
-}
-
-// xs = round(xs + round(att . Wp + bp)), the residual in place of x.  Ends
-// with a barrier.
-template <typename T, int C>
-__device__ __forceinline__ void project_residual(const float* att, float* xs, const Params& p,
-                                                 float* ws, int tid) {
-  using Tl = Tiling<C>;
-  constexpr int LD = pad(C);
-  const int rg = tid / Tl::CG, cg = tid % Tl::CG;
-  float acc[Tl::TR][Tl::TC];
-  stage_weights<T, C>(p.wp, C, 0, 0, ws, tid);
-  __syncthreads();
-  zero<C>(acc);
-  mma_block<C>(att, LD, 0, ws, acc, rg, cg);
-#pragma unroll
-  for (int i = 0; i < Tl::TR; ++i)
-#pragma unroll
-    for (int j = 0; j < Tl::TC; ++j) {
-      const int r = rg + Tl::RG * i, n = cg + Tl::CG * j;
-      const float pv = IO<T>::round(acc[i][j] + __ldg(p.bp + n));
-      xs[r * LD + n] = IO<T>::round(xs[r * LD + n] + pv);
-    }
-  __syncthreads();
-}
-
 // Element offset of window token t (row-major within the 8x8 window) of
 // window w of image b, in the frame shifted by `shift` mod (H, W).
 struct WindowTokens {
@@ -445,77 +337,26 @@ __device__ __forceinline__ void load_window(const T* __restrict__ src, const Win
   }
 }
 
-// grid: one block per window, b * nW + w with w the window within its image
-// (row-major over the shifted frame).
-template <typename T, int C, int HD>
-__global__ void __launch_bounds__(THREADS)
-swin_block_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, const Params p, int H,
-                      int W, int hidden, int shift, float scale) {
-  using Tl = Tiling<C>;
-  constexpr int LD = pad(C);
-  const int ldh = pad(hidden_cols(C, hidden));
-  const int mlp_blocks = hidden / C;
-
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // N x LD: x, then h
-  float* cs = xs + N * LD;                      // N x LD: n1, att, n2, y
-  float* ws = cs + N * LD;                      // C x LD: one weight block
-  float* hs = ws + C * LD;                      // N x ldh: qkv, then gelu output
-
-  const WindowTokens token(blockIdx.x, H, W, C, shift);
-  const int w = blockIdx.x % ((H / WS) * (W / WS));
-  const int tid = threadIdx.x;
-  const int rg = tid / Tl::CG, cg = tid % Tl::CG;
-  constexpr int Q = C / 4;
-
-  load_window<T, C>(x, token, xs, tid);
-  __syncthreads();
-  layer_norm<T, C>(xs, cs, p.g1, p.b1, tid);
-  project_qkv<T, C>(cs, hs, ldh, p, ws, tid);
-  attention<T, C, HD>(hs, ldh, cs, p, w, scale, tid);
-  project_residual<T, C>(cs, xs, p, ws, tid);
-  layer_norm<T, C>(xs, cs, p.g2, p.b2, tid);
-
-  float acc[Tl::TR][Tl::TC];
-
-  // gm = round(gelu(n2 . W1 + c1)), hidden/C column blocks
-  for (int blk = 0; blk < mlp_blocks; ++blk) {
-    stage_weights<T, C>(p.w1, C, blk * C, 0, ws, tid);
-    __syncthreads();
-    zero<C>(acc);
-    mma_block<C>(cs, LD, 0, ws, acc, rg, cg);
-#pragma unroll
-    for (int i = 0; i < Tl::TR; ++i)
-#pragma unroll
-      for (int j = 0; j < Tl::TC; ++j) {
-        const int r = rg + Tl::RG * i, n = blk * C + cg + Tl::CG * j;
-        const float m = acc[i][j] + __ldg(p.c1 + n);
-        const float cdf = 0.5f * (1.0f + erff(m * 0.70710678118654752f));
-        hs[r * ldh + n] = IO<T>::round(m * cdf);
-      }
-    __syncthreads();
-  }
-
-  // y = round(h + round(gm . W2 + c2)), summed over hidden/C row blocks of W2^T
-  zero<C>(acc);
-  for (int blk = 0; blk < mlp_blocks; ++blk) {
-    stage_weights<T, C>(p.w2, hidden, 0, blk * C, ws, tid);
-    __syncthreads();
-    mma_block<C>(hs, ldh, blk * C, ws, acc, rg, cg);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < Tl::TR; ++i)
-#pragma unroll
-    for (int j = 0; j < Tl::TC; ++j) {
-      const int r = rg + Tl::RG * i, n = cg + Tl::CG * j;
-      const float m2 = IO<T>::round(acc[i][j] + __ldg(p.c2 + n));
-      cs[r * LD + n] = IO<T>::round(xs[r * LD + n] + m2);
-    }
-  __syncthreads();
+// dst (N rows LD elements apart) = the window's tokens of src, and back:
+// 16-byte copies, the I/O dtype kept
+template <typename T, int C, int LD>
+__device__ __forceinline__ void copy_window_in(const T* __restrict__ src, const WindowTokens& token,
+                                               T* dst, int tid) {
+  constexpr int V = 16 / sizeof(T), Q = C / V;
   for (int e = tid; e < N * Q; e += THREADS) {
-    const int t = e / Q, c = 4 * (e % Q);
-    IO<T>::store4(y + token(t) + c, cs + t * LD + c);
+    const int t = e / Q, c = V * (e % Q);
+    *reinterpret_cast<uint4*>(dst + t * LD + c) =
+        __ldg(reinterpret_cast<const uint4*>(src + token(t) + c));
+  }
+}
+template <typename T, int C, int LD>
+__device__ __forceinline__ void copy_window_out(const T* src, const WindowTokens& token,
+                                                T* __restrict__ dst, int tid) {
+  constexpr int V = 16 / sizeof(T), Q = C / V;
+  for (int e = tid; e < N * Q; e += THREADS) {
+    const int t = e / Q, c = V * (e % Q);
+    *reinterpret_cast<uint4*>(dst + token(t) + c) =
+        *reinterpret_cast<const uint4*>(src + t * LD + c);
   }
 }
 
@@ -740,6 +581,47 @@ __device__ __forceinline__ float2 pair(const float* p) {
 }
 __device__ __forceinline__ float2 pair(const float* p, int ld) { return make_float2(p[0], p[ld]); }
 __device__ __forceinline__ float2 zero2() { return make_float2(0.0f, 0.0f); }
+__device__ __forceinline__ float2 pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 pair(const __nv_bfloat16* p, int ld) {
+  return make_float2(__bfloat162float(p[0]), __bfloat162float(p[ld]));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// ldmatrix: one, two or four 8 x 8 bf16 matrices of shared memory, the row
+// addresses given by lanes 0-7, 8-15, ... (16-byte aligned); thread (g, t)
+// gets row g, elements 2t and 2t + 1 of each, which is an mma.sync fragment
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm2(uint32_t& r0, uint32_t& r1, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ uint32_t ldsm1(const void* p) {
+  uint32_t r;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];\n"
+               : "=r"(r)
+               : "r"(smem_u32(p)));
+  return r;
+}
+
+// 16 bytes from device to shared memory without passing through registers
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
 // cdf = Phi(m) and phi = exp(-m^2 / 2) / sqrt(2 pi) of the exact GELU, by
 // erff and expf as the forward computes its GELU
@@ -803,6 +685,39 @@ struct Proj<__nv_bfloat16, C> {
           const int tile = hf + 2 * (n >> 3);
           return tile < TILES ? pair(ws + (8 * tile + (n & 7)) * bpad<__nv_bfloat16>(C) + k) : zero2();
         });
+  }
+  // the same tile from bf16 buffers (the forward's bf16 launches; rows
+  // bpad(C) elements apart, an odd number of 16-byte units): the fragments
+  // by ldmatrix, without conflicts or packing
+  __device__ __forceinline__ void mma(const __nv_bfloat16* a, int lda, const __nv_bfloat16* ws) {
+    constexpr int LW = bpad<__nv_bfloat16>(C);
+    const int lane = threadIdx.x & 31;
+    const __nv_bfloat16* ar = a + (m0 + (lane & 15)) * lda;
+    const __nv_bfloat16* br = ws + (lane & 7) * LW + 8 * ((lane >> 3) & 1);
+#pragma unroll
+    for (int k0 = 0; k0 + 16 <= C; k0 += 16) {
+      uint32_t af[4];
+      ldsm4(af, ar + k0 + 8 * (lane >> 4));
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int tile = half + 2 * j;
+        if (tile < TILES) {
+          uint32_t b0, b1;
+          ldsm2(b0, b1, br + 8 * tile * LW + k0);
+          mma16(acc[j], af, b0, b1);
+        }
+      }
+    }
+    if constexpr (C % 16 != 0) {  // the last 8 of the reduction (C = 24)
+      constexpr int k0 = C - 8;
+      uint32_t a0, a1;
+      ldsm2(a0, a1, ar + k0);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int tile = half + 2 * j;
+        if (tile < TILES) mma8(acc[j], a0, a1, ldsm1(br + 8 * tile * LW + k0));
+      }
+    }
   }
   template <typename F>
   __device__ __forceinline__ void for_each(F f) {
@@ -1011,59 +926,162 @@ __host__ __device__ constexpr size_t weights_smem_floats(int C) {
   return static_cast<size_t>(2 * weight_windows(C) * N * pad(C));
 }
 
-// out[i][h HD + d] = round((e v)_i / s_i), the window attention of qkv (rows
-// bpad<T>(3C) apart) for every head: two heads in flight, four warps each, a
-// warp's 16 query rows; the logits on tensor cores (bf16) or CUDA cores
-// (fp32).  bf16 keeps e in registers, the A fragments of e v; fp32 stages
-// it in et (2 x 64 x ELD).  Each bias and mask value is read once, as a
-// float2.  No barrier at the end.
-template <typename T, int C, int HD>
-__device__ __forceinline__ void attention_fwd(const float* qs, float* out, const Params& p, int w,
-                                              float scale_io, float* et, int tid) {
-  constexpr int LD = bpad<T>(C), LDQ = bpad<T>(3 * C), HEADS = C / HD;
-  constexpr int HK = HeadK<T, HD>::value, NO = (HD + 7) / 8;
+// out[i][h HD + d] = round((e v)_i / s_i), the window attention of the heads
+// h_base .. h_base + QW / HD of qkv: q, k and v each QW columns wide (q at
+// column 0, k at QW, v at 2 QW; rows bpad<T>(3 QW) apart), the output C wide
+// (rows bpad<T>(C) apart); buffers of S (fp32, or the forward's bf16).  Two
+// heads in flight, four warps each, a warp's 16 query rows; the logits on
+// tensor cores (bf16) or CUDA cores (fp32), KC keys at a time (the softmax
+// has no max, so e and its sums need no second pass; the sums and e v
+// accumulate in key order either way).  e stays in registers (EREG: the A
+// fragments of e v on tensor cores for bf16; for fp32 each thread sums its
+// keys and the four lanes of a row add up by shuffles) or, for fp32 without
+// EREG, is staged in et (2 x 64 x ELD; KC = 64).  Each bias and mask value
+// is read once, as a float2, with PF one chunk ahead (where the registers
+// allow it).  QSCALED: q comes scaled (round(q hd^-0.5), as the forward's
+// qkv product stores it), else it is scaled here.  No barrier at the end.
+template <typename T, int C, int HD, int QW = C, bool EREG = Bf16<T>::value, int KC = N,
+          bool PF = false, bool QSCALED = false, typename S>
+__device__ __forceinline__ void attention_fwd(const S* qs, S* out, const Params& p, int w,
+                                              float scale_io, float* et, int h_base, int tid) {
+  static_assert(EREG || !Bf16<T>::value, "bf16 keeps e in registers");
+  static_assert(EREG || KC == N, "a staged e tile takes every key at once");
+  static_assert(KC % 16 == 0 && N % KC == 0 && (!PF || KC < N), "keys in whole 16-key steps");
+  constexpr int LD = bpad<T>(C), LDQ = bpad<T>(3 * QW), HEADS = QW / HD;
+  constexpr int HK = HeadK<T, HD>::value, NO = (HD + 7) / 8, KT = KC / 8;
+  // fp32 with e in registers: e v summed per chunk of keys into 2 x HD
+  // registers, or (every key at once) per 8 head dims after the last key
+  constexpr bool FE = !Bf16<T>::value && EREG, DCH = FE && KC == N;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int m0 = 16 * (warp & 3);
-  float* e_s = et + (warp >> 2) * N * ELD;
+  float* e_s = EREG ? nullptr : et + (warp >> 2) * N * ELD;
   const float* mask_w = p.mask ? p.mask + static_cast<size_t>(w) * N * N : nullptr;
   for (int h0 = 0; h0 < HEADS; h0 += 2) {
-    const int h = h0 + (warp >> 2);
-    if (h >= HEADS) break;
-    const float* q = qs + h * HD;
-    const float* k = qs + C + h * HD;
-    const float* v = qs + 2 * C + h * HD;
-    float sim[8][4];
-    zero_tiles(sim);
-    WarpMma<T, 8, HK>::run(
-        sim,
-        [&](int m, int kk) {
-          if (kk >= HD) return zero2();
-          const float2 v2 = pair(q + (m0 + m) * LDQ + kk);
-          return make_float2(IO<T>::round(v2.x * scale_io), IO<T>::round(v2.y * scale_io));
-        },
-        [&](int kk, int n) { return kk < HD ? pair(k + n * LDQ + kk) : zero2(); });
+    const int hl = h0 + (warp >> 2), h = h_base + hl;
+    if (hl >= HEADS) break;
+    const S* q = qs + hl * HD;
+    const S* k = qs + QW + hl * HD;
+    const S* v = qs + 2 * QW + hl * HD;
     const float* bias_h = p.bias + static_cast<size_t>(h) * N * N;
     float s[2] = {0.0f, 0.0f};
+    float o[NO][4];    // bf16 and the staged tile: e v in mma.sync's layout
+    float of[2][HD];   // fp32 with EREG: this thread's keys' share of rows g, g + 8
+    zero_tiles(o);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int hr = 0; hr < 2; ++hr)
 #pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int r = m0 + g + 8 * hr, c = 8 * j + 2 * t;
-        const float2 b2 = __ldg(reinterpret_cast<const float2*>(bias_h + r * N + c));
-        float x0 = sim[j][2 * hr] + b2.x, x1 = sim[j][2 * hr + 1] + b2.y;
-        if (mask_w) {
-          const float2 m2 = __ldg(reinterpret_cast<const float2*>(mask_w + r * N + c));
-          x0 += m2.x;
-          x1 += m2.y;
+      for (int d = 0; d < HD; ++d) of[hr][d] = 0.0f;
+    // the bias and mask of a chunk of keys, fetched one chunk ahead (PF) so
+    // that their L2 latency hides behind the chunk before
+    float2 bm[KT][2][2];
+    const auto fetch_bm = [&](int kc) {
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = m0 + g + 8 * hr, c = kc + 8 * j + 2 * t;
+          bm[j][hr][0] = __ldg(reinterpret_cast<const float2*>(bias_h + r * N + c));
+          bm[j][hr][1] = mask_w ? __ldg(reinterpret_cast<const float2*>(mask_w + r * N + c))
+                                : zero2();
         }
-        const float e0 = IO<T>::round(clipped_exp(x0)), e1 = IO<T>::round(clipped_exp(x1));
-        if constexpr (Bf16<T>::value) {  // e stays in registers
-          sim[j][2 * hr] = e0;
-          sim[j][2 * hr + 1] = e1;
-        } else {
-          put2(e_s + r * ELD + c, e0, e1);
+      }
+    };
+    if (PF) fetch_bm(0);
+    float sim[KT][4];      // a chunk's logits, then (fp32) its e
+    uint32_t ep[KT][2];    // bf16: its e, rows g and g + 8, packed (the A fragments of e v)
+#pragma unroll
+    for (int kc = 0; kc < N; kc += KC) {
+      float2 cur[KT][2][2];
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) cur[j][hr][0] = bm[j][hr][0], cur[j][hr][1] = bm[j][hr][1];
+      if (PF && kc + KC < N) fetch_bm(kc + KC);
+      zero_tiles(sim);
+      WarpMma<T, KT, HK>::run(
+          sim,
+          [&](int m, int kk) {
+            if (kk >= HD) return zero2();
+            const float2 v2 = pair(q + (m0 + m) * LDQ + kk);
+            if (QSCALED) return v2;
+            return make_float2(IO<T>::round(v2.x * scale_io), IO<T>::round(v2.y * scale_io));
+          },
+          [&](int kk, int n) { return kk < HD ? pair(k + (kc + n) * LDQ + kk) : zero2(); });
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = m0 + g + 8 * hr, c = kc + 8 * j + 2 * t;
+          float x0, x1;
+          if constexpr (PF) {
+            x0 = sim[j][2 * hr] + cur[j][hr][0].x;
+            x1 = sim[j][2 * hr + 1] + cur[j][hr][0].y;
+            if (mask_w) {
+              x0 += cur[j][hr][1].x;
+              x1 += cur[j][hr][1].y;
+            }
+          } else {
+            const float2 b2 = __ldg(reinterpret_cast<const float2*>(bias_h + r * N + c));
+            x0 = sim[j][2 * hr] + b2.x;
+            x1 = sim[j][2 * hr + 1] + b2.y;
+            if (mask_w) {
+              const float2 m2 = __ldg(reinterpret_cast<const float2*>(mask_w + r * N + c));
+              x0 += m2.x;
+              x1 += m2.y;
+            }
+          }
+          if constexpr (Bf16<T>::value) {  // e rounded as it is packed
+            ep[j][hr] = pack_bf16(clipped_exp(x0), clipped_exp(x1));
+            s[hr] += bf16_lo(ep[j][hr]) + bf16_hi(ep[j][hr]);
+            continue;
+          }
+          const float e0 = IO<T>::round(clipped_exp(x0)), e1 = IO<T>::round(clipped_exp(x1));
+          if constexpr (EREG) {  // e stays in registers
+            sim[j][2 * hr] = e0;
+            sim[j][2 * hr + 1] = e1;
+          } else {
+            put2(e_s + r * ELD + c, e0, e1);
+          }
+          s[hr] += e0 + e1;
         }
-        s[hr] += e0 + e1;
+      }
+      if constexpr (Bf16<T>::value) {
+        // e v with e's accumulator tiles as the A fragments: tiles 2kk and
+        // 2kk + 1 are keys kc + 16kk .. kc + 16kk + 15
+#pragma unroll
+        for (int kk = 0; kk < KT / 2; ++kk) {
+          const uint32_t a[4] = {ep[2 * kk][0], ep[2 * kk][1], ep[2 * kk + 1][0],
+                                 ep[2 * kk + 1][1]};
+          const int key = kc + 16 * kk + 2 * t;
+#pragma unroll
+          for (int j = 0; j < NO; ++j) {
+            const int n = 8 * j + g;
+            const float2 b0 = n < HD ? pair(v + key * LDQ + n, LDQ) : zero2();
+            const float2 b1 = n < HD ? pair(v + (key + 8) * LDQ + n, LDQ) : zero2();
+            mma16(o[j], a, pack_bf16(b0.x, b0.y), pack_bf16(b1.x, b1.y));
+          }
+        }
+      } else if constexpr (FE && !DCH) {
+        // this thread's keys kc + 8j + 2t + u for rows g and g + 8
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const S* vr = v + (kc + 8 * j + 2 * t + u) * LDQ;
+#pragma unroll
+            for (int d = 0; d < HD; d += 4) {
+              const float4 vv = ld4(vr + d);
+#pragma unroll
+              for (int hr = 0; hr < 2; ++hr) {
+                const float e = sim[j][2 * hr + u];
+                of[hr][d] = fmaf(e, vv.x, of[hr][d]);
+                of[hr][d + 1] = fmaf(e, vv.y, of[hr][d + 1]);
+                of[hr][d + 2] = fmaf(e, vv.z, of[hr][d + 2]);
+                of[hr][d + 3] = fmaf(e, vv.w, of[hr][d + 3]);
+              }
+            }
+          }
+        }
       }
     }
 #pragma unroll
@@ -1071,41 +1089,281 @@ __device__ __forceinline__ void attention_fwd(const float* qs, float* out, const
       s[hr] += __shfl_xor_sync(0xffffffffu, s[hr], 1);
       s[hr] += __shfl_xor_sync(0xffffffffu, s[hr], 2);
     }
-    float o[NO][4];
-    zero_tiles(o);
-    if constexpr (Bf16<T>::value) {
-      // e v with e's accumulator tiles as the A fragments: tiles 2kk and
-      // 2kk + 1 are keys 16kk .. 16kk + 15
+    if constexpr (DCH) {
+      // e is every key's (sim); DC head dims at a time, the four lanes of a
+      // row add their keys' sums, then each stores DC / 4 of the dims
+      constexpr int DC = HD < 8 ? HD : 8, PER = DC / 4;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t a[4] = {pack_bf16(sim[2 * kk][0], sim[2 * kk][1]),
-                               pack_bf16(sim[2 * kk][2], sim[2 * kk][3]),
-                               pack_bf16(sim[2 * kk + 1][0], sim[2 * kk + 1][1]),
-                               pack_bf16(sim[2 * kk + 1][2], sim[2 * kk + 1][3])};
+      for (int d0 = 0; d0 < HD; d0 += DC) {
+        float od[2][DC];
 #pragma unroll
-        for (int j = 0; j < NO; ++j) {
-          const int n = 8 * j + g;
-          const float2 b0 = n < HD ? pair(v + (16 * kk + 2 * t) * LDQ + n, LDQ) : zero2();
-          const float2 b1 = n < HD ? pair(v + (16 * kk + 8 + 2 * t) * LDQ + n, LDQ) : zero2();
-          mma16(o[j], a, pack_bf16(b0.x, b0.y), pack_bf16(b1.x, b1.y));
+        for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+          for (int d = 0; d < DC; ++d) od[hr][d] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const S* vr = v + (8 * j + 2 * t + u) * LDQ + d0;
+#pragma unroll
+            for (int d = 0; d < DC; d += 4) {
+              const float4 vv = ld4(vr + d);
+#pragma unroll
+              for (int hr = 0; hr < 2; ++hr) {
+                const float e = sim[j][2 * hr + u];
+                od[hr][d] = fmaf(e, vv.x, od[hr][d]);
+                od[hr][d + 1] = fmaf(e, vv.y, od[hr][d + 1]);
+                od[hr][d + 2] = fmaf(e, vv.z, od[hr][d + 2]);
+                od[hr][d + 3] = fmaf(e, vv.w, od[hr][d + 3]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+          for (int d = 0; d < DC; ++d) {
+            od[hr][d] += __shfl_xor_sync(0xffffffffu, od[hr][d], 1);
+            od[hr][d] += __shfl_xor_sync(0xffffffffu, od[hr][d], 2);
+            if (d / PER == t)
+              stf(out + (m0 + g + 8 * hr) * LD + h * HD + d0 + d,
+                  IO<T>::round(od[hr][d] / s[hr]));
+          }
+        }
+      }
+    } else if constexpr (FE) {
+      // the four lanes of a row add their keys' sums; lane t stores dims
+      // t HD / 4 .. (t + 1) HD / 4
+      constexpr int PER = HD / 4;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+        for (int d = 0; d < HD; ++d) {
+          of[hr][d] += __shfl_xor_sync(0xffffffffu, of[hr][d], 1);
+          of[hr][d] += __shfl_xor_sync(0xffffffffu, of[hr][d], 2);
+          if (d / PER == t)
+            stf(out + (m0 + g + 8 * hr) * LD + h * HD + d, IO<T>::round(of[hr][d] / s[hr]));
         }
       }
     } else {
-      __syncwarp();
-      WarpMma<T, NO, N>::run(
-          o, [&](int m, int kk) { return pair(e_s + (m0 + m) * ELD + kk); },
-          [&](int kk, int n) { return n < HD ? pair(v + kk * LDQ + n, LDQ) : zero2(); });
-    }
+      if constexpr (!EREG) {
+        __syncwarp();
+        WarpMma<T, NO, N>::run(
+            o, [&](int m, int kk) { return pair(e_s + (m0 + m) * ELD + kk); },
+            [&](int kk, int n) { return n < HD ? pair(v + kk * LDQ + n, LDQ) : zero2(); });
+      }
 #pragma unroll
-    for (int j = 0; j < NO; ++j) {
+      for (int j = 0; j < NO; ++j) {
 #pragma unroll
-      for (int q4 = 0; q4 < 4; ++q4) {
-        const int r = m0 + g + 8 * (q4 >> 1), c = 8 * j + 2 * t + (q4 & 1);
-        if (c < HD) out[r * LD + h * HD + c] = IO<T>::round(o[j][q4] / s[q4 >> 1]);
+        for (int q4 = 0; q4 < 4; ++q4) {
+          const int r = m0 + g + 8 * (q4 >> 1), c = 8 * j + 2 * t + (q4 & 1);
+          if (c < HD) stf(out + r * LD + h * HD + c, IO<T>::round(o[j][q4] / s[q4 >> 1]));
+        }
       }
     }
     __syncwarp();  // the next head overwrites the warp's e rows
   }
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+// Kernel 5's launch bounds: blocks of 256 threads per SM, so at most 64, 80
+// and 128 registers a thread at C = 24, 48, 96.
+__host__ __device__ constexpr int fwd_min_blocks(int C) { return C <= 24 ? 4 : C <= 48 ? 3 : 2; }
+
+// Head groups of the forward's qkv (three at C = 96, whose q, k and v columns
+// would not fit beside two blocks per SM; one below), and the width of a
+// group's q, k and v each.
+__host__ __device__ constexpr int fwd_groups(int C) { return C >= 96 ? 3 : 1; }
+__host__ __device__ constexpr int fwd_qkv_width(int C) { return C / fwd_groups(C); }
+
+// Bytes of shared memory of the forward in I/O dtype T: two window buffers,
+// a head group's q | k | v, one weight block and, for bf16, the weight
+// block's fp32 staging area.
+template <typename T>
+__host__ __device__ constexpr size_t fwd_smem_bytes(int C) {
+  return sizeof(T) * static_cast<size_t>(2 * N * bpad<T>(C) + N * bpad<T>(3 * fwd_qkv_width(C)) +
+                                         C * bpad<T>(C)) +
+         (Bf16<T>::value ? sizeof(float) * static_cast<size_t>(C) * C : 0);
+}
+
+// The forward's weight blocks, each C x C, in the order it uses them: Wq in
+// three (with head groups: each group's q, k and v rows), Wp, then W1 and
+// W2 of each hidden block; each put into ws (rows bpad<T>(C)
+// apart, row n the block's output column n) while no product reads ws.
+// Copied by cp.async, which holds no registers while the copy is in flight:
+// fp32 into ws itself when put; bf16 into the fp32 staging area st when
+// fetched, one block ahead, each thread rounding its own 16-byte chunks into
+// ws when put (so no barrier between the copy and the rounding).
+template <typename T, int C>
+struct FwdWeights {
+  static constexpr int QW = fwd_qkv_width(C), LD = bpad<T>(C), Q = C / 4;
+  int cur = -1;  // the block fetch() took last
+
+  // cp.async of block i, chunk (row n, columns k .. k + 3) of the block to
+  // dst(e, n, k); the weights read from the kernel's parameters where used
+  template <typename D>
+  __device__ __forceinline__ void copy(const Params& p, int hidden, int i, D dst, int tid) const {
+    const float* w;
+    int ldw = C, r0 = 0, c0 = 0;
+    if (i < 3) {
+      w = p.wq;
+      r0 = i * QW;
+    } else if (i == 3) {
+      w = p.wp;
+    } else if ((i - 4) % 2 == 0) {
+      w = p.w1;
+      r0 = (i - 4) / 2 * C;
+    } else {
+      w = p.w2;
+      ldw = hidden;
+      c0 = (i - 4) / 2 * C;
+    }
+    for (int e = tid; e < C * Q; e += THREADS) {
+      const int n = e / Q, k = 4 * (e % Q);
+      const int row = r0 + (i < 3 ? (n / QW) * C + n % QW : n);
+      cp_async16(dst(e, n, k), w + static_cast<size_t>(row) * ldw + c0 + k);
+    }
+    cp_async_commit();
+  }
+
+  // takes the next block (bf16: its copy into st in flight)
+  __device__ __forceinline__ void fetch(const Params& p, int hidden, float* st, int tid) {
+    ++cur;
+    if constexpr (Bf16<T>::value) {
+      if (cur < 4 + 2 * (hidden / C))
+        copy(p, hidden, cur, [&](int e, int, int) { return st + 4 * e; }, tid);
+    }
+  }
+
+  // the block fetch() took into ws; wait() before the barrier that hands ws on
+  __device__ __forceinline__ void put(const Params& p, int hidden, const float* st, T* ws,
+                                      int tid) {
+    if constexpr (Bf16<T>::value) {
+      cp_async_wait();
+      for (int e = tid; e < C * Q; e += THREADS)
+        st4(ws + (e / Q) * LD + 4 * (e % Q), ld4(st + 4 * e));
+    } else {
+      copy(p, hidden, cur, [&](int, int n, int k) { return ws + n * LD + k; }, tid);
+    }
+  }
+
+  __device__ __forceinline__ void wait() const {
+    if constexpr (!Bf16<T>::value) cp_async_wait();
+  }
+};
+
+// Kernel 5: one block per window, b * nW + w with w the window within its
+// image (row-major over the shifted frame); its buffers in the I/O dtype.
+template <typename T, int C, int HD>
+__global__ void __launch_bounds__(THREADS, fwd_min_blocks(C))
+swin_block_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, const Params p, int H, int W,
+                      int hidden, int shift, float scale_io) {
+  constexpr int LD = bpad<T>(C), GROUPS = fwd_groups(C), QW = fwd_qkv_width(C);
+  constexpr int LDQ = bpad<T>(3 * QW);
+  static_assert(QW % HD == 0, "a head group holds whole heads");
+  const int mlp_blocks = hidden / C;
+
+  extern __shared__ float4 smem4[];
+  T* xs = reinterpret_cast<T*>(smem4);  // N x LD: x; the attention output; n2
+  T* as = xs + N * LD;                  // n1; x again, then h, then y
+  T* qs = as + N * LD;                  // N x LDQ: a head group's q | k | v; a hidden block of gm
+  T* ws = qs + N * LDQ;                 // C x LD: one weight block
+  float* st = reinterpret_cast<float*>(ws + C * LD);  // bf16: C x C, the next block in fp32
+
+  const int tid = threadIdx.x;
+  // the window's token coordinates and mask row, derived where used
+  const auto token = [=] { return WindowTokens(blockIdx.x, H, W, C, shift); };
+  const auto w = [=] { return static_cast<int>(blockIdx.x % ((H / WS) * (W / WS))); };
+  FwdWeights<T, C> wt;
+  wt.fetch(p, hidden, st, tid);  // Wq, block 0
+  copy_window_in<T, C, LD>(x, token(), xs, tid);
+  wt.put(p, hidden, st, ws, tid);
+  wt.fetch(p, hidden, st, tid);  // Wq, block 1
+  __syncthreads();
+  layer_norm<T, C, LD>(xs, as, p.g1, p.b1, tid);
+  wt.wait();
+  __syncthreads();
+
+  // q, k, v = round(n1 . Wq + bq) in three C-column products (with head
+  // groups: one group's each), the attention after the last (after each)
+  for (int blk = 0; blk < 3; ++blk) {
+    {
+      Proj<T, C> pr(tid);
+      pr.mma(as, LD, ws);
+      pr.for_each([&](int r, int n, float v) {
+        // q kept scaled by hd^-0.5 in the I/O dtype, as the attention uses it
+        const int col = (n / QW) * C + blk * QW + n % QW;
+        float qkv = IO<T>::round(v + __ldg(p.bq + col));
+        if (col < C) qkv = IO<T>::round(qkv * scale_io);
+        stf(qs + r * LDQ + (GROUPS == 1 ? blk * C : 0) + n, qkv);
+      });
+    }
+    __syncthreads();
+    wt.put(p, hidden, st, ws, tid);  // Wq's next block, or Wp
+    wt.fetch(p, hidden, st, tid);
+    if (GROUPS == 3 || blk == 2)
+      attention_fwd<T, C, HD, QW, true, (Bf16<T>::value || HD < 32 ? 16 : N),
+                    (Bf16<T>::value && C >= 96), true>(
+          qs, xs, p, w(), scale_io, nullptr, GROUPS == 3 ? blk * (QW / HD) : 0, tid);
+    wt.wait();
+    __syncthreads();
+  }
+
+  // h = round(x + round(att . Wp + bp)), x read again (from L2) over n1
+  copy_window_in<T, C, LD>(x, token(), as, tid);
+  __syncthreads();
+  {
+    Proj<T, C> pr(tid);
+    pr.mma(xs, LD, ws);
+    pr.for_each([&](int r, int n, float v) {
+      T* hp = as + r * LD + n;
+      stf(hp, IO<T>::round(ldf(hp) + IO<T>::round(v + __ldg(p.bp + n))));
+    });
+  }
+  __syncthreads();
+  wt.put(p, hidden, st, ws, tid);  // W1, block 0
+  wt.fetch(p, hidden, st, tid);
+  layer_norm<T, C, LD>(as, xs, p.g2, p.b2, tid);
+  wt.wait();
+  __syncthreads();
+
+  // the MLP one hidden block of C columns at a time: gm = round(gelu(n2 . W1
+  // + c1)) into qs, its product with W2 summed in registers
+  Proj<T, C> acc(tid);
+  for (int blk = 0; blk < mlp_blocks; ++blk) {
+    {
+      Proj<T, C> pr(tid);
+      pr.mma(xs, LD, ws);
+      pr.for_each([&](int r, int n, float v) {
+        const float m = v + __ldg(p.c1 + blk * C + n);
+        const float cdf = 0.5f * (1.0f + erff(m * 0.70710678118654752f));
+        stf(qs + r * LDQ + n, IO<T>::round(m * cdf));
+      });
+    }
+    __syncthreads();
+    wt.put(p, hidden, st, ws, tid);  // W2, block blk
+    wt.fetch(p, hidden, st, tid);
+    wt.wait();
+    __syncthreads();
+    acc.mma(qs, LDQ, ws);
+    __syncthreads();
+    if (blk + 1 < mlp_blocks) {
+      wt.put(p, hidden, st, ws, tid);  // W1, block blk + 1
+      wt.fetch(p, hidden, st, tid);
+      wt.wait();
+      __syncthreads();
+    }
+  }
+  // y = round(h + round(gm . W2 + c2)), in place of h
+  acc.for_each([&](int r, int n, float v) {
+    T* hp = as + r * LD + n;
+    stf(hp, IO<T>::round(ldf(hp) + IO<T>::round(v + __ldg(p.c2 + n))));
+  });
+  __syncthreads();
+  copy_window_out<T, C, LD>(as, token(), y, tid);
 }
 
 // Kernel 1 of the backward, one block per window: the forward recomputed
@@ -1168,7 +1426,7 @@ swin_block_bwd_recompute_kernel(const T* __restrict__ x, const T* __restrict__ d
     __syncthreads();
   }
   store_rows<T, 3 * C>(qkv_g, 3 * C, qs, LDQ, tid);
-  attention_fwd<T, C, HD>(qs, as, p, w, scale_io, ws, tid);
+  attention_fwd<T, C, HD>(qs, as, p, w, scale_io, ws, 0, tid);
   __syncthreads();
   store_rows<T, C>(ao_g, C, as, LD, tid);
   wst.put(ws, tid);
@@ -1798,30 +2056,12 @@ struct Args {
   int split_tokens;  // backward: tokens per weight-gradient split (a multiple of 64)
 };
 
-struct Fwd {
-  template <typename T, int C, int HD>
-  static cudaError_t run(const Args& a, cudaStream_t stream) {
-    const size_t smem = smem_floats(C, a.hidden) * sizeof(float);
-    auto kernel = swin_block_fwd_kernel<T, C, HD>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    const long long blocks = static_cast<long long>(a.B) * (a.H / WS) * (a.W / WS);
-    kernel<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
-        static_cast<const T*>(a.x), static_cast<T*>(a.out), a.p, a.H, a.W, a.hidden, a.shift,
-        a.scale_io);
-    return cudaGetLastError();
-  }
-};
-
-// Launches Kernel with `smem_floats_` floats of dynamic shared memory (the
-// same at every launch of one instantiation) and returns the launch's error.
-// The kernel's shared-memory limit is raised on the first launch on each
-// device, not on every launch.
-template <auto Kernel, typename... A>
-cudaError_t launch(size_t smem_floats_, dim3 grid, int threads, cudaStream_t stream, A... args) {
+// Raises Kernel's dynamic shared-memory limit to `smem` bytes (the same at
+// every call for one instantiation) on the first call on each device, not
+// on every call.
+template <auto Kernel>
+cudaError_t prepare(size_t smem) {
   static std::atomic<unsigned long long> ready{0};  // bit d: set on device d
-  const size_t smem = smem_floats_ * sizeof(float);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -1832,9 +2072,42 @@ cudaError_t launch(size_t smem_floats_, dim3 grid, int threads, cudaStream_t str
     if (err != cudaSuccess) return err;
     ready.fetch_or(bit, std::memory_order_release);
   }
+  return cudaSuccess;
+}
+
+// Launches Kernel with `smem_floats_` floats of dynamic shared memory and
+// returns the launch's error.
+template <auto Kernel, typename... A>
+cudaError_t launch(size_t smem_floats_, dim3 grid, int threads, cudaStream_t stream, A... args) {
+  const size_t smem = smem_floats_ * sizeof(float);
+  const cudaError_t err = prepare<Kernel>(smem);
+  if (err != cudaSuccess) return err;
   Kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
+
+struct Fwd {
+  template <typename T, int C, int HD>
+  static cudaError_t run(const Args& a, cudaStream_t stream) {
+    const long long blocks = static_cast<long long>(a.B) * (a.H / WS) * (a.W / WS);
+    return launch<swin_block_fwd_kernel<T, C, HD>>(
+        fwd_smem_bytes<T>(C) / sizeof(float), dim3(static_cast<unsigned>(blocks)), THREADS, stream,
+        static_cast<const T*>(a.x), static_cast<T*>(a.out), a.p, a.H, a.W, a.hidden, a.shift,
+        a.scale_io);
+  }
+};
+
+// The forward's resident blocks per SM on this device (a.out: an int).
+struct FwdOccupancy {
+  template <typename T, int C, int HD>
+  static cudaError_t run(const Args& a, cudaStream_t) {
+    const size_t smem = fwd_smem_bytes<T>(C);
+    const cudaError_t err = prepare<swin_block_fwd_kernel<T, C, HD>>(smem);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        static_cast<int*>(a.out), swin_block_fwd_kernel<T, C, HD>, THREADS, smem);
+  }
+};
 
 struct Bwd {
   template <typename T, int C, int HD>
@@ -2007,9 +2280,25 @@ extern "C" int dmh_swin_block_bwd(
 }
 
 // Bytes of dynamic shared memory a forward launch at width C and MLP width
-// hidden asks for.
-extern "C" int dmh_swin_block_smem_bytes(int C, int hidden) {
-  return static_cast<int>(smem_floats(C, hidden) * sizeof(float));
+// hidden asks for, fp32 or bf16 I/O (the hidden axis streams through the
+// window buffers, so its width does not change them).
+extern "C" int dmh_swin_block_smem_bytes(int C, int hidden, int is_bf16) {
+  (void)hidden;
+  return static_cast<int>(is_bf16 ? fwd_smem_bytes<__nv_bfloat16>(C) : fwd_smem_bytes<float>(C));
+}
+
+// Blocks of the forward kernel an SM of the current device holds at width
+// C with `heads` heads, fp32 or bf16 I/O (shared memory, registers and
+// threads together), into *out; returns the CUDA error.
+extern "C" int dmh_swin_block_fwd_blocks_per_sm(int C, int heads, int is_bf16, int* out) {
+  Args a{};
+  a.B = 1;
+  a.H = a.W = WS;
+  a.C = C;
+  a.heads = heads;
+  a.hidden = 3 * C;
+  a.out = out;
+  return checked_dispatch<FwdOccupancy>(a, is_bf16, nullptr);
 }
 
 // Bytes of dynamic shared memory of backward kernel `part` (0 recompute, 1

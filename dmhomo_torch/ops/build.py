@@ -50,13 +50,15 @@ def build_library(source: Path, stem: str) -> Path:
 # cuobjdump's SASS listing, predicated or not; REDUX (a warp reduction in
 # registers) is not one
 _ATOMIC = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?(?:ATOMG?|ATOMS|REDG?|REDAS)[.\s]")
+# a tensor-core instruction: HMMA (mma.sync) or HGMMA (wgmma)
+_TENSOR = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?HG?MMA[.\s]")
 _FUNCTION = re.compile(r"Function\s*:\s*(\S+)")
 
 
-def count_atomics(sass: str, name_part: str) -> dict:
-    """Atomic instructions (ATOM, ATOMG, ATOMS, RED, REDG, REDAS) per function
-    of a SASS listing whose (mangled) name contains ``name_part``: name ->
-    count, every such function listed."""
+def count_instructions(sass: str, name_part: str, pattern: "re.Pattern") -> dict:
+    """Lines of a SASS listing matching ``pattern`` per function whose
+    (mangled) name contains ``name_part``: name -> count, every such
+    function listed."""
     counts, name = {}, None
     for line in sass.splitlines():
         m = _FUNCTION.search(line)
@@ -64,16 +66,38 @@ def count_atomics(sass: str, name_part: str) -> dict:
             name = m.group(1) if name_part in m.group(1) else None
             if name is not None:
                 counts.setdefault(name, 0)
-        elif name is not None and _ATOMIC.search(line):
+        elif name is not None and pattern.search(line):
             counts[name] += 1
     return counts
 
 
-def atomic_instructions(lib: Path, name_part: str) -> dict:
-    """:func:`count_atomics` of the machine code (sm_90a SASS) built into
-    ``lib``, disassembled by the toolkit's ``cuobjdump`` beside nvcc."""
+def count_atomics(sass: str, name_part: str) -> dict:
+    """Atomic instructions (ATOM, ATOMG, ATOMS, RED, REDG, REDAS) per function
+    of a SASS listing whose (mangled) name contains ``name_part``."""
+    return count_instructions(sass, name_part, _ATOMIC)
+
+
+def count_tensor_core(sass: str, name_part: str) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) per function of a SASS listing
+    whose (mangled) name contains ``name_part``."""
+    return count_instructions(sass, name_part, _TENSOR)
+
+
+def sass(lib: Path) -> str:
+    """The machine code (sm_90a SASS) built into ``lib``, disassembled by the
+    toolkit's ``cuobjdump`` beside nvcc."""
     tool = Path(nvcc()).with_name("cuobjdump")
     proc = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"cuobjdump failed ({proc.returncode}): {proc.stderr}")
-    return count_atomics(proc.stdout, name_part)
+    return proc.stdout
+
+
+def atomic_instructions(lib: Path, name_part: str) -> dict:
+    """:func:`count_atomics` of the machine code built into ``lib``."""
+    return count_atomics(sass(lib), name_part)
+
+
+def tensor_core_instructions(lib: Path, name_part: str) -> dict:
+    """:func:`count_tensor_core` of the machine code built into ``lib``."""
+    return count_tensor_core(sass(lib), name_part)

@@ -17,6 +17,11 @@ and 8x8 windows:
   ``gm = round(gelu(m1))`` with the exact erf;
 * ``y = round(h + round(gm . round(W2) + c2))``.
 
+On the card the forward is one launch, one block per window (its grid,
+shared memory and blocks per SM: :func:`forward_plan`): the bf16 launches
+run every product on tensor cores from bf16 window buffers, the fp32 ones
+on fp32 CUDA cores (TF32 stays off).
+
 The backward recomputes that forward from x and follows ``_bwd_kernel`` step
 by step (see :func:`swin_block_backward_reference`): dx in the I/O dtype and
 the 13 parameter gradients in fp32, each summed over every window.  On the
@@ -42,15 +47,18 @@ raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
+import re
 from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-from dmhomo_torch.ops.build import CSRC, atomic_instructions, build_library
+from dmhomo_torch.ops.build import (CSRC, atomic_instructions, build_library,
+                                    tensor_core_instructions)
 from dmhomo_torch.ops.window_attention import (
     HEAD_DIMS,
     WINDOW_TOKENS,
@@ -425,6 +433,39 @@ def backward_plan(x: torch.Tensor, num_heads: int, hidden: int,
     return _backward_plan(B, H, W, C, num_heads, hidden, x.element_size(), mask is not None)
 
 
+@functools.lru_cache(maxsize=None)
+def _forward_plan(B: int, H: int, W: int, C: int, itemsize: int) -> dict:
+    N = WINDOW_TOKENS
+    windows = B * (H // WINDOW) * (W // WINDOW)
+    bf = itemsize == 2
+    groups = 3 if C >= 96 else 1  # head groups of the qkv product
+    group = C // groups
+    ld, ldq = _pad(C, bf), _pad(3 * group, bf)  # elements of the I/O dtype
+    # two window buffers, a group's q | k | v, one weight block and, for
+    # bf16, its fp32 staging area
+    smem = itemsize * (2 * N * ld + N * ldq + C * ld) + (4 * C * C if bf else 0)
+    return {
+        "windows": windows, "grid": (windows,), "threads": THREADS, "smem": smem,
+        "blocks_per_sm": _blocks_per_sm(smem, THREADS), "head_groups": groups,
+        "row_stride": ld, "qkv_row_stride": ldq,
+    }
+
+
+def forward_plan(x: torch.Tensor, num_heads: int, hidden: int) -> dict:
+    """How :func:`swin_block` launches its forward kernel on the card for x
+    (B, H, W, C): one block of 256 threads per window (``grid``); its dynamic
+    shared memory in bytes (two window buffers, rows ``row_stride`` elements
+    apart, one for a head group's q | k | v, rows ``qkv_row_stride`` apart,
+    and one C x C weight block, in the I/O dtype; bf16 adds the weight
+    block's fp32 staging area); blocks per SM by shared memory and threads
+    (the registers may allow fewer: :func:`forward_blocks_per_sm` asks the
+    card); the head groups (three at C = 96, one below).  Computed from the
+    shapes alone (the heads and the MLP width change none of it); a ``gpu``
+    test holds ``smem`` to the library's."""
+    B, H, W, C = x.shape
+    return _forward_plan(B, H, W, C, x.element_size())
+
+
 def build() -> Path:
     """Compile the kernel library for sm_90a (once per source content) and
     return its path."""
@@ -451,6 +492,23 @@ def backward_atomic_instructions() -> dict:
     return out
 
 
+def forward_tensor_core_instructions() -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in the built library's machine
+    code of each forward instantiation: ``(dtype, C, hd)`` -> count.  The
+    bf16 ones run their products on tensor cores, the fp32 ones on CUDA
+    cores (TF32 off), so only the bf16 counts are above 0."""
+    out = {}
+    for name, n in tensor_core_instructions(build(), "swin_block_fwd_kernel").items():
+        m = re.search(r"swin_block_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
+        if m is None:
+            raise RuntimeError(f"unexpected forward instantiation {name}")
+        dt = "float32" if m.group(1) == "f" else "bfloat16"
+        out[(dt, int(m.group(2)), int(m.group(3)))] = n
+    if not out:
+        raise RuntimeError("swin_block_fwd_kernel is not in the library's machine code")
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
@@ -466,16 +524,31 @@ def _library() -> ctypes.CDLL:
     fn = lib.dmh_swin_block_bwd_scratch_layout
     fn.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
-    lib.dmh_swin_block_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.dmh_swin_block_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.dmh_swin_block_smem_bytes.restype = ctypes.c_int
+    fn = lib.dmh_swin_block_fwd_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
     lib.dmh_swin_block_bwd_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.dmh_swin_block_bwd_smem_bytes.restype = ctypes.c_int
     return lib
 
 
-def shared_memory_bytes(C: int, hidden: int) -> int:
-    """Dynamic shared memory one block of the forward kernel asks for."""
-    return _library().dmh_swin_block_smem_bytes(C, hidden)
+def shared_memory_bytes(C: int, hidden: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory one block of the forward kernel asks for at I/O
+    ``dtype``, as the library computes it."""
+    return _library().dmh_swin_block_smem_bytes(C, hidden, int(dtype == torch.bfloat16))
+
+
+def forward_blocks_per_sm(C: int, heads: int, dtype: torch.dtype) -> int:
+    """Blocks of the forward kernel one SM of the current card holds (shared
+    memory, registers and threads), by the CUDA occupancy calculator."""
+    out = ctypes.c_int(0)
+    err = _library().dmh_swin_block_fwd_blocks_per_sm(C, heads, int(dtype == torch.bfloat16),
+                                                      ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {err}")
+    return out.value
 
 
 def backward_shared_memory_bytes(C: int, hd: int, kernel: str, dtype: torch.dtype) -> int:
@@ -574,6 +647,7 @@ def _forward(x, params, mask, num_heads, window_size, shift):
     if err != 0:
         raise RuntimeError(f"swin block kernel launch failed: cudaError {err}")
     swin_block.launches += 1
+    swin_block.launches_by_shape[_shape_key(x, num_heads, mask)] += 1
     return y
 
 
@@ -613,10 +687,17 @@ def swin_block_backward(x: torch.Tensor, params, mask: "torch.Tensor | None", dy
     if err != 0:
         raise RuntimeError(f"swin block backward kernel launch failed: cudaError {err}")
     swin_block_backward.launches += 1
+    swin_block_backward.launches_by_shape[_shape_key(x, num_heads, mask)] += 1
     return dx, grads
 
 
+def _shape_key(x, num_heads, mask) -> tuple:
+    """(B, H, W, C, heads, dtype name, masked): the key of ``launches_by_shape``."""
+    return (*x.shape, num_heads, str(x.dtype).split(".")[-1], mask is not None)
+
+
 swin_block_backward.launches = 0
+swin_block_backward.launches_by_shape = collections.Counter()
 
 
 class SwinBlockFunction(torch.autograd.Function):
@@ -648,10 +729,12 @@ def swin_block(x: torch.Tensor, params, mask: "torch.Tensor | None" = None, *,
 
     CPU tensors go through the plain versions; CUDA tensors through the
     hand-written kernels (``launches`` counts each forward launch,
-    ``swin_block_backward.launches`` each backward one), which take 8x8
+    ``swin_block_backward.launches`` each backward one, and each has the
+    same counts by shape in ``launches_by_shape``), which take 8x8
     windows, C in 24, 48, 96, head dims 4-32 and an MLP of 1-4 times C.
     """
     return SwinBlockFunction.apply(x, mask, num_heads, window_size, shift, *params)
 
 
 swin_block.launches = 0
+swin_block.launches_by_shape = collections.Counter()

@@ -1,23 +1,34 @@
-"""Where the whole-block Swin backward spends its time, on the card.
+"""Where the whole-block Swin kernels spend their time, on the card.
 
-  python -m dmhomo_torch.ops.swin_block_breakdown [--source PATH] [--iters 10]
+  python -m dmhomo_torch.ops.swin_block_breakdown [--direction bwd|fwd] [--source PATH ...]
+                                                  [--whole] [--iters 10]
 
 Builds copies of a ``swin_block.cu`` source (this checkout's by default, or
-an earlier revision's given by ``--source``) with one part of the backward
-removed, each removal a textual edit checked to apply, then times each copy
-with CUDA events at the six Swin-block shapes of a shipped training
+earlier revisions' given by ``--source``) with one part of the backward
+(``--direction bwd``, the default) or of the forward (``fwd``) removed, each
+removal a textual edit checked to apply, then times each copy with CUDA
+events.  The backward: at the six Swin-block shapes of a shipped training
 microbatch (B=8), each at the dtype the bf16 training step gives it, with
-and without the shift and its mask.  A copy's outputs are meaningless; the
-difference of its time to the unchanged source's is the cost of the removed
-part, where the parts overlap less than fully.
+and without the shift and its mask.  The forward: at the same six shapes
+twice, at the eval forward's (B=32, fp32; 40 launches a forward) and at the
+training step's (B=8, each block at its step dtype; 320 launches a step:
+160 forwards and their remat recomputes).  A copy's outputs are
+meaningless; the difference of its time to the unchanged source's is the
+cost of the removed part, where the parts overlap less than fully.
+``--whole`` times each source unchanged only, to compare sources.
 
 Two designs are known by their source: the five-kernel backward (the copies
 skip one launch each, or drop the recompute kernel's attention, MLP or
 scratch stores) and the single per-window kernel it replaced, with
 global atomics for every gradient (the copies drop the atomics, keeping the
 sums they add; the attention's backward; the weight-gradient products).
-Prints one line per copy and shape, the launch-weighted ms per training
-step of each copy, and the card's name and power limit.
+Two forward designs are known by their source, the first port's fp32-buffer
+kernel and the head-grouped one with buffers in the I/O dtype; the copies
+drop the attention, the qkv projection's products, the MLP (y = h + c2),
+the weight staging (the products read whatever the weight buffer holds) or
+both LayerNorms.  Prints one line per copy and
+shape, the launch-weighted ms per eval forward and per training step of
+each copy, and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -35,11 +46,18 @@ from dmhomo_torch.ops import swin_block as sb
 from dmhomo_torch.ops.build import nvcc
 from dmhomo_torch.ops.window_attention import _scale_io
 
-B = 8  # a training microbatch
+B = B_TRAIN = 8  # a training microbatch
 # (H, W, C, heads, backward launches per step (half of them shifted), step dtype)
 LEVELS = [(160, 288, 24, 3, 16, torch.bfloat16), (80, 144, 48, 12, 32, torch.bfloat16),
           (40, 72, 96, 24, 48, torch.bfloat16), (80, 144, 48, 3, 16, torch.float32),
           (40, 72, 96, 3, 16, torch.float32), (40, 72, 96, 12, 32, torch.float32)]
+
+# (H, W, C, heads, forward launches per eval forward at B=32 (fp32), per
+# training step at B=8 (160 forwards and their remat recomputes), step dtype)
+FWD_LEVELS = [(160, 288, 24, 3, 4, 32, torch.bfloat16), (80, 144, 48, 12, 8, 64, torch.bfloat16),
+              (40, 72, 96, 24, 12, 96, torch.bfloat16), (80, 144, 48, 3, 4, 32, torch.float32),
+              (40, 72, 96, 3, 4, 32, torch.float32), (40, 72, 96, 12, 8, 64, torch.float32)]
+EVAL_B = 32
 
 _NOT = "true ? cudaSuccess : "
 _FAKE_ADD = ("namespace {\n\n// keeps the sum it is given live, adds nothing\n"
@@ -73,7 +91,7 @@ def variants(src: str) -> dict:
             ("reduce", "swin_block_bwd_reduce_kernel<<<", "if (0) "))}
         edits.update({
             "the recompute kernel without its attention": [
-                ("  attention_fwd<T, C, HD>(qs, as, p, w, scale_io, ws, tid);\n", "", 1)],
+                ("  attention_fwd<T, C, HD>(qs, as, p, w, scale_io, ws, 0, tid);\n", "", 1)],
             "the recompute kernel without its MLP": [
                 ("  Proj<T, C> dn2(tid);\n  for (int blk = 0; blk < mlp_blocks; ++blk) {",
                  "  Proj<T, C> dn2(tid);\n  for (int blk = 0; blk < mlp_blocks * 0; ++blk) {", 1)],
@@ -82,6 +100,67 @@ def variants(src: str) -> dict:
                  "    if (ldd < 0) IO<S>::store4(dst + static_cast<size_t>(t) * ldd + c, "
                  "src + t * lds + c);", 1)],
         })
+    return _apply(src, edits)
+
+
+def forward_variants(src: str) -> dict:
+    """Copies of the source with one part of the forward kernel removed:
+    name -> source."""
+    if "project_qkv<T, C>(cs, hs, ldh, p, ws, tid);" in src:  # the first port's kernel
+        edits = {
+            "without the attention": [
+                ("  attention<T, C, HD>(hs, ldh, cs, p, w, scale, tid);\n", "", 1)],
+            "without the qkv products": [
+                ("    mma_block<C>(n1, LD, 0, ws, acc, rg, cg);\n", "", 1)],
+            "without the MLP": [
+                ("  const int mlp_blocks = hidden / C;\n\n  extern __shared__ float4 smem4[];\n"
+                 "  float* xs = reinterpret_cast<float*>(smem4);  // N x LD: x, then h\n"
+                 "  float* cs",
+                 "  const int mlp_blocks = 0 * (hidden / C);\n\n  extern __shared__ float4 "
+                 "smem4[];\n  float* xs = reinterpret_cast<float*>(smem4);  // N x LD: x, then "
+                 "h\n  float* cs", 1)],
+            "without the weight staging": [
+                ("  for (int e = tid; e < C * Q; e += THREADS) {\n    const int n = e / Q",
+                 "  for (int e = tid; e < C * Q * 0; e += THREADS) {\n    const int n = e / Q",
+                 1)],
+            "without the LayerNorms": [
+                ("  layer_norm<T, C>(xs, cs, p.g1, p.b1, tid);\n", "", 1),
+                ("  layer_norm<T, C>(xs, cs, p.g2, p.b2, tid);\n", "", 1)],
+        }
+    elif "struct FwdWeights" in src:  # the head-grouped kernel with buffers in the I/O dtype
+        edits = {
+            "without the attention": [
+                ("    if (GROUPS == 3 || blk == 2)\n      attention_fwd<",
+                 "    if (false)\n      attention_fwd<", 1)],
+            "without the qkv products": [
+                ("      pr.mma(as, LD, ws);\n      pr.for_each([&](int r, int n, float v) {\n"
+                 "        // q kept scaled",
+                 "      pr.for_each([&](int r, int n, float v) {\n        // q kept scaled", 1)],
+            "without the MLP": [
+                ("  for (int blk = 0; blk < mlp_blocks; ++blk) {\n    {\n"
+                 "      Proj<T, C> pr(tid);\n      pr.mma(xs, LD, ws);",
+                 "  for (int blk = 0; blk < 0 * mlp_blocks; ++blk) {\n    {\n"
+                 "      Proj<T, C> pr(tid);\n      pr.mma(xs, LD, ws);", 1)],
+            "without the weight staging": [
+                ("    for (int e = tid; e < C * Q; e += THREADS) {\n      const int n = e / Q, "
+                 "k = 4 * (e % Q);\n      const int row = r0",
+                 "    for (int e = tid; e < C * Q * 0; e += THREADS) {\n      const int n = e / Q, "
+                 "k = 4 * (e % Q);\n      const int row = r0", 1),
+                ("      for (int e = tid; e < C * Q; e += THREADS)\n"
+                 "        st4(ws + (e / Q) * LD",
+                 "      for (int e = tid; e < C * Q * 0; e += THREADS)\n"
+                 "        st4(ws + (e / Q) * LD", 1)],
+            "without the LayerNorms": [
+                ("  layer_norm<T, C, LD>(xs, as, p.g1, p.b1, tid);\n  wt.wait();\n",
+                 "  wt.wait();\n", 1),
+                ("  layer_norm<T, C, LD>(as, xs, p.g2, p.b2, tid);\n", "", 1)],
+        }
+    else:
+        raise ValueError("not a whole-block forward this tool knows")
+    return _apply(src, edits)
+
+
+def _apply(src: str, edits: dict) -> dict:
     out = {"unchanged": src}
     for name, pairs in edits.items():
         text = src
@@ -118,7 +197,7 @@ def _ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _inputs(H, W, C, heads, dtype, shift, gen):
+def _inputs(H, W, C, heads, dtype, shift, gen, B=B):
     dev = torch.device("cuda")
     x = torch.randn(B, H, W, C, generator=gen, device=dev).to(dtype)
     dy = torch.randn(B, H, W, C, generator=gen, device=dev).to(dtype)
@@ -173,10 +252,55 @@ def time_shape(lib, new: bool, H, W, C, heads, dtype, shift, gen, iters: int) ->
     return _ms(run, iters)
 
 
+def time_forward(lib, B, H, W, C, heads, dtype, shift, gen, iters: int) -> float:
+    """ms per forward launch of ``lib`` at one shape."""
+    x, _, params, mask = _inputs(H, W, C, heads, dtype, shift, gen, B)
+    y = torch.empty_like(x)
+    hd = C // heads
+    fn = lib.dmh_swin_block_fwd
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    args = [x.data_ptr(), y.data_ptr(), *(t.data_ptr() for t in params[:5]),
+            mask.data_ptr() if mask is not None else None, *(t.data_ptr() for t in params[5:]),
+            B, H, W, C, heads, 3 * C, shift, _scale_io(hd, dtype),
+            int(dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream]
+
+    def run():
+        if fn(*args) != 0:
+            raise RuntimeError("launch failed")
+
+    run()
+    torch.cuda.synchronize()
+    return _ms(run, iters)
+
+
+def _forward_main(name: str, lib, label: str, iters: int) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    per_fwd = per_step = 0.0
+    for H, W, C, heads, eval_n, step_n, dtype in FWD_LEVELS:
+        for shift in (0, 4):
+            for B, dt, n, tag in ((EVAL_B, torch.float32, eval_n, "eval"),
+                                  (B_TRAIN, dtype, step_n, "step")):
+                ms = time_forward(lib, B, H, W, C, heads, dt, shift, gen, iters)
+                if tag == "eval":
+                    per_fwd += ms * n / 2
+                else:
+                    per_step += ms * n / 2
+                print(f"{label}, {name}: forward {H}x{W} C={C} h={heads} B={B} "
+                      f"{str(dt)[6:]} shift={shift} ({tag}): {ms:.4f} ms", flush=True)
+    print(f"{label}, {name}: {per_fwd:.2f} ms per eval forward (B={EVAL_B}, fp32, 40 launches), "
+          f"{per_step:.2f} ms per training step (B={B_TRAIN}, step dtypes, 320 launches)",
+          flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--source", type=Path, default=sb._SOURCE,
-                    help="the swin_block.cu to take apart (default: this checkout's)")
+    ap.add_argument("--direction", choices=("bwd", "fwd"), default="bwd")
+    ap.add_argument("--source", type=Path, nargs="+", default=[sb._SOURCE],
+                    help="the swin_block.cu sources to take apart (default: this checkout's)")
+    ap.add_argument("--whole", action="store_true",
+                    help="time each source unchanged, without the copies with parts removed")
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -184,12 +308,20 @@ def main(argv=None) -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(smi, flush=True)
-    src = args.source.read_text()
-    new = "swin_block_bwd_kernel<" not in src
-    copies = variants(src)
+    copies = []  # (source, name of the copy, text)
+    for source in args.source:
+        src = source.read_text()
+        found = ({"unchanged": src} if args.whole else
+                 forward_variants(src) if args.direction == "fwd" else variants(src))
+        copies += [(source, name, text) for name, text in found.items()]
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(copies)) as pool:
-        libs = list(pool.map(lambda item: _build(item, Path(tmp)), enumerate(copies.values())))
-        for name, so in zip(copies, libs):
+        libs = list(pool.map(lambda item: _build((item[0], item[1][2]), Path(tmp)),
+                             enumerate(copies)))
+        for (source, name, text), so in zip(copies, libs):
+            if args.direction == "fwd":
+                _forward_main(name, ctypes.CDLL(str(so)), source.name, args.iters)
+                continue
+            new = "swin_block_bwd_kernel<" not in text
             lib = ctypes.CDLL(str(so))
             gen = torch.Generator(device="cuda").manual_seed(0)
             step = 0.0
@@ -197,10 +329,10 @@ def main(argv=None) -> None:
                 for shift in (0, 4):
                     ms = time_shape(lib, new, H, W, C, heads, dtype, shift, gen, args.iters)
                     step += ms * launches / 2
-                    print(f"{args.source.name} {'five kernels' if new else 'per-window kernel'}, "
+                    print(f"{source.name} {'five kernels' if new else 'per-window kernel'}, "
                           f"{name}: {H}x{W} C={C} h={heads} B={B} {str(dtype)[6:]} "
                           f"shift={shift}: {ms:.4f} ms", flush=True)
-            print(f"{args.source.name}, {name}: {step:.2f} ms per training step (launch-weighted)",
+            print(f"{source.name}, {name}: {step:.2f} ms per training step (launch-weighted)",
                   flush=True)
 
 

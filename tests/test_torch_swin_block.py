@@ -15,8 +15,12 @@ the JAX package's.
   the jitted JAX estimator with ``fused_block`` (flows 1e-4, masks 1e-5);
 * ``level_impl`` vs the JAX ``_level_impl``; the argument checks;
 * on the card: the kernel vs the plain version at the six block shapes of
-  the shipped estimator, what the kernel refuses, and that a grad-requiring
-  input runs the backward kernel (skips here).
+  the shipped estimator (B = 1 and 2, both shifts, both dtypes), the same
+  bits from two launches, tensor-core instructions in the bf16 forward's
+  machine code and none in the fp32 one, the plan's shared memory and
+  blocks per SM against the library's and the card's, what the kernel
+  refuses, and that a grad-requiring input runs the backward kernel (skips
+  here).
 
 JAX is imported inside the tests that use it, so that the card's tests run
 where JAX is not installed:
@@ -323,12 +327,13 @@ SHIPPED = [(160, 288, 24, 3), (80, 144, 48, 3), (40, 72, 96, 3), (80, 144, 48, 1
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 2])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shift", [0, 4])
 @pytest.mark.parametrize("shape", SHIPPED, ids=[f"{h}x{w}c{c}h{n}" for h, w, c, n in SHIPPED])
-def test_cuda_kernel_matches_plain(cuda_device, shape, shift, dtype):
+def test_cuda_kernel_matches_plain(cuda_device, shape, shift, dtype, B):
     H, W, C, heads = shape
-    x, params, mask = _inputs(7, 2, H, W, C, heads, 3 * C, shift)
+    x, params, mask = _inputs(7, B, H, W, C, heads, 3 * C, shift)
     args = (torch.from_numpy(x).to(cuda_device, getattr(torch, dtype)),
             _port_params(params, cuda_device),
             None if mask is None else torch.from_numpy(mask).to(cuda_device))
@@ -340,6 +345,49 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, shift, dtype):
     assert got.dtype == want.dtype and got.shape == want.shape
     assert bool(torch.isfinite(got).all())
     assert _rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHIPPED, ids=[f"{h}x{w}c{c}h{n}" for h, w, c, n in SHIPPED])
+def test_cuda_forward_is_deterministic(cuda_device, shape, dtype):
+    """Two launches on the same inputs give the same bits (no atomics, fixed
+    summation order)."""
+    H, W, C, heads = shape
+    x, params, mask = _inputs(9, 2, H, W, C, heads, 3 * C, 4)
+    args = (torch.from_numpy(x).to(cuda_device, getattr(torch, dtype)),
+            _port_params(params, cuda_device), torch.from_numpy(mask).to(cuda_device))
+    with torch.no_grad():
+        a = sb.swin_block(*args, num_heads=heads, shift=4)
+        b = sb.swin_block(*args, num_heads=heads, shift=4)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_forward_tensor_cores(cuda_device):
+    """Every forward instantiation is in the library; the bf16 ones hold
+    tensor-core instructions (HMMA), the fp32 ones none (TF32 off)."""
+    counts = sb.forward_tensor_core_instructions()
+    want = {(dt, C, hd) for dt in ("float32", "bfloat16") for C in sb.CHANNELS
+            for hd in (4, 8, 16, 32) if hd <= C // 3}
+    assert set(counts) == want
+    for (dt, C, hd), n in counts.items():
+        assert (n > 0) == (dt == "bfloat16"), (dt, C, hd, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHIPPED, ids=[f"{h}x{w}c{c}h{n}" for h, w, c, n in SHIPPED])
+def test_cuda_forward_plan_matches_library(cuda_device, shape, dtype):
+    """The plan's shared memory is the library's, and the card holds two or
+    more blocks per SM, at C = 96 too, and no more than the plan's shared
+    memory and threads allow (the registers may allow fewer)."""
+    H, W, C, heads = shape
+    dt = getattr(torch, dtype)
+    plan = sb.forward_plan(torch.empty((8, H, W, C), dtype=dt), heads, 3 * C)
+    assert sb.shared_memory_bytes(C, 3 * C, dt) == plan["smem"]
+    assert 2 <= sb.forward_blocks_per_sm(C, heads, dt) <= plan["blocks_per_sm"]
 
 
 @pytest.mark.gpu

@@ -6,16 +6,25 @@
 Phases, each printing its results; any failure exits non-zero:
 
 1. device: a CUDA card or fail; its name, count and power limit; TF32 off.
-2. build: the window-attention kernel from ``dmhomo_torch/csrc/`` with nvcc
-   for sm_90a; ptxas registers and spills, and each variant's dynamic
-   shared memory.
+2. build: the window-attention kernels from ``dmhomo_torch/csrc/`` with nvcc
+   for sm_90a; ptxas registers and spills and the dynamic shared memory of
+   every instantiation (forward: dtype x head dim x mask; backward: dtype x
+   head dim; the dbias reduction); then, in their machine code (cuobjdump's
+   SASS), the tensor-core instructions of each (a bf16 one without any, or
+   an fp32 one with any, fails) and the atomic instructions of the backward
+   and its reduction (any one fails).
 3. kernel vs plain: the kernel and its plain PyTorch version at every
    window-attention shape of the shipped HEM estimator (B=32), with and
-   without the SW-MSA mask, fp32 and bf16: max abs error against the stated
-   tolerance, and CUDA-event times of the kernel, the plain version and one
+   without the SW-MSA mask, fp32 and bf16: each shape's plan (the
+   library's, logged; ``launch_plan`` must equal it), max abs error against the stated tolerance, and CUDA-event
+   times of the kernel, the plain version and one
    ``scaled_dot_product_attention`` call (a yardstick only), beside the
    least time the card could take (bytes over 3.35 TB/s or flops over the
-   dtype's peak).
+   dtype's peak); then the kernel at the training step's shapes (B=8, bf16,
+   with and without the mask): error, its device time by torch.profiler
+   (the calls' host time exceeds it at some of these shapes; CUDA events
+   over the calls beside it) and bound, weighted by each shape's launches
+   per step as phase 8 counts them.
 4. slice: the shipped-config estimator with seeded random weights through
    ``eval_forward`` on 32 synthetic pairs (numpy, from ``--seed``): finite
    point errors, exactly 40 kernel launches per forward, batch time, pairs/s
@@ -30,12 +39,15 @@ Phases, each printing its results; any failure exits non-zero:
    and dbias against the stated tolerances, and CUDA-event times of the
    kernel, the plain backward and one yardstick (``torch.autograd.grad``
    through one ``scaled_dot_product_attention`` call whose additive bias
-   requires grad; the backend's kernels are printed), beside the bound.
+   requires grad; the backend's kernels are printed), beside the bound;
+   each shape's plan as in phase 3.  Per step, each shape's time weighted
+   by its launches as phase 8 counts them.
 8. training slice: ``HEMTrainer`` at the shipped config (bf16, grad_accum
    4, B=32) on 32 synthetic 360x640 pairs (numpy, from ``--seed``): a few
    warm-up steps, then timed steps; the loss is finite and falls, exactly
-   160 forward and 160 backward kernel launches per step; step ms, pairs/s
-   and peak memory.
+   160 forward and 160 backward kernel launches per step, counted by shape
+   (the weights of phases 3 and 7 per step); step ms, pairs/s and peak
+   memory.
 9. training card vs CPU: one fp32 step's loss and gradients (grad_accum 1,
    2 pairs at 320x576, the same weights, layer scales 0.5) on the card
    (kernels) and on the CPU (plain versions), each gradient held against
@@ -288,6 +300,26 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profiled_ms(fn, iters: int, name_part: str) -> float:
+    """Device time per call of the kernels whose name holds ``name_part``,
+    by torch.profiler over ``iters`` calls after one warm-up: the kernel's
+    own time where the calls' host time exceeds it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type.name == "CUDA" and name_part in e.key)
+    if total <= 0:
+        raise SystemExit(f"the profiler saw no {name_part} kernel")
+    return total / 1e3 / iters
+
+
 def attention_shapes(model, batch: int):
     """Window-attention launch shapes of one estimator forward, from the
     model's Swin blocks: one entry per (encoder, sub-level) with its launch
@@ -361,6 +393,8 @@ def phase_build():
     parallel), then reports the window-attention one."""
     from concurrent.futures import ThreadPoolExecutor
 
+    import torch
+
     from dmhomo_torch.ops import linear_attention as la
     from dmhomo_torch.ops import swin_block as sb
     from dmhomo_torch.ops import window_attention as wa
@@ -372,21 +406,78 @@ def phase_build():
         log(f"[build] {os.path.relpath(lib)}: all built in {time.perf_counter() - t0:.1f} s")
     entry = None
     for line in wa.build_log().splitlines():
-        m = re.search(r"window_attention_(fwd|bwd)_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E",
-                      line)
-        if m:  # window_attention_{fwd,bwd}_kernel<T, HD, MASK>
-            dt = "fp32" if m.group(2) == "f" else "bf16"
-            new = f"{m.group(1)} {dt} hd={m.group(3)} mask={m.group(4)}"
+        key = wa.kernel_key(line)
+        if key is not None or "window_attention_dbias_kernel" in line:
+            # window_attention_fwd_kernel<T, HD, MASK>, the fp32 row kernel
+            # window_attention_fwd_rows_kernel<HD, MASK>, window_attention_bwd_kernel<T,
+            # HD> (the mask a runtime argument), window_attention_dbias_kernel
+            if key is None:
+                new = "dbias reduction"
+            else:
+                direction, dt, hd, mask = key
+                new = f"{direction} {dt} hd={hd}" + ("" if mask is None else f" mask={int(mask)}")
             if new != entry:  # ptxas names each kernel on two lines
-                smem = wa.shared_memory_bytes(int(m.group(3)), m.group(4) == "1",
-                                              backward=m.group(1) == "bwd")
+                if key is None:
+                    smem = 0
+                else:  # what the library asks for at this instantiation (shapes only)
+                    smem = wa.library_plan(
+                        torch.empty(1, 64, 3 * hd, dtype=getattr(torch, dt)), 1,
+                        backward=direction == "bwd",
+                        mask=torch.empty(1, 64, 64) if mask else None)["smem"]
                 log(f"[build] {new}: {smem} bytes dynamic shared memory")
             entry = new
         elif entry and ("registers" in line or "spill" in line):
             log(f"[build] {entry}: {line.split(':', 1)[-1].strip()}")
 
 
-def phase_kernels(shapes, dev, seed: int):
+def phase_window_sass():
+    """Tensor-core instructions of every window-attention instantiation (a
+    bf16 one without any, or an fp32 one with any, fails) and atomic
+    instructions of every window-attention kernel, the backward's dbias
+    reduction included (any one fails), in the library's machine code.
+    Returns the tensor-core counts by instantiation and the atomic counts
+    summed by kernel."""
+    from dmhomo_torch.ops import window_attention as wa
+
+    tc = wa.tensor_core_instructions()
+    bad = []
+    for (direction, dt, hd, mask), n in sorted(tc.items(), key=str):
+        m = "" if mask is None else f" mask={int(mask)}"
+        log(f"[build-sass] {direction} {dt} hd={hd}{m}: {n} tensor-core instructions")
+        if (n > 0) != (dt == "bfloat16"):
+            bad.append((direction, dt, hd, mask, n))
+    atomics = wa.atomic_instructions_by_kernel()
+    for name, n in atomics.items():
+        log(f"[build-sass] {name[:90]}: {n} atomic instructions")
+    if bad or any(atomics.values()):
+        raise SystemExit(f"window-attention machine code: tensor cores where they should not be "
+                         f"or missing {bad}; atomics {atomics}")
+    by_kernel = {}
+    for name, n in atomics.items():
+        kernel = re.search(r"window_attention_(?:fwd_rows|fwd|bwd|dbias)_kernel", name).group(0)
+        by_kernel[kernel] = by_kernel.get(kernel, 0) + n
+    return ({f"{d} {dt} hd={hd}" + ("" if mk is None else f" mask={int(mk)}"): n
+             for (d, dt, hd, mk), n in tc.items()}, by_kernel)
+
+
+def checked_plan(qkv, heads, mask, backward: bool) -> dict:
+    """The library's plan of a window-attention launch (what it launches
+    with); fails unless ``launch_plan`` gives the same, key for key."""
+    from dmhomo_torch.ops.window_attention import launch_plan, library_plan
+
+    got = library_plan(qkv, heads, backward, mask)
+    want = launch_plan(qkv, heads, backward, mask)
+    if got != want:
+        raise SystemExit(f"window-attention plan {want} is not the library's {got}")
+    return got
+
+
+def plan_text(p: dict) -> str:
+    """One window-attention launch plan, for the log."""
+    return " ".join(f"{k}={v}" for k, v in p.items())
+
+
+def phase_kernels(shapes, dev, seed: int, step_shapes):
     import torch
     import torch.nn.functional as F
 
@@ -407,6 +498,8 @@ def phase_kernels(shapes, dev, seed: int):
             for masked in (False, True):
                 mask = mask_full if masked else None
                 kw = dict(num_heads=h)
+                log(f"[plan] fwd {s['level']} Bn={Bn} {dtype} mask={int(masked)}: "
+                    f"{plan_text(checked_plan(qkv, h, mask, False))} (launch_plan = library)")
                 got = window_attention(qkv, bias, mask, **kw)
                 want = window_attention_reference(qkv, bias, mask, **kw)
                 torch.cuda.synchronize()
@@ -440,7 +533,46 @@ def phase_kernels(shapes, dev, seed: int):
                 del q, k, v, am
         del qkv32, qkv
         torch.cuda.empty_cache()
-    return results, worst
+    # the training step's forward launches: B=8, bf16 (autocast hands the
+    # kernel bf16 qkv at every shape), four microbatches a step
+    step_rows = []
+    for s in step_shapes:
+        Bn, C, h, nW = s["Bn"], s["C"], s["heads"], s["nW"]
+        qkv = torch.randn(Bn, 64, 3 * C, generator=gen, device=dev).to(torch.bfloat16)
+        bias = 0.5 * torch.randn(h, 64, 64, generator=gen, device=dev)
+        mask_full = torch.from_numpy(
+            shifted_window_mask(s["H"], s["W"], s["ws"], s["shift"])).to(dev)
+        for masked in (False, True):
+            mask = mask_full if masked else None
+            kw = dict(num_heads=h)
+            plan = checked_plan(qkv, h, mask, False)
+            got = window_attention(qkv, bias, mask, **kw)
+            want = window_attention_reference(qkv, bias, mask, **kw)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            ok = err <= ATTN_TOL["bfloat16"] and bool(torch.isfinite(got).all())
+            worst["bfloat16"] = max(worst["bfloat16"], err)
+            # at B=8 a call's host time can exceed the kernel's: the kernel's own
+            # time from the profiler, the calls' rate from CUDA events beside it
+            call = lambda: window_attention(qkv, bias, mask, **kw)  # noqa: E731
+            ms = profiled_ms(call, 20, "window_attention_fwd")
+            event_ms = cuda_ms(call, iters=20)
+            b_ms, b_by = bound(qkv, bias, mask)
+            # launches_per_step: counted in phase 8's timed steps
+            r = {"level": s["level"], "Bn": Bn, "C": C, "heads": h, "hd": s["hd"], "nW": nW,
+                 "dtype": "bfloat16", "mask": masked, "max_abs_err": err,
+                 "tol": ATTN_TOL["bfloat16"], "ms": ms, "event_ms": event_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "plan": plan}
+            step_rows.append(r)
+            log(f"[kernel-step] {s['level']} C={C} h={h} hd={s['hd']} Bn={Bn} bfloat16 "
+                f"mask={int(masked)}: err={err:.3g} (tol {ATTN_TOL['bfloat16']:g}) ms={ms:.4f} "
+                f"(profiled; CUDA events over the calls {event_ms:.4f}) bound_ms={b_ms:.4f} "
+                f"({b_by}); library plan {plan_text(plan)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"kernel disagrees with its plain version: {r}")
+        del qkv, got, want
+        torch.cuda.empty_cache()
+    return results, worst, step_rows
 
 
 def eval_pairs(cfg, dev, batch: int, seed: int):
@@ -588,6 +720,9 @@ def phase_backward_kernels(shapes, dev, seed: int):
                 mask = mask_full if masked else None
                 args = (qkv, bias, mask, gout)
                 kw = dict(num_heads=h)
+                plan = checked_plan(qkv, h, mask, True)
+                log(f"[plan] bwd {s['level']} Bn={Bn} {dtype} mask={int(masked)}: "
+                    f"{plan_text(plan)} (launch_plan = library)")
                 dqkv, dbias = window_attention_backward(*args, **kw)
                 want_dqkv, want_dbias = window_attention_backward_reference(*args, **kw)
                 torch.cuda.synchronize()
@@ -623,14 +758,12 @@ def phase_backward_kernels(shapes, dev, seed: int):
                                    iters=3, warmup=1)
                 lib_ms = cuda_ms(sdpa, iters=5, warmup=1)
                 b_ms, b_by = bound(qkv, bias, mask, backward=True)
-                per_step = (s["masked_launches"] if masked else s["plain_launches"]) * (
-                    BATCH // MICROBATCH)
+                # launches_per_step: counted in phase 8's timed steps
                 r = {"level": s["level"], "Bn": Bn, "C": C, "heads": h, "hd": hd, "nW": nW,
-                     "dtype": dtype, "mask": masked, "launches_per_step": per_step,
-                     "max_abs_err_dqkv": errs["dqkv"], "max_abs_err_dbias": errs["dbias"],
+                     "dtype": dtype, "mask": masked, "max_abs_err_dqkv": errs["dqkv"], "max_abs_err_dbias": errs["dbias"],
                      "rel_err": max(errs["dqkv_rel"], errs["dbias_rel"]),
                      "tol": BWD_TOL[dtype], "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by, "plan": plan}
                 results.append(r)
                 log(f"[bwd-kernel] {s['level']} C={C} h={h} hd={hd} nW={nW} Bn={Bn} {dtype} "
                     f"mask={int(masked)}: err dqkv={errs['dqkv']:.3g} dbias={errs['dbias']:.3g} "
@@ -677,8 +810,9 @@ def phase_train(dev, seed: int):
     torch.cuda.reset_peak_memory_stats()
     for step in range(WARMUP_STEPS + TIMED_STEPS):
         if step == WARMUP_STEPS:  # count the timed steps of the main path only
-            window_attention.launches = 0
-            window_attention_backward.launches = 0
+            for fn in (window_attention, window_attention_backward):
+                fn.launches = 0
+                fn.launches_by_shape.clear()
         f0, b0 = window_attention.launches, window_attention_backward.launches
         t0 = time.perf_counter()
         out = trainer.train_step(batch)
@@ -690,6 +824,8 @@ def phase_train(dev, seed: int):
         log(f"[train] step {step + 1}: loss {loss:.5f} (nll {float(out['nll']):.5f}), "
             f"{times[-1]:.1f} ms, launches fwd/bwd {launches[-1][0]}/{launches[-1][1]}")
     fwd_total, bwd_total = window_attention.launches, window_attention_backward.launches
+    by_shape = {"fwd": dict(window_attention.launches_by_shape),
+                "bwd": dict(window_attention_backward.launches_by_shape)}
     peak = torch.cuda.max_memory_allocated()
     timed = times[WARMUP_STEPS:]
     step_ms = float(np.median(timed))
@@ -711,7 +847,26 @@ def phase_train(dev, seed: int):
         f"window-attention launches over {TIMED_STEPS} timed steps: {fwd_total} forward, "
         f"{bwd_total} backward = {per_step} + {per_step} per step")
     return {"trainer": trainer, "batch": batch, "step_ms": step_ms, "peak": peak,
-            "fwd_launches": fwd_total, "bwd_launches": bwd_total}
+            "fwd_launches": fwd_total, "bwd_launches": bwd_total, "by_shape": by_shape}
+
+
+def window_key(r) -> tuple:
+    """A row's key in the window-attention wrappers' ``launches_by_shape``."""
+    return (r["Bn"], r["C"], r["heads"], r["nW"] if r["mask"] else 0, r["dtype"])
+
+
+def count_step_launches(rows, by_shape: dict, want: int, tag: str):
+    """Each row's launches per training step, as the wrappers counted them
+    over phase 8's timed steps; fails unless the rows cover all ``want``
+    launches of a step."""
+    for r in rows:
+        r["launches_per_step"] = by_shape.get(window_key(r), 0) / TIMED_STEPS
+    if sum(r["launches_per_step"] for r in rows) != want:
+        raise SystemExit(f"{tag} launches per shape {by_shape} do not cover the rows "
+                         f"{[window_key(r) for r in rows]}")
+    log(f"[{tag}] launches per training step, counted: " + ", ".join(
+        f"{r['level']} {r['dtype']} mask={int(r['mask'])} x{r['launches_per_step']:g}"
+        for r in rows if r["launches_per_step"]))
 
 
 def phase_train_card_vs_cpu(dev, seed: int, attn_impl: str = "auto",
@@ -1670,6 +1825,7 @@ def main(argv=None):
 
     dev, name, smi = phase_device()
     phase_build()
+    wa_sass, wa_atomics = phase_window_sass()
 
     import torch
 
@@ -1682,7 +1838,7 @@ def main(argv=None):
     shapes = attention_shapes(model, BATCH)
     train_shapes = attention_shapes(model, MICROBATCH)
     expected = sum(s["plain_launches"] + s["masked_launches"] for s in shapes)
-    results, worst = phase_kernels(shapes, dev, args.seed)
+    results, worst, step_rows = phase_kernels(shapes, dev, args.seed, train_shapes)
     pairs = eval_pairs(model.config, dev, BATCH, args.seed)
     counts, forwards, _, batch_ms, peak = phase_slice(model, pairs, {"window-attention": wa_fwd})
     launches = counts["window-attention"]
@@ -1700,6 +1856,9 @@ def main(argv=None):
     dev_ms, idle, attn_ms = phase_train_profile(train["trainer"], train["batch"],
                                                 train["step_ms"])
     train_batch = train.pop("batch")
+    per_step_launches = 40 * (BATCH // MICROBATCH)
+    count_step_launches(step_rows, train["by_shape"]["fwd"], per_step_launches, "kernel-step")
+    count_step_launches(bwd_results, train["by_shape"]["bwd"], per_step_launches, "bwd-kernel")
     del train["trainer"]
     torch.cuda.empty_cache()
 
@@ -1752,6 +1911,13 @@ def main(argv=None):
         "unit": f"sum over the {expected} launches of one estimator forward, B={BATCH}, fp32",
         "max_abs_err_bf16": worst["bfloat16"],
         "launches_train": train["fwd_launches"],
+        # per training step: the 160 launches at B=8, bf16
+        "ms_per_step": sum(r["ms"] * r["launches_per_step"] for r in step_rows),
+        "bound_ms_per_step": sum(r["bound_ms"] * r["launches_per_step"] for r in step_rows),
+        # counted in the built machine code; phase 2 fails on any
+        "atomic_instructions": {k: n for k, n in wa_atomics.items() if "_fwd_" in k},
+        "tensor_core_instructions": {k: n for k, n in wa_sass.items() if k.startswith("fwd")},
+        "step_shapes": step_rows,
         "shapes": results,
     }
     bwd_kernel = {
@@ -1771,11 +1937,17 @@ def main(argv=None):
         "max_abs_err_fp32": bwd_worst[("float32", "dqkv")],
         "max_abs_err_dbias_fp32": bwd_worst[("float32", "dbias")],
         "profiled_ms_per_step": attn_ms["bwd"],
+        "ms_per_step": per_step("ms"),
+        "bound_ms_per_step": per_step("bound_ms"),
+        # counted in the built machine code; phase 2 fails on any
+        "atomic_instructions": {k: n for k, n in wa_atomics.items() if "_fwd_" not in k},
+        "tensor_core_instructions": {k: n for k, n in wa_sass.items() if k.startswith("bwd")},
         "shapes": bwd_results,
     }
     log(f"[summary] eval slice {1e3 * BATCH / batch_ms:.2f} pairs/s, batch {batch_ms:.2f} ms, "
         f"peak {peak / 2**30:.2f} GiB; window attention {kernel['ms']:.3f} ms per forward "
-        f"(bound {kernel['bound_ms']:.3f}); card-vs-cpu {json.dumps(diffs)}")
+        f"(bound {kernel['bound_ms']:.3f}), {kernel['ms_per_step']:.3f} per training step "
+        f"(bound {kernel['bound_ms_per_step']:.3f}); card-vs-cpu {json.dumps(diffs)}")
     log(f"[summary] training {1e3 * BATCH / train['step_ms']:.2f} pairs/s, step "
         f"{train['step_ms']:.2f} ms, peak {train['peak'] / 2**30:.2f} GiB, device idle "
         f"{100 * idle:.1f}%; backward kernel {bwd_kernel['ms']:.3f} ms per step (bound "

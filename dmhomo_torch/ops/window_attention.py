@@ -13,7 +13,11 @@ TPU kernels ``dmhomo_tpu/ops/window_attention.py::_fwd_kernel`` and
 
 The backward recomputes ``e`` and follows ``_bwd_kernel`` step by step (see
 :func:`window_attention_backward_reference`); ``dbias`` is fp32, summed
-over every window.
+over every window.  On the card each block of the backward sums its head's
+``dbias`` over a chunk of windows into a slab of its own, and a second
+launch adds the slabs in a fixed order (:func:`window_attention_backward_split_reference`
+is that split as plain PyTorch); :func:`launch_plan` gives both kernels'
+grids, shared memory and partials from the shapes alone.
 
 The CUDA library is built from the sources in ``dmhomo_torch/csrc/`` with
 ``nvcc`` at first use into ``build/kernels/`` of the checkout, and called
@@ -25,19 +29,37 @@ the kernels or raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
+import re
 from pathlib import Path
 
 import torch
 
-from dmhomo_torch.ops.build import CSRC, build_library
+from dmhomo_torch.ops.build import CSRC, atomic_instructions, build_library
+from dmhomo_torch.ops.build import tensor_core_instructions as tensor_core_instructions_in
 
 CLIP = 60.0
 WINDOW_TOKENS = 64  # 8x8 windows
 HEAD_DIMS = (4, 8, 16, 32)
 
 _SOURCE = CSRC / "window_attention.cu"
+
+# the launch plan's constants, as csrc/window_attention.cu has them
+SMS = 132  # streaming multiprocessors of an H100 SXM
+SMEM_PER_SM = 233472  # bytes of shared memory an SM shares among its blocks
+SMEM_PER_BLOCK = 232448  # the most one block may ask for
+SMEM_RESERVED = 1024  # bytes the card keeps per resident block
+TEAM = 128  # four warps, 16 query rows each
+ELD = WINDOW_TOKENS + 4  # row stride of the backward's fp32 e and dsim tiles
+BLD = WINDOW_TOKENS + 8  # of a bias or mask tile
+FWD_MAX_WINDOWS = 32  # windows a forward block takes at most
+FWD_WAVES = 2  # forward blocks per SM slot the chunks aim at
+ROW_GROUPS = 4  # the fp32 row kernel (hd >= 8): windows in flight per block
+RLD = WINDOW_TOKENS + 1  # its bias and mask rows
+GROUP_BYTES = {4: 32, 2: 16}  # q (k, v) bytes per token of a forward head group, by itemsize
+DBIAS_PARTS = 4  # ranges of slabs the dbias reduction sums apart, then adds
 
 
 def _heads(t: torch.Tensor, h: int) -> torch.Tensor:
@@ -94,6 +116,12 @@ def window_attention_backward_reference(qkv: torch.Tensor, bias: torch.Tensor,
     dbias (h, N, N) fp32 summed over all windows), step by step as the
     Pallas ``_bwd_kernel``.  Runs with autocast off.
     """
+    dqkv, dsim = _backward_terms(qkv, bias, mask, gout, num_heads)
+    return dqkv, dsim.sum(dim=0)
+
+
+def _backward_terms(qkv, bias, mask, gout, num_heads):
+    """dqkv and the per-window dsim (Bn, h, N, N) fp32 of the plain backward."""
     dt = qkv.dtype
     hd = qkv.shape[-1] // 3 // num_heads
     with torch.autocast(qkv.device.type, enabled=False):
@@ -114,7 +142,134 @@ def window_attention_backward_reference(qkv: torch.Tensor, bias: torch.Tensor,
         dk = torch.matmul(dsim.transpose(-1, -2), q32)
         dv = torch.matmul(e.transpose(-1, -2), gg_io)
         dqkv = torch.cat([_tokens(t.to(dt)) for t in (dq, dk, dv)], dim=-1)
-        return dqkv, dsim.sum(dim=0)
+        return dqkv, dsim
+
+
+def dbias_partials_reference(dsim: torch.Tensor, windows_per_block: int) -> torch.Tensor:
+    """The backward blocks' dbias slabs: (chunks, h, N, N), slab c the sum of
+    dsim over windows c * windows_per_block .. (+ windows_per_block), added
+    in window order from 0 as each block sums them."""
+    Bn = dsim.shape[0]
+    chunks = -(-Bn // windows_per_block)
+    out = torch.zeros((chunks,) + tuple(dsim.shape[1:]), dtype=torch.float32)
+    for i in range(windows_per_block):
+        idx = torch.arange(chunks) * windows_per_block + i
+        keep = idx < Bn
+        out[keep] = out[keep] + dsim[idx[keep]]
+    return out
+
+
+def reduce_dbias_partials(partials: torch.Tensor) -> torch.Tensor:
+    """The slabs summed as the reduction launch sums them: ``DBIAS_PARTS``
+    contiguous ranges of slabs, each added in slab order from 0, then the
+    ranges' sums added in order.  One slab is taken as it is (no launch)."""
+    P = partials.shape[0]
+    if P == 1:
+        return partials[0].clone()
+    span = -(-P // DBIAS_PARTS)
+    sums = []
+    for part in range(DBIAS_PARTS):
+        acc = torch.zeros_like(partials[0])
+        for c in range(part * span, min(P, (part + 1) * span)):
+            acc = acc + partials[c]
+        sums.append(acc)
+    total = sums[0]
+    for acc in sums[1:]:
+        total = total + acc
+    return total
+
+
+def window_attention_backward_split_reference(qkv: torch.Tensor, bias: torch.Tensor,
+                                              mask: "torch.Tensor | None", gout: torch.Tensor,
+                                              *, num_heads: int, windows_per_block: int):
+    """The plain backward with dbias summed as the card sums it: per-chunk
+    slabs (:func:`dbias_partials_reference`), then the fixed-order reduction
+    (:func:`reduce_dbias_partials`).  dqkv is the reference's."""
+    dqkv, dsim = _backward_terms(qkv, bias, mask, gout, num_heads)
+    return dqkv, reduce_dbias_partials(dbias_partials_reference(dsim, windows_per_block))
+
+
+def _fwd_rows(hd: int, itemsize: int) -> bool:
+    """Whether the forward takes the fp32 row kernel (a thread per query
+    row): fp32 from hd 8 up."""
+    return itemsize == 4 and hd >= 8
+
+
+def _fwd_heads(hd: int, itemsize: int) -> int:
+    """Heads per forward block: their q (k, v) columns per token fill
+    ``GROUP_BYTES`` (a 32-byte sector in fp32, half of one in bf16) for
+    small heads; one head from that width up (and in the row kernel)."""
+    group = GROUP_BYTES[itemsize]
+    if _fwd_rows(hd, itemsize) or hd * itemsize >= group:
+        return 1
+    return group // (hd * itemsize)
+
+
+def _stage_ld(width: int, bf16: bool) -> int:
+    """Row stride (elements) of a forward block's staged q, k or v slice."""
+    return width + 8 if bf16 or width != 8 else 8
+
+
+def _smem_blocks(smem: int) -> int:
+    return SMEM_PER_SM // (smem + SMEM_RESERVED)
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_plan(Bn: int, C: int, heads: int, nW: int, itemsize: int, backward: bool) -> dict:
+    N = WINDOW_TOKENS
+    hd = C // heads
+    if backward:
+        # bias tile; q, k, v, gout and round(gg) of one head (fp32); the e
+        # and dsim tiles and the next window's q, k, v, gout in the I/O dtype
+        smem = (4 * (N * BLD + 5 * N * (hd + 4))
+                + itemsize * (2 * N * (N + 8 if itemsize == 2 else ELD) + 4 * N * hd))
+        per_sm = min(_smem_blocks(smem), 3 if hd < 32 else 2)  # and the launch bounds
+        chunks = min(max(SMS * per_sm // heads, 1), Bn)  # the card's slots filled once
+        per = -(-Bn // chunks)
+        chunks = -(-Bn // per)
+        return {"grid": (heads, chunks), "threads": TEAM, "smem": smem, "heads_per_block": 1,
+                "windows_per_block": per, "blocks_per_sm": per_sm, "partials": chunks}
+    hg = _fwd_heads(hd, itemsize)
+    groups = -(-heads // hg)
+    rows = _fwd_rows(hd, itemsize)
+    if rows:  # the head's bias tile, the mask row, k and v of ROW_GROUPS windows
+        threads = ROW_GROUPS * N
+        smem = 4 * ((2 if nW else 1) * N * RLD + ROW_GROUPS * 2 * N * hd)
+    else:  # the group's bias tiles and the mask row (fp32), two windows' q, k, v slices
+        threads = 2 * TEAM if hg > 1 else TEAM
+        smem = (4 * (hg + (1 if nW else 0)) * N * BLD
+                + itemsize * 2 * 3 * N * _stage_ld(hg * hd, itemsize == 2))
+    per_sm = min(_smem_blocks(smem), 2048 // threads)
+    n_mask = nW if nW else 1
+    n_per = Bn // n_mask
+    unit = ROW_GROUPS if rows else 1  # the row kernel takes whole rounds of windows
+    want = n_mask * n_per * groups // (SMS * per_sm * FWD_WAVES)
+    want = unit if want < unit else (FWD_MAX_WINDOWS if want > FWD_MAX_WINDOWS
+                                     else want // unit * unit)
+    chunks = -(-n_per // want)
+    per = -(-n_per // chunks)
+    per = -(-per // unit) * unit
+    chunks = -(-n_per // per)
+    return {"grid": (n_mask * chunks, groups), "threads": threads, "smem": smem,
+            "heads_per_block": hg, "windows_per_block": per, "blocks_per_sm": per_sm,
+            "partials": 0}
+
+
+def launch_plan(qkv: torch.Tensor, num_heads: int, backward: bool = False,
+                mask: "torch.Tensor | None" = None) -> dict:
+    """How the forward (or backward) kernel launches for qkv (Bn, 64, 3C) on
+    the card, from the shapes alone, as ``csrc/window_attention.cu``
+    computes it: ``grid``, ``threads``, dynamic shared memory ``smem``
+    (bytes), ``heads_per_block``, ``windows_per_block``, ``blocks_per_sm``
+    by shared memory and the launch bounds (the registers may allow fewer),
+    and the backward's dbias ``partials`` (slabs, one per chunk of windows,
+    added by a second launch where there are more than one; 0 for the
+    forward).  The library computes its launches itself; a ``gpu`` test and
+    ``chip_smoke.py`` hold this plan to the library's (:func:`library_plan`)
+    key for key."""
+    Bn, _, C3 = qkv.shape
+    return _launch_plan(Bn, C3 // 3, num_heads, 0 if mask is None else mask.shape[0],
+                        qkv.element_size(), backward)
 
 
 def build() -> Path:
@@ -139,18 +294,77 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    for fn in (lib.dmh_window_attention_smem_bytes, lib.dmh_window_attention_bwd_smem_bytes):
-        fn.argtypes = [ctypes.c_int, ctypes.c_int]
-        fn.restype = ctypes.c_int
+    fn = lib.dmh_window_attention_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
     return lib
 
 
-def shared_memory_bytes(hd: int, masked: bool, backward: bool = False) -> int:
-    """Dynamic shared memory one block of the forward (or backward) kernel asks for."""
-    lib = _library()
-    if backward:
-        return lib.dmh_window_attention_bwd_smem_bytes(hd, int(masked))
-    return lib.dmh_window_attention_smem_bytes(hd, int(masked))
+_PLAN_KEYS = ("grid_x", "grid_y", "threads", "smem", "heads_per_block", "windows_per_block",
+              "blocks_per_sm", "partials")
+
+
+@functools.lru_cache(maxsize=None)
+def _library_plan(Bn: int, C: int, heads: int, nW: int, bf16: bool, backward: bool) -> dict:
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    err = _library().dmh_window_attention_plan(Bn, C, heads, nW, int(bf16), int(backward), out)
+    if err != 0:
+        raise RuntimeError(f"window attention plan refused: cudaError {err}")
+    plan = dict(zip(_PLAN_KEYS, out))
+    plan["grid"] = (plan.pop("grid_x"), plan.pop("grid_y"))
+    return plan
+
+
+def library_plan(qkv: torch.Tensor, num_heads: int, backward: bool = False,
+                 mask: "torch.Tensor | None" = None) -> dict:
+    """The plan the library launches with at these shapes, with the keys of
+    :func:`launch_plan`; only the shapes and dtype of ``qkv`` and ``mask``
+    are read, so they may lie on the CPU."""
+    Bn, _, C3 = qkv.shape
+    return _library_plan(Bn, C3 // 3, num_heads, 0 if mask is None else mask.shape[0],
+                         qkv.dtype == torch.bfloat16, backward)
+
+
+def tensor_core_instructions() -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in the built library's machine
+    code of each kernel instantiation: ``(direction, dtype, hd, mask)`` ->
+    count (``mask`` None for the backward, whose mask is a runtime
+    argument).  The bf16 kernels run their products on tensor cores, the
+    fp32 ones on CUDA cores (TF32 off)."""
+    out = {}
+    for name, n in tensor_core_instructions_in(build(), "window_attention_").items():
+        key = kernel_key(name)
+        if key is not None:
+            out[key] = n
+    if not any(k[0] == "bwd" for k in out) or not any(k[0] == "fwd" for k in out):
+        raise RuntimeError("the window-attention kernels are not in the library's machine code")
+    return out
+
+
+def atomic_instructions_by_kernel() -> dict:
+    """Atomic instructions in the built library's machine code of every
+    window-attention kernel (the forward's, the backward and its dbias
+    reduction): kernel name -> count."""
+    found = atomic_instructions(build(), "window_attention_")
+    if not all(any(part in n for n in found) for part in ("_fwd_", "_bwd_", "_dbias_")):
+        raise RuntimeError("the window-attention kernels are not in the library's machine code")
+    return found
+
+
+# window_attention_fwd_kernel<T, HD, MASK>, window_attention_fwd_rows_kernel<HD,
+# MASK> (fp32), window_attention_bwd_kernel<T, HD>
+_KERNEL_NAME = re.compile(
+    r"window_attention_(fwd|bwd)(?:_rows)?_kernelI(f|13__nv_bfloat16)?Li(\d+)E(?:Lb([01])E)?")
+
+
+def kernel_key(name: str):
+    """(direction, dtype, hd, mask or None) of a kernel's mangled name, or
+    None for the dbias reduction."""
+    m = _KERNEL_NAME.search(name)
+    if m is None:
+        return None
+    return (m.group(1), "bfloat16" if m.group(2) == "13__nv_bfloat16" else "float32",
+            int(m.group(3)), None if m.group(4) is None else m.group(4) == "1")
 
 
 def _check_cuda_args(qkv, bias, mask, num_heads):
@@ -207,7 +421,15 @@ def _forward(qkv, bias, mask, num_heads):
     if err != 0:
         raise RuntimeError(f"window attention kernel launch failed: cudaError {err}")
     window_attention.launches += 1
+    window_attention.launches_by_shape[_shape_key(qkv, num_heads, mask)] += 1
     return out
+
+
+def _shape_key(qkv, num_heads, mask) -> tuple:
+    """(Bn, C, heads, nW (0 without a mask), dtype name): the key of
+    ``launches_by_shape``."""
+    return (qkv.shape[0], qkv.shape[2] // 3, num_heads, 0 if mask is None else mask.shape[0],
+            str(qkv.dtype).split(".")[-1])
 
 
 def _scale_io(hd: int, dtype: torch.dtype) -> float:
@@ -220,9 +442,9 @@ def window_attention_backward(qkv: torch.Tensor, bias: torch.Tensor,
                               num_heads: int):
     """Window attention backward: (dqkv (Bn, 64, 3C), dbias (h, 64, 64) fp32).
 
-    CUDA tensors go through the hand-written kernel (``launches`` counts
-    each launch); CPU tensors through
-    :func:`window_attention_backward_reference`.
+    CUDA tensors go through the hand-written kernels (``launches`` counts
+    each call, ``launches_by_shape`` the same by :func:`_shape_key`); CPU
+    tensors through :func:`window_attention_backward_reference`.
     """
     if qkv.device.type == "cpu":
         return window_attention_backward_reference(qkv, bias, mask, gout, num_heads=num_heads)
@@ -233,9 +455,12 @@ def window_attention_backward(qkv: torch.Tensor, bias: torch.Tensor,
     Bn, N, C3 = qkv.shape
     C = C3 // 3
     dqkv = torch.empty_like(qkv)
-    dbias = torch.zeros((num_heads, N, N), dtype=torch.float32, device=qkv.device)
     hd = C // num_heads
     with torch.cuda.device(qkv.device):
+        # the blocks' dbias slabs, summed in a fixed order into slab 0 by the
+        # library's second launch
+        slabs = library_plan(qkv, num_heads, True, mask)["partials"]
+        dbias = torch.empty((slabs, num_heads, N, N), dtype=torch.float32, device=qkv.device)
         err = _library().dmh_window_attention_bwd(
             qkv.data_ptr(), bias.data_ptr(), mask.data_ptr() if mask is not None else None,
             gout.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(), Bn, C, num_heads,
@@ -244,10 +469,12 @@ def window_attention_backward(qkv: torch.Tensor, bias: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"window attention backward kernel launch failed: cudaError {err}")
     window_attention_backward.launches += 1
-    return dqkv, dbias
+    window_attention_backward.launches_by_shape[_shape_key(qkv, num_heads, mask)] += 1
+    return dqkv, dbias[0]  # the slabs' sum; autograd frees the buffer once it is taken
 
 
 window_attention_backward.launches = 0
+window_attention_backward.launches_by_shape = collections.Counter()
 
 
 class WindowAttentionFunction(torch.autograd.Function):
@@ -279,10 +506,12 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
     and bias.
 
     CUDA tensors go through the hand-written kernels (``launches`` counts
-    each forward launch, ``window_attention_backward.launches`` each
-    backward one); CPU tensors through the plain versions.
+    each forward call, ``window_attention_backward.launches`` each backward
+    one, and each has the same counts by shape in ``launches_by_shape``);
+    CPU tensors through the plain versions.
     """
     return WindowAttentionFunction.apply(qkv, bias, mask, num_heads)
 
 
 window_attention.launches = 0
+window_attention.launches_by_shape = collections.Counter()

@@ -137,9 +137,9 @@ def _rel_err(got, want):
 @pytest.mark.parametrize("hd", [4, 8, 16, 32])
 def test_cuda_backward_kernel_matches_plain(cuda_device, hd, with_mask, dtype):
     """Kernel vs plain backward on the card, through the autograd Function.
-    Tolerance relative to max(1, largest value): fp32 1e-5 (summation order;
-    dbias is summed with atomics in an order that changes from run to run),
-    bf16 2e-2 (a rounding of e, gg or dsim on the other side)."""
+    Tolerance relative to max(1, largest value): fp32 1e-5 (summation order:
+    dbias is summed per chunk of windows, then over the chunks), bf16 2e-2 (a
+    rounding of e, gg or dsim on the other side)."""
     rng = np.random.default_rng(hd)
     h = 3
     qkv, bias, mask, gout = _inputs(rng, 4 * 45, 45, h * hd, h, with_mask)

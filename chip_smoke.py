@@ -63,7 +63,8 @@ Phases, each printing its results; any failure exits non-zero:
     the shipped UNet (B=50, the CFG-doubled batch of 25; prenorm folded;
     the UNet's NCHW layout), fp32 and bf16: errors against the stated
     tolerances, and CUDA-event times of each pass (the wrapper's call, its
-    bf16 weight preparation included), its plain version and one cuBLAS
+    bf16 weight preparation included; the median of 5 bursts of 5 calls,
+    with their spread), its plain version and one cuBLAS
     ``x @ W_qkv`` (a yardstick only: no one PyTorch call computes linear
     attention), beside each pass's bound and the share of it reached; in
     bf16 the launch plan of each pass (loader, heads per block, ring), and
@@ -130,9 +131,39 @@ Phases, each printing its results; any failure exits non-zero:
     it in the timed steps (the rows must cover all 320 and 160), beside the
     forward's bound.
 21. whole-block training card vs CPU: phase 9 with ``attn_impl='fused_block'``.
+22. DGM training slice: ``DGMTrainer(DGMTrainConfig())`` as shipped (bf16,
+    global batch 128, 256x256, UNet dim 64, mults (1, 2, 4, 8), 5 classes,
+    seeded random weights) on synthetic conditions made on the card before
+    timing, with the fewest microbatches that fit (microbatch 32, then 16;
+    remat only if neither fits): 3 warm-up steps, then 13 timed steps, the
+    plain linear attention made to raise meanwhile; step ms, training
+    samples/s, peak memory; exactly 8 (16 with remat) launches of each
+    linear-attention kernel per microbatch; the loss finite, and lower
+    after the timed steps than before on one held-out batch with fixed
+    draws of (t, noise, keep-mask); the EMA after 16 steps equal to the
+    weights after step 10 (decay 0 before step 100, an update every 10).
+23. DGM training profile: one shipped step under ``torch.profiler``: device
+    busy and the idle share of phase 22's unprofiled step, the top device
+    ops, and the linear-attention forward kernels, the backward's ops (its
+    profiler range), GroupNorm and the convolutions.
+24. linear-attention backward vs plain: ``LinearAttentionFunction`` (the
+    kernels forward, the explicit backward) at the UNet's 8 sites at phase
+    22's microbatch, channel-major, prenorm, fp32 and bf16: the output
+    (kernels 3 and 4 at the training shapes) against the plain version
+    within LA_TOL, dx, dW and dg against ``torch.autograd.grad`` of the
+    plain version (tolerances stated; in bf16 both beside their distance to the fp32 gradient at the
+    same inputs), CUDA-event times of the backward (the median of 5 bursts)
+    and of the plain version's autograd backward (a yardstick only: it is
+    not on the training path) beside the backward's bound.
+25. DGM training card vs CPU: one fp32 step of the full-width UNet at
+    64x64, batch 4 in 2 microbatches, the same weights and injected draws
+    on the card (kernels) and on the CPU (plain versions): the loss, each
+    gradient held against the CPU's own change when the conditions move by
+    1e-7, then the clipped Adam update and the EMA.
 
-The line before the last is a JSON object with the six kernels' numbers;
-the last is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with the six kernels' numbers
+(kernels 3 and 4 with their launches per DGM training step); the last is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -195,6 +226,22 @@ FIT_CPU_TOL_PX = 1e-3
 SWIN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SWIN_UNFUSED_TOL = 1e-4
 FUSED_FLOW_TOL_PX = 2e-3  # the fused_block estimator's flows vs phase 4's model
+TIMING_BURSTS = 5  # per-site kernel times: the median of this many bursts of calls
+# DGM training at DGMTrainConfig's shipped batch of 128: microbatches tried in
+# this order, then the last with remat
+DGM_MICROBATCHES = (32, 16)
+DGM_WARMUP_STEPS, DGM_TIMED_STEPS = 3, 13
+DGM_HELD_OUT = 32  # conditions of the held-out batch the loss is read on
+# the linear-attention backward vs autograd of the plain version, relative to
+# the largest plain gradient: fp32 summation order; bf16 the forward's LA_TOL:
+# dW sums terms that largely cancel, so one rounding of qkv landing on the
+# other side (the kernel computes the statistics in its own order) moves it
+# by ~1e-2; each bf16 gradient is itself 1-2e-2 from the fp32 one
+LA_BWD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# one fp32 DGM step, card vs CPU, at 64x64, batch 4 in 2 microbatches; the
+# STEP_* rule of the HEM step; the parameters after Adam's first update
+# within 2 lr (an element whose gradient is near zero may move the other way)
+DGM_CPU_SIZE, DGM_CPU_BATCH, DGM_CPU_ACCUM = 64, 4, 2
 
 
 def log(msg: str) -> None:
@@ -300,6 +347,25 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def burst_ms(fn, iters: int, bursts: int = TIMING_BURSTS, warmup: int = 1):
+    """(median, list) of the ms per call of ``bursts`` CUDA-event bursts of
+    ``iters`` calls each: one slow burst does not move the median."""
+    times = [cuda_ms(fn, iters, warmup=warmup if i == 0 else 0) for i in range(bursts)]
+    return float(np.median(times)), times
+
+
+def spread(times) -> str:
+    return f"{min(times):.4f}-{max(times):.4f}"
+
+
+def kernel_events(averages) -> list:
+    """The device kernels and copies of a profile's ``key_averages()``,
+    without the device spans of profiler ranges (``record_function``, the
+    optimizer's step), which overlap the kernels inside them."""
+    return [e for e in averages if e.device_type.name == "CUDA"
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def profiled_ms(fn, iters: int, name_part: str) -> float:
     """Device time per call of the kernels whose name holds ``name_part``,
     by torch.profiler over ``iters`` calls after one warm-up: the kernel's
@@ -313,8 +379,8 @@ def profiled_ms(fn, iters: int, name_part: str) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type.name == "CUDA" and name_part in e.key)
+    total = sum(e.self_device_time_total for e in kernel_events(prof.key_averages())
+                if name_part in e.key)
     if total <= 0:
         raise SystemExit(f"the profiler saw no {name_part} kernel")
     return total / 1e3 / iters
@@ -665,7 +731,7 @@ def phase_profile(model, pairs, batch_ms: float, tag: str = "profile"):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eval_forward(model, patch, pts, cfg.ori_size)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = kernel_events(prof.key_averages())
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     if dev_ms <= 0:
         raise SystemExit("the profiler saw no device time")
@@ -687,7 +753,7 @@ def sdpa_kernels(fn) -> str:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = kernel_events(prof.key_averages())
     events.sort(key=lambda e: -e.self_device_time_total)
     return "; ".join(e.key[:80] for e in events[:3])
 
@@ -945,7 +1011,7 @@ def phase_train_profile(trainer, batch, step_ms: float):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         trainer.train_step(batch)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = kernel_events(prof.key_averages())
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     if dev_ms <= 0:
         raise SystemExit("the profiler saw no device time")
@@ -1064,10 +1130,10 @@ def phase_linear_kernels(sites, dev, seed: int):
             finite = bool(torch.isfinite(got).all()) and bool(torch.isfinite(sums).all())
             ok = finite and max(errs["out_rel"], errs["pass1_rel"], errs["pass2_rel"]) <= LA_TOL[dtype]
             sums_t = torch.zeros_like(sums)
-            ms1 = cuda_ms(lambda: la.linear_attention_pass1(x, w, g, mean, rstd, True, sums_t),
-                          iters=5, warmup=1)
-            ms2 = cuda_ms(lambda: la.linear_attention_pass2(x, w, g, mean, rstd, sums_ref, out),
-                          iters=5, warmup=1)
+            ms1, bursts1 = burst_ms(
+                lambda: la.linear_attention_pass1(x, w, g, mean, rstd, True, sums_t), iters=5)
+            ms2, bursts2 = burst_ms(
+                lambda: la.linear_attention_pass2(x, w, g, mean, rstd, sums_ref, out), iters=5)
             plain1 = cuda_ms(lambda: la.linear_attention_pass1_reference(x, w, prenorm=pn),
                              iters=2, warmup=1)
             plain2 = cuda_ms(lambda: la.linear_attention_pass2_reference(x, w, sums_ref, prenorm=pn),
@@ -1080,6 +1146,7 @@ def phase_linear_kernels(sites, dev, seed: int):
                  "err_pass1": errs["pass1"], "rel_err_pass1": errs["pass1_rel"],
                  "err_pass2": errs["pass2"], "rel_err_pass2": errs["pass2_rel"],
                  "tol": LA_TOL[dtype], "pass1_ms": ms1, "pass2_ms": ms2,
+                 "pass1_ms_bursts": bursts1, "pass2_ms_bursts": bursts2,
                  "plain1_ms": plain1, "plain2_ms": plain2, "gemm_ms": gemm,
                  "bound1_ms": b1, "bound1_by": by1, "bound2_ms": b2, "bound2_by": by2,
                  "share1": b1 / ms1, "share2": b2 / ms2}
@@ -1100,9 +1167,10 @@ def phase_linear_kernels(sites, dev, seed: int):
             results.append(r)
             log(f"[la-kernel] {site} {hw}x{hw} N={N} C={C} B={B} {dtype}: rel err out "
                 f"{errs['out_rel']:.3g} pass1 {errs['pass1_rel']:.3g} pass2 {errs['pass2_rel']:.3g} "
-                f"(abs {errs['out']:.3g}; tol {LA_TOL[dtype]:g}) pass1 {ms1:.4f} ms (bound {b1:.4f} "
-                f"{by1}: {100 * b1 / ms1:.1f}% of it; plain {plain1:.4f}) pass2 {ms2:.4f} ms (bound "
-                f"{b2:.4f} {by2}: {100 * b2 / ms2:.1f}%; plain {plain2:.4f}) cuBLAS x@W_qkv "
+                f"(abs {errs['out']:.3g}; tol {LA_TOL[dtype]:g}) pass1 {ms1:.4f} ms (bursts "
+                f"{spread(bursts1)}; bound {b1:.4f} {by1}: {100 * b1 / ms1:.1f}% of it; plain "
+                f"{plain1:.4f}) pass2 {ms2:.4f} ms (bursts {spread(bursts2)}; bound {b2:.4f} {by2}: "
+                f"{100 * b2 / ms2:.1f}%; plain {plain2:.4f}) cuBLAS x@W_qkv "
                 f"{gemm:.4f} ms{plans} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit("linear-attention kernels disagree with their plain versions, or "
@@ -1265,7 +1333,7 @@ def phase_gen_profile(gd, cond_batch, step_ms: float):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             gd.ddim_step(*args)
             torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = kernel_events(prof.key_averages())
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     if dev_ms <= 0:
         raise SystemExit("the profiler saw no device time")
@@ -1791,7 +1859,7 @@ def phase_train_fused(dev, batch, seed: int, window_step_ms: float, shapes, bwd_
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         trainer.train_step(batch)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = kernel_events(prof.key_averages())
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     if dev_ms <= 0:
         raise SystemExit("the profiler saw no device time")
@@ -1813,6 +1881,411 @@ def phase_train_fused(dev, batch, seed: int, window_step_ms: float, shapes, bwd_
             "dev_ms": dev_ms, "kernel_ms": kern, "bwd_parts_ms": parts, "dtypes": expected[:20],
             "fwd_ms_per_step": fwd_step["ms"], "fwd_bound_ms_per_step": fwd_step["bound_ms"],
             "fwd_step_shapes": fwd_rows}
+
+
+# ---------------------------------------------------------------------------
+# DGM training (phases 22-25)
+# ---------------------------------------------------------------------------
+
+
+def dgm_condition_pool(n: int, size: int, classes: int, seed: int, dev):
+    """n synthetic conditions (numpy draws from ``seed``) and their classes,
+    on the device."""
+    import torch
+
+    from dmhomo_torch.data.conditions import synthetic_condition_batches
+
+    cond, cls = next(synthetic_condition_batches(n, size, n, classes, seed))
+    return torch.from_numpy(cond).to(dev), torch.from_numpy(cls.astype(np.int64)).to(dev)
+
+
+def la_counts():
+    from dmhomo_torch.ops import linear_attention as la
+
+    return la.linear_attention_pass1.launches, la.linear_attention_pass2.launches
+
+
+class PlainLinearAttentionRefused:
+    """Inside it, the plain linear-attention passes raise: the training path
+    on the card must not reach them."""
+
+    NAMES = ("linear_attention_pass1_reference", "linear_attention_pass2_reference",
+             "linear_attention_reference")
+
+    def __enter__(self):
+        from dmhomo_torch.ops import linear_attention as la
+
+        def refuse(*_, **__):
+            raise SystemExit("the plain linear attention ran on the DGM training path")
+
+        self.saved = {n: getattr(la, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(la, n, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        from dmhomo_torch.ops import linear_attention as la
+
+        for n, fn in self.saved.items():
+            setattr(la, n, fn)
+        return False
+
+
+def dgm_trainer_that_fits(base, dev, seed: int, batch_of):
+    """The shipped config with the fewest microbatches that fit (the first
+    step of DGM_MICROBATCHES that does not run out of memory; remat on at
+    the last only if none does), after its first step: (trainer, first
+    step ms, the attempts)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from dmhomo_torch.train.dgm_trainer import DGMTrainer
+
+    B = base.train_batch_size
+    tries = [(mb, False) for mb in DGM_MICROBATCHES] + [(DGM_MICROBATCHES[-1], True)]
+    attempts = []
+    for mb, remat in tries:
+        cfg = dataclasses.replace(base, gradient_accumulate_every=B // mb,
+                                  unet=dataclasses.replace(base.unet, remat=remat))
+        trainer = DGMTrainer(cfg, device=dev)
+        trainer.init_state(seed)
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        t0 = time.perf_counter()
+        try:
+            with PlainLinearAttentionRefused():
+                out = trainer.train_step(*batch_of(0), generator=gen)
+                float(out["loss"])
+            first_ms = 1e3 * (time.perf_counter() - t0)
+            attempts.append((mb, remat, "fits"))
+            return trainer, gen, first_ms, attempts
+        except torch.cuda.OutOfMemoryError:
+            attempts.append((mb, remat, "out of memory"))
+        log(f"[dgm-train] microbatch {mb} (accum {B // mb}, remat {remat}) does not fit the card")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    raise SystemExit(f"no DGM training microbatch fits the card: {attempts}")
+
+
+def phase_dgm_train(dev, seed: int):
+    """The shipped DGM training step: the fewest microbatches that fit, 3
+    warm-up steps, then 13 timed ones counted from zero."""
+    import torch
+
+    from dmhomo_torch.train.config import DGMTrainConfig
+
+    base = DGMTrainConfig()  # shipped: bf16, batch 128, 256x256, dim 64, 5 classes
+    B, S = base.train_batch_size, base.diffusion.image_size
+    t0 = time.perf_counter()
+    cond, cls = dgm_condition_pool(B + DGM_HELD_OUT, S, base.unet.num_classes, seed, dev)
+    train_c, train_k, held_c, held_k = cond[:B], cls[:B], cond[B:], cls[B:]
+    rng = np.random.default_rng(seed)
+    idx = [torch.from_numpy(rng.integers(0, B, B)).to(dev)
+           for _ in range(DGM_WARMUP_STEPS + DGM_TIMED_STEPS)]
+
+    def batch_of(step):
+        return train_c[idx[step]], train_k[idx[step]]
+
+    log(f"[dgm-train] {B + DGM_HELD_OUT} synthetic conditions {tuple(cond.shape)} on the card "
+        f"in {time.perf_counter() - t0:.1f} s; config bf16={base.bf16} batch {B} lr={base.lr} "
+        f"clip {base.grad_clip_norm} EMA {base.ema_beta} every {base.ema_update_every}")
+    trainer, gen, first_ms, attempts = dgm_trainer_that_fits(base, dev, seed, batch_of)
+    cfg = trainer.config
+    accum, remat = cfg.gradient_accumulate_every, cfg.unet.remat
+    mb = B // accum
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    log(f"[dgm-train] UNet {n_params:,} parameters; microbatch {mb} (accum {accum}, remat "
+        f"{remat}) after {attempts}; first step {first_ms:.1f} ms")
+    held_draws = trainer.gd.draw(DGM_HELD_OUT, S, torch.Generator(device=dev).manual_seed(seed + 7),
+                                 dev)
+
+    def held_loss():
+        with torch.no_grad():
+            return float(trainer.gd.loss(held_c, held_k, draws=held_draws))
+
+    losses = []
+    for step in range(1, DGM_WARMUP_STEPS):
+        losses.append(float(trainer.train_step(*batch_of(step), generator=gen)["loss"]))
+    before = held_loss()
+    from dmhomo_torch.models.unet import LinearAttention
+
+    n_sites = sum(isinstance(m, LinearAttention) for m in trainer.model.modules())  # 8 as shipped
+    per_step = n_sites * accum * (2 if remat else 1)
+    times, launches, at_step_10 = [], [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    from dmhomo_torch.ops import linear_attention as la
+
+    # the main path: counts from zero just before it, read just after
+    la.linear_attention_pass1.launches = la.linear_attention_pass2.launches = 0
+    with PlainLinearAttentionRefused():
+        for step in range(DGM_WARMUP_STEPS, DGM_WARMUP_STEPS + DGM_TIMED_STEPS):
+            c0 = la_counts()
+            t0 = time.perf_counter()
+            out = trainer.train_step(*batch_of(step), generator=gen)
+            losses.append(float(out["loss"]))  # waits for the step
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            launches.append(tuple(b - a for a, b in zip(c0, la_counts())))
+            if trainer.step == 10:
+                at_step_10 = [p.detach().clone() for p in trainer.model.parameters()]
+            log(f"[dgm-train] step {trainer.step}: loss {losses[-1]:.5f}, grad norm "
+                f"{float(out['grad_norm']):.4f}, {times[-1]:.1f} ms, launches pass 1/2 "
+                f"{launches[-1][0]}/{launches[-1][1]}")
+    total = la_counts()
+    peak = torch.cuda.max_memory_allocated()
+    after = held_loss()
+    step_ms = float(np.median(times))
+    if not np.isfinite(losses).all() or not np.isfinite([before, after]).all():
+        raise SystemExit(f"DGM training loss not finite: {losses}, held-out {before} {after}")
+    if not after < before:
+        raise SystemExit(f"DGM training loss did not fall on the held-out batch: {before} -> {after}")
+    if any(l != (per_step, per_step) for l in launches) or \
+            total != (per_step * DGM_TIMED_STEPS,) * 2:
+        raise SystemExit(f"linear-attention launches per step {launches}, expected {per_step} "
+                         f"of each ({n_sites} sites x {accum} microbatches"
+                         f"{' x 2 (remat)' if remat else ''})")
+    ema_ok = trainer.ema.step == trainer.step == DGM_WARMUP_STEPS + DGM_TIMED_STEPS and all(
+        torch.equal(e, p) for e, p in zip(trainer.ema.params, at_step_10))
+    if not ema_ok:
+        raise SystemExit("the EMA after 16 steps is not the weights after step 10 (decay 0 "
+                         "before step 100, an update every 10 steps)")
+    log(f"[dgm-train] shipped config B={B} (microbatches of {mb}, remat {remat}), bf16: steady "
+        f"{step_ms:.2f} ms per step (timed {', '.join(f'{t:.1f}' for t in times)}), "
+        f"{1e3 * B / step_ms:.3f} training samples/s, peak {peak / 2**30:.2f} GiB "
+        f"({peak / 2**30 / mb:.3f} GiB per sample of a microbatch)")
+    log(f"[dgm-train] held-out loss (fixed t, noise, keep-mask; {DGM_HELD_OUT} conditions) "
+        f"{before:.5f} before the timed steps > {after:.5f} after; linear-attention launches "
+        f"over {DGM_TIMED_STEPS} timed steps: pass 1 {total[0]}, pass 2 {total[1]} = {per_step} "
+        f"+ {per_step} per step, none of the plain version; the EMA after step "
+        f"{trainer.step} equals the weights after step 10")
+    return {"trainer": trainer, "gen": gen, "batch": batch_of(0), "step_ms": step_ms,
+            "samples_per_s": 1e3 * B / step_ms, "peak": peak, "microbatch": mb,
+            "accum": accum, "remat": remat, "attempts": attempts, "launches": total,
+            "launches_per_step": per_step, "held_loss": [before, after], "losses": losses,
+            "first_ms": first_ms, "times": times}
+
+
+# device-op categories of the DGM step's profile, by kernel name
+DGM_OP_GROUPS = {
+    "linear-attention pass 1": r"linear_attention_pass1",
+    "linear-attention pass 2": r"linear_attention_pass2",
+    "GroupNorm": r"(?i)group_?norm",
+    "convolutions": r"(?i)conv|cudnn|xmma|implicit_?gemm|dgrad|wgrad|fprop",
+}
+
+
+def phase_dgm_profile(dgm):
+    """One shipped DGM step under torch.profiler; idle share against phase
+    22's unprofiled step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = dgm["trainer"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(*dgm["batch"], generator=dgm["gen"])
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    events = kernel_events(averages)
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if dev_ms <= 0:
+        raise SystemExit("the profiler saw no device time")
+    idle = max(0.0, 1.0 - dev_ms / dgm["step_ms"])
+    groups = {name: sum(e.self_device_time_total for e in events if re.search(pat, e.key)) / 1e3
+              for name, pat in DGM_OP_GROUPS.items()}
+    # the kernels launched inside the backward's range, by its host-side event
+    bwd = [e for e in averages if e.key == "linear_attention_backward"
+           and e.device_type.name == "CPU"]
+    groups["linear-attention backward (its profiler range)"] = (
+        sum(e.device_time_total for e in bwd) / 1e3 if bwd else None)
+    log(f"[dgm-profile] one step: device busy {dev_ms:.2f} ms of the {dgm['step_ms']:.2f} ms "
+        f"unprofiled step: idle {100 * idle:.1f}%; " + "; ".join(
+            f"{k} {'not measured' if v is None else f'{v:.2f} ms'}" for k, v in groups.items()))
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
+        log(f"[dgm-profile] {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return {"busy_ms": dev_ms, "idle": idle, "groups_ms": groups}
+
+
+def la_backward_bound(x, pass_dtype: str):
+    """(ms, 'bytes' | 'operations') of one backward with the prenorm at x
+    (B, N, C), counting what ``linear_attention_backward`` reads and writes:
+    reads x, w_qkv, g, the fp32 statistics and dout, writes dx, dW and dg;
+    operations per token: the recomputed projection and the dx and dW
+    products (2*C*384 flops each), the six per-head products (E, num, deq,
+    dC, v.dE^T, ek.dE: 2*4*32*32 each) and the statistics' two products
+    with u = g.W (2*384 each)."""
+    from dmhomo_torch.ops.linear_attention import HIDDEN
+
+    B, N, C = x.shape
+    F = 3 * HIDDEN
+    el = x.element_size()
+    nbytes = (2 * B * N * C * el + 2 * (C * F * 4 + C * 4) + B * N * 8 + B * N * HIDDEN * el)
+    flops = 2.0 * B * N * (3 * C * F + 6 * 4096 + 2 * F)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[pass_dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def phase_la_backward(sites, dev, seed: int, B: int):
+    """The Function's backward vs autograd of the plain version at every
+    UNet site, B = the training microbatch, channel-major, prenorm."""
+    import torch
+
+    from dmhomo_torch.ops import linear_attention as la
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 24)
+    rows, worst = [], {}
+    for site, hw, C in sites:
+        N = hw * hw
+        x32 = (1.5 * torch.randn(B, C, N, generator=gen, device=dev) + 0.3).transpose(1, 2)
+        w = torch.randn(C, 3 * la.HIDDEN, generator=gen, device=dev) / C**0.5
+        g = 0.5 + torch.rand(C, generator=gen, device=dev)
+        dout32 = torch.randn(B, la.HIDDEN, N, generator=gen, device=dev).transpose(1, 2)
+        for dtype in ("float32", "bfloat16"):
+            x = x32.to(getattr(torch, dtype)).requires_grad_()
+            wl, gl = w.clone().requires_grad_(), g.clone().requires_grad_()
+            dout = dout32.to(x.dtype)
+            c0 = la_counts()
+            out = la.linear_attention(x, wl, prenorm=(gl,))
+            launched = tuple(b - a for a, b in zip(c0, la_counts()))
+            got = torch.autograd.grad(out, (x, wl, gl), dout, retain_graph=True)
+            ms, bursts = burst_ms(lambda: torch.autograd.grad(out, (x, wl, gl), dout,
+                                                               retain_graph=True), iters=3)
+            ref = la.linear_attention_reference(x, wl, prenorm=(gl,))
+            out_err = rel_err(out.detach(), ref.detach())
+            worst[(dtype, "out")] = max(worst.get((dtype, "out"), 0.0), out_err)
+            want = torch.autograd.grad(ref, (x, wl, gl), dout, retain_graph=True)
+            plain_ms, _ = burst_ms(lambda: torch.autograd.grad(ref, (x, wl, gl), dout,
+                                                               retain_graph=True),
+                                   iters=1, bursts=3)
+            del ref
+            torch.cuda.synchronize()
+            errs, truth_errs = {}, {}
+            for name, a, b in zip(("dx", "dW", "dg"), got, want):
+                errs[name] = rel_err(a, b)
+                worst[(dtype, name)] = max(worst.get((dtype, name), 0.0), errs[name])
+            if dtype == "bfloat16":  # both against the fp32 gradient at the same bf16 inputs
+                xt = x.detach().float().requires_grad_()
+                truth = torch.autograd.grad(la.linear_attention_reference(xt, wl, prenorm=(gl,)),
+                                            (xt, wl, gl), dout.float())
+                for name, a, b, t in zip(("dx", "dW", "dg"), got, want, truth):
+                    truth_errs[name] = (rel_err(a, t), rel_err(b, t))
+                del xt, truth
+            finite = all(bool(torch.isfinite(a).all()) for a in (out, *got))
+            bnd, by = la_backward_bound(x, dtype)
+            truth_log = "".join(f"; {k} to the fp32 gradient: {f:.3g} (plain bf16 {p:.3g})"
+                            for k, (f, p) in truth_errs.items())
+            ok = finite and launched == (1, 1) and out_err <= LA_TOL[dtype] \
+                and max(errs.values()) <= LA_BWD_TOL[dtype] and got[0].stride(1) == 1
+            rows.append({"site": site, "N": N, "C": C, "B": B, "dtype": dtype,
+                         "rel_err_out": out_err, "out_tol": LA_TOL[dtype], **{
+                f"rel_err_{k}": v for k, v in errs.items()}, "tol": LA_BWD_TOL[dtype],
+                "rel_err_to_fp32_function_plain": truth_errs,
+                "ms": ms, "ms_bursts": bursts, "plain_autograd_ms": plain_ms,
+                "bound_ms": bnd, "bound_by": by})
+            log(f"[la-bwd] {site} N={N} C={C} B={B} {dtype}: forward rel err {out_err:.3g} "
+                f"(tol {LA_TOL[dtype]:g}); rel err dx {errs['dx']:.3g} dW "
+                f"{errs['dW']:.3g} dg {errs['dg']:.3g} (tol {LA_BWD_TOL[dtype]:g}){truth_log}; backward "
+                f"{ms:.4f} ms (bursts {spread(bursts)}; bound {bnd:.4f} {by}: "
+                f"{100 * bnd / ms:.1f}% of it); autograd of the plain version {plain_ms:.4f} ms; "
+                f"forward launches {launched} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"the linear-attention forward or backward disagrees with the "
+                                 f"plain version, or dx lost x's layout: {rows[-1]}")
+            del x, wl, gl, out, got, want, dout
+        del x32, dout32
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
+def phase_dgm_card_vs_cpu(dev, seed: int):
+    """One fp32 DGM step of the full-width UNet at DGM_CPU_SIZE², the same
+    weights and injected draws on the card and on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from dmhomo_torch.data.conditions import synthetic_condition_batches
+    from dmhomo_torch.train.config import DGMTrainConfig
+    from dmhomo_torch.train.dgm_trainer import DGMTrainer
+
+    base = DGMTrainConfig()
+    cfg = dataclasses.replace(
+        base, bf16=False, train_batch_size=DGM_CPU_BATCH, gradient_accumulate_every=DGM_CPU_ACCUM,
+        ema_update_every=1, diffusion=dataclasses.replace(base.diffusion, image_size=DGM_CPU_SIZE))
+    S, mb = DGM_CPU_SIZE, DGM_CPU_BATCH // DGM_CPU_ACCUM
+    cond, cls = next(synthetic_condition_batches(DGM_CPU_BATCH, S, DGM_CPU_BATCH,
+                                                 base.unet.num_classes, seed + 25))
+    rng = np.random.default_rng(seed + 25)
+    draws = [(rng.integers(0, base.diffusion.timesteps, (mb,)),
+              rng.normal(size=(mb, S, S, base.unet.channels)).astype(np.float32),
+              np.array([True, False][:mb])) for _ in range(DGM_CPU_ACCUM)]
+    nudged = (cond + STEP_INPUT_NOISE * rng.normal(size=cond.shape)).astype(np.float32)
+    trainers = {"card": DGMTrainer(cfg, device=dev), "cpu": DGMTrainer(cfg, device="cpu")}
+    for tr in trainers.values():
+        tr.init_state(seed + 25)
+    t0 = time.perf_counter()
+    trainers["cpu"].loss_and_grads(nudged, cls, draws=draws)
+    g_nudged = {n: p.grad.clone() for n, p in trainers["cpu"].model.named_parameters()}
+    results = {}
+    for where, tr in trainers.items():
+        loss = float(tr.loss_and_grads(cond, cls, draws=draws))
+        results[where] = (loss, {n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()})
+    cpu_s = time.perf_counter() - t0
+    (loss_card, g_card), (loss_cpu, g_cpu) = results["card"], results["cpu"]
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+
+    def rel(a, g):
+        return float((a - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+
+    rels = {n: rel(g_card[n], g) for n, g in g_cpu.items()}
+    noise = {n: rel(g_nudged[n], g) for n, g in g_cpu.items()}
+    tols = {n: max(STEP_GRAD_TOL, STEP_NOISE_FACTOR * noise[n]) for n in g_cpu}
+    order = sorted(rels, key=lambda n: -rels[n] / tols[n])
+    named = ("downs.0.2.fn.fn.to_qkv.weight", "downs.0.2.fn.norm.g", "ups.1.2.fn.fn.to_qkv.weight",
+             "mid_attn.fn.fn.to_qkv.weight", "init_conv.weight", "final_conv.weight")
+    log(f"[dgm-card-vs-cpu] fp32 step at {S}x{S}, batch {DGM_CPU_BATCH} in {DGM_CPU_ACCUM} "
+        f"microbatches: loss card {loss_card:.7f} cpu {loss_cpu:.7f}: rel {loss_rel:.3g} (tol "
+        f"{STEP_LOSS_TOL:g}); the CPU's three passes {cpu_s:.1f} s")
+    for n in named:
+        log(f"[dgm-card-vs-cpu] grad {n} {tuple(g_cpu[n].shape)}: {rels[n]:.3g} of its largest "
+            f"value; the CPU's own change for conditions nudged by {STEP_INPUT_NOISE:g}: "
+            f"{noise[n]:.3g}; tol {tols[n]:.3g}")
+    log(f"[dgm-card-vs-cpu] closest to their tolerance of all {len(rels)} parameters: "
+        + ", ".join(f"{n} {rels[n]:.3g} (tol {tols[n]:.3g})" for n in order[:3]))
+    bad = [n for n in order if not rels[n] <= tols[n]]
+    if bad or not loss_rel <= STEP_LOSS_TOL:
+        raise SystemExit(f"card and CPU DGM steps disagree: loss {loss_rel}, gradients "
+                         f"{[(n, rels[n], tols[n]) for n in bad]}")
+    upd = {w: tr.apply_gradients() for w, tr in trainers.items()}
+    norm_rel = abs(float(upd["card"]["grad_norm"]) - float(upd["cpu"]["grad_norm"])) / float(
+        upd["cpu"]["grad_norm"])
+    scale_rel = abs(float(upd["card"]["clip_scale"]) - float(upd["cpu"]["clip_scale"])) / float(
+        upd["cpu"]["clip_scale"])
+    lr = cfg.lr
+    p_card = [p.detach().cpu() for p in trainers["card"].model.parameters()]
+    p_cpu = [p.detach() for p in trainers["cpu"].model.parameters()]
+    d = torch.cat([(a - b).abs().flatten() for a, b in zip(p_card, p_cpu)])
+    off = float((d > 1e-6).float().mean())
+    ema_same = all(torch.equal(e.cpu(), p) for e, p in zip(trainers["card"].ema.params, p_card)) \
+        and all(torch.equal(e, p) for e, p in zip(trainers["cpu"].ema.params, p_cpu))
+    log(f"[dgm-card-vs-cpu] clip: global norm {float(upd['cpu']['grad_norm']):.5f} (card rel "
+        f"{norm_rel:.3g}), scale rel {scale_rel:.3g}; after Adam the weights differ by at most "
+        f"{float(d.max()):.3g} (2 lr = {2 * lr:g}), {100 * off:.3f}% of them by more than 1e-6; "
+        f"the EMA (update every step, decay 0) equals the weights on both: {ema_same}")
+    if not (norm_rel <= STEP_GRAD_TOL and scale_rel <= STEP_GRAD_TOL
+            and float(d.max()) <= 2 * lr + 1e-6 and off < 0.01 and ema_same):
+        raise SystemExit("card and CPU disagree on the clipped Adam update or the EMA")
+    return {"loss_rel": loss_rel, "grad_rel": {n: rels[n] for n in named},
+            "grad_rel_nudged_cpu": {n: noise[n] for n in named}, "norm_rel": norm_rel,
+            "param_max_diff": float(d.max()), "param_frac_over_1e-6": off}
 
 
 def main(argv=None):
@@ -1887,6 +2360,15 @@ def main(argv=None):
                                  sbb_results)
     sb_step_diffs = phase_train_card_vs_cpu(dev, args.seed, attn_impl="fused_block",
                                             tag="sb-train-card-vs-cpu")
+    torch.cuda.empty_cache()
+
+    dgm = phase_dgm_train(dev, args.seed)
+    dgm_prof = phase_dgm_profile(dgm)
+    for k in ("trainer", "gen", "batch"):
+        del dgm[k]
+    torch.cuda.empty_cache()
+    la_bwd_rows, la_bwd_worst = phase_la_backward(sites, dev, args.seed, dgm["microbatch"])
+    dgm_diffs = phase_dgm_card_vs_cpu(dev, args.seed)
 
     # per-forward totals at the eval path's dtype (fp32) and launch mix
     main = [r for r in results if r["dtype"] == "float32"]
@@ -1985,6 +2467,13 @@ def main(argv=None):
             "max_abs_err_output_bf16": la_worst[("bfloat16", "out")],
             "max_abs_err_output_fp32": la_worst[("float32", "out")],
             "profiled_ms_per_step": gen_la_ms[p],
+            # DGM training (phase 22): launches over the timed steps and per step
+            "launches_train": dgm["launches"][p - 1],
+            "launches_per_dgm_step": dgm["launches_per_step"],
+            "dgm_step_profiled_ms": dgm_prof["groups_ms"][f"linear-attention pass {p}"],
+            # the output at phase 24's training shapes (both passes), relative to the plain
+            "max_rel_err_output_dgm_train": {dt: la_bwd_worst[(dt, "out")]
+                                             for dt in ("float32", "bfloat16")},
             "shapes": la_results,
         })
     log(f"[summary] generation {1e3 * GEN_BS / gen['batch_ms']:.3f} samples/s, "
@@ -2089,6 +2578,26 @@ def main(argv=None):
         f"instructions in its machine code {sum(sbb_atomics.values())}, so global atomics per "
         f"step {sbb_kernel['atomics_per_step']}); step "
         f"card-vs-cpu {json.dumps(sb_step_diffs)}; total {time.perf_counter() - t_start:.0f} s")
+    # the explicit backward per DGM training step: each site once per microbatch
+    bwd_rows = [r for r in la_bwd_rows if r["dtype"] == "bfloat16"]
+    bwd_step = {k: dgm["accum"] * sum(r[k] for r in bwd_rows)
+                for k in ("ms", "plain_autograd_ms", "bound_ms")}
+    log(f"[summary] DGM training {dgm['samples_per_s']:.3f} samples/s, step "
+        f"{dgm['step_ms']:.2f} ms (batch 128 in microbatches of {dgm['microbatch']}, remat "
+        f"{dgm['remat']}), peak {dgm['peak'] / 2**30:.2f} GiB, device idle "
+        f"{100 * dgm_prof['idle']:.1f}%; held-out loss {dgm['held_loss'][0]:.5f} -> "
+        f"{dgm['held_loss'][1]:.5f}; linear-attention backward {bwd_step['ms']:.3f} ms per step "
+        f"(bound {bwd_step['bound_ms']:.3f}, autograd of the plain version "
+        f"{bwd_step['plain_autograd_ms']:.3f}); card-vs-cpu {json.dumps(dgm_diffs)}")
+    log("[dgm-summary] " + json.dumps({
+        "step_ms": dgm["step_ms"], "samples_per_s": dgm["samples_per_s"],
+        "peak_bytes": dgm["peak"], "microbatch": dgm["microbatch"], "accum": dgm["accum"],
+        "remat": dgm["remat"], "attempts": dgm["attempts"], "first_step_ms": dgm["first_ms"],
+        "timed_step_ms": dgm["times"], "held_loss": dgm["held_loss"], "losses": dgm["losses"],
+        "launches_per_step": dgm["launches_per_step"], "profile": dgm_prof,
+        "backward_per_step": bwd_step,
+        "backward_max_rel_err": {f"{dt} {n}": v for (dt, n), v in la_bwd_worst.items()},
+        "backward_sites": la_bwd_rows, "card_vs_cpu": dgm_diffs}))
     log(smi)  # nvidia-smi: card name, power limit
     log(json.dumps({"kernels": [kernel, bwd_kernel] + la_kernels + [sb_kernel, sbb_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -7,8 +7,9 @@ The CFG pair (conditional + null class) runs as one doubled-batch UNet
 forward.  Layouts are NHWC.  The model is the port's ``ConditionalUNet``,
 called as ``model(x, t, classes, rgb_flow, mask, keep_mask)``.  Noise comes
 from an explicit ``torch.Generator``, or is injected with ``fixed_noise``
-(the parity tests hand both frameworks the same numpy draws).  The losses
-belong to the training slice.
+(the parity tests hand both frameworks the same numpy draws).  The
+training loss (:meth:`GaussianDiffusion.loss`) draws t, the noise and the
+CFG keep-mask from an explicit generator too, or takes them injected.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from dmhomo_torch.diffusion.schedules import DiffusionSchedule, ddim_time_pairs, extract
+from dmhomo_torch.geometry.warp import warp_by_flow
 
 
 def normalize_to_neg_one_to_one(x):
@@ -213,3 +215,60 @@ class GaussianDiffusion:
         rgb_flow = normalize_to_neg_one_to_one(rgb_flow)
         fn = self.ddim_sample if self.config.is_ddim_sampling else self.p_sample_loop
         return fn(classes, rgb_flow, mask, cond_scale=cond_scale, generator=generator)
+
+    # -- training loss ------------------------------------------------------
+
+    def _elem_loss(self, a, b):
+        if self.config.loss_type == "l1":
+            return (a - b).abs()
+        return (a - b) ** 2
+
+    def p_losses(self, x_start, t, classes, rgb_flow, flow, mask, noise, keep_mask):
+        """The reference's ``p_losses``: the objective's L1 (or L2) on the
+        model output, plus ``alphas_cumprod[t]`` times the masked
+        photometric loss of ``warp_by_flow(im2, flow, 'border')`` against
+        im1.  NHWC; x_start and rgb_flow in [-1, 1]; a 0-d fp32 tensor."""
+        cfg = self.config
+        B = x_start.shape[0]
+        x = self.q_sample(x_start, t, noise)
+        model_out = self.model(x, t, classes, rgb_flow, mask, keep_mask).float()
+        im1, im2 = model_out[..., :3], model_out[..., 3:]
+        im2_warp = warp_by_flow(im2, flow, mode="border")
+        if cfg.objective == "pred_noise":
+            target = noise
+        elif cfg.objective == "pred_x0":
+            target = x_start
+        else:
+            target = self.predict_v(x_start, t, noise)
+        loss = self._elem_loss(model_out, target).reshape(B, -1).mean(dim=1)
+        photo = (mask * self._elem_loss(im2_warp, im1)).reshape(B, -1).mean(dim=1)
+        photo_w = self.schedule.alphas_cumprod[t]
+        return loss.mean() + (cfg.photo_loss_weight * photo_w * photo).mean()
+
+    def draw(self, batch: int, image_size: int, generator: Optional[torch.Generator] = None,
+             device=None):
+        """(t (B,) int64 in [0, T), noise (B, S, S, channels), keep_mask (B,)
+        bool, True with probability 1 - cond_drop_prob), from ``generator``."""
+        cfg = self.config
+        t = torch.randint(0, cfg.timesteps, (batch,), generator=generator, device=device)
+        noise = torch.randn((batch, image_size, image_size, cfg.channels), generator=generator,
+                            device=device)
+        keep = torch.rand((batch,), generator=generator, device=device) < 1.0 - cfg.cond_drop_prob
+        return t, noise, keep
+
+    def loss(self, batch_img, classes, generator: Optional[torch.Generator] = None,
+             draws=None):
+        """The training loss on a (B, S, S, 12) condition batch in [0, 1]:
+        img1 (3) img2 (3) mask (1) rgb_flow (3) flow (2).  ``draws`` injects
+        (t, noise, keep_mask); otherwise they come from ``generator``."""
+        B, S = batch_img.shape[0], batch_img.shape[1]
+        dev = batch_img.device
+        t, noise, keep = draws if draws is not None else self.draw(B, S, generator, dev)
+        t = torch.as_tensor(t, dtype=torch.long, device=dev)
+        noise = torch.as_tensor(noise, dtype=torch.float32, device=dev)
+        keep = torch.as_tensor(keep, dtype=torch.bool, device=dev)
+        data = normalize_to_neg_one_to_one(batch_img[..., :6])
+        mask = batch_img[..., 6:7]
+        rgb_flow = normalize_to_neg_one_to_one(batch_img[..., 7:10])
+        flow = batch_img[..., 10:12]
+        return self.p_losses(data, t, classes, rgb_flow, flow, mask, noise, keep)

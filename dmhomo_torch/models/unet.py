@@ -14,6 +14,10 @@ projection of :func:`dmhomo_torch.ops.linear_attention.linear_attention`
 (the CUDA kernels on the card); the bottleneck's full ``Attention`` is plain
 PyTorch.  The up-sampling is nearest x2 then a 3x3 conv (the JAX package
 fuses the two into one dilated conv: the same function, rounded elsewhere).
+``UNetConfig.remat`` recomputes every ``ResnetBlock`` and every pre-norm
+residual attention in the backward (``torch.utils.checkpoint``), where the
+JAX package wraps the same modules in ``nn.remat``; the state dict is the
+same either way.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from dmhomo_torch.ops.linear_attention import linear_attention
 
@@ -40,6 +45,7 @@ class UNetConfig:
     attn_heads: int = 4
     attn_dim_head: int = 32
     dtype: torch.dtype = torch.float32
+    remat: bool = False  # recompute each ResnetBlock and attention in the backward
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -249,8 +255,15 @@ class ConditionalUNet(nn.Module):
         self.final_res_block = ResnetBlock(2 * dim, dim, cond_dim, groups)
         self.final_conv = nn.Conv2d(dim, cfg.channels, 1)
 
+    def _run(self, module: nn.Module, *args):
+        """``module(*args)``, recomputed in the backward under ``remat``."""
+        if self.config.remat and torch.is_grad_enabled():
+            return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False)
+        return module(*args)
+
     def forward(self, x, time, classes, rgb_flow, mask, keep_mask):
         dt = self.config.dtype
+        run = self._run
         ce = self.classes_emb(classes)
         ce = torch.where(keep_mask[:, None], ce, self.null_classes_emb[None, :])
         cond = torch.cat([self.time_mlp(time), self.classes_mlp(ce)], dim=-1).to(dt)
@@ -260,17 +273,17 @@ class ConditionalUNet(nn.Module):
         r = h
         skips = []
         for block1, block2, attn, down in self.downs:
-            h = block1(h, cond)
+            h = run(block1, h, cond)
             skips.append(h)
-            h = attn(block2(h, cond))
+            h = run(attn, run(block2, h, cond))
             skips.append(h)
             h = _conv(down, h, dt)
-        h = self.mid_block2(self.mid_attn(self.mid_block1(h, cond)), cond)
+        h = run(self.mid_block2, run(self.mid_attn, run(self.mid_block1, h, cond)), cond)
         for block1, block2, attn, up in self.ups:
-            h = block1(torch.cat([h, skips.pop()], dim=1), cond)
-            h = attn(block2(torch.cat([h, skips.pop()], dim=1), cond))
+            h = run(block1, torch.cat([h, skips.pop()], dim=1), cond)
+            h = run(attn, run(block2, torch.cat([h, skips.pop()], dim=1), cond))
             h = up(h) if isinstance(up, Upsample) else _conv(up, h, dt)
-        h = self.final_res_block(torch.cat([h, r], dim=1), cond)
+        h = run(self.final_res_block, torch.cat([h, r], dim=1), cond)
         out = F.conv2d(h.float(), self.final_conv.weight, self.final_conv.bias)
         return out.permute(0, 2, 3, 1)
 

@@ -19,7 +19,17 @@ Only the four 32x32 diagonal blocks of E exist in the kernels.  Pass 1 adds
 each block's share of (E, s) into a zeroed fp32 buffer with atomics, so its
 sum order changes between runs.  :func:`linear_attention` runs
 :func:`linear_attention_reference` for CPU tensors only; for a CUDA tensor
-it launches both kernels or raises.  The kernels are forward-only.
+it launches both kernels or raises.
+
+A call that needs a gradient goes through :class:`LinearAttentionFunction`:
+its forward is the two kernels (the plain version on the CPU), and it keeps
+x, the weights and pass 1's fp32 LayerNorm statistics, nothing of size
+(B, N, 128) or more.  Its backward, :func:`linear_attention_backward`,
+recomputes qkv by one projection and everything after it, and applies the
+chain rule of steps 1-3 with plain tensor ops, rounding each cotangent of a
+primal in dt to dt, as autodiff of the JAX production function does (the
+JAX package has no backward kernel: XLA differentiates
+``blockdiag_linear_attention``).
 
 bf16 runs on tensor cores; :func:`launch_plan` picks, from the shapes and
 strides, the loader (16-byte asynchronous copies where x has token stride
@@ -267,9 +277,6 @@ def _check_cuda_args(x, w_qkv, heads, dim_head, g=None, stats=()):
         _check_fp32("g", g, (C,), x.device)
     for name, t in stats:
         _check_fp32(name, t, (B, N), x.device)
-    if torch.is_grad_enabled() and (x.requires_grad or w_qkv.requires_grad
-                                    or (g is not None and g.requires_grad)):
-        raise NotImplementedError("the linear-attention kernels are forward-only")
 
 
 def _stream(t):
@@ -332,6 +339,199 @@ linear_attention_pass2.launches = 0
 linear_attention_pass2.elementwise = 0  # bf16 launches that took the element-wise loader
 
 
+def _forward(x, w_qkv, g, mean, rstd, heads, dim_head):
+    """(out, mean, rstd) of one call: on the card both kernels (pass
+    1 writes mean and rstd where they are not given), on the CPU the plain
+    passes.  mean and rstd are (B, N) fp32, or None without a prenorm."""
+    B, N, C = x.shape
+    given = mean is not None
+    if x.device.type == "cpu":
+        if g is None:
+            prenorm = None
+        else:
+            if not given:
+                mean, rstd = (t.reshape(B, N) for t in layer_norm_stats(x))
+            prenorm = (mean, rstd, g)
+        sums = linear_attention_pass1_reference(x, w_qkv, heads, dim_head, prenorm)
+        return (linear_attention_pass2_reference(x, w_qkv, sums, heads, dim_head, prenorm),
+                mean, rstd)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if g is not None and not given:
+        mean = torch.empty((B, N), dtype=torch.float32, device=x.device)
+        rstd = torch.empty_like(mean)
+    elif given:
+        mean, rstd = mean.reshape(B, N), rstd.reshape(B, N)
+    _check_cuda_args(x, w_qkv, heads, dim_head, g,
+                     () if g is None else (("mean", mean), ("rstd", rstd)))
+    sums = torch.zeros((B, SUMS), dtype=torch.float32, device=x.device)
+    linear_attention_pass1(x, w_qkv, g, mean, rstd, g is not None and not given, sums)
+    if x.stride(1) < x.stride(2):
+        out = torch.empty((B, HIDDEN, N), dtype=x.dtype, device=x.device).transpose(1, 2)
+    else:
+        out = torch.empty((B, N, HIDDEN), dtype=x.dtype, device=x.device)
+    linear_attention_pass2(x, w_qkv, g, mean, rstd, sums, out)
+    return out, mean, rstd
+
+
+# samples per slice of the backward: its fp32 (B, N, 384) temporaries stay
+# near this many bytes each
+_BACKWARD_SLICE_BYTES = 1 << 30
+# tokens per chunk of the backward's sums over the tokens (where N divides)
+_BACKWARD_CHUNK = 1024
+
+
+def linear_attention_backward(x, w_qkv, g, mean, rstd, dout,
+                              heads: int = HEADS, dim_head: int = DIM_HEAD):
+    """Gradients of the production function (module docstring, steps 1-3)
+    at x (B, N, C), w_qkv (C, 3*heads*dim_head) fp32 and the prenorm gain g
+    (C,) with x's fp32 statistics mean and rstd (B, N) from
+    ``layer_norm_stats``, or g = mean = rstd = None; ``dout`` the cotangent
+    of the output.  Returns (dx, dw_qkv, dg): dx in x's dtype and layout,
+    through the statistics too; dg None without g.  With dt = x.dtype, in
+    order:
+
+    * qkv recomputed by one projection, then from it ek = exp(clip(k)) and
+      eq likewise, before (e32) and after rounding, E = ek^T v, s = sum_n ek,
+      the context C, num = round(eq . C) and den = round(sum_d eq) per head.
+      Nothing of the kernels' forward is reused: each softmax's two
+      cotangent terms below nearly cancel (over d for q, over the tokens for
+      k), so both must come from one rounding of qkv, and the kernels round
+      theirs elsewhere in last bits (with pass 1's sums, dW of the UNet's
+      C = 512 site moved by 2.4e-2 of its largest value in bf16);
+    * dnum = round(dout / den), dden = round(-sum_e dout * num / den^2);
+    * deq = round(dnum . C^T) + dden; dq = round(deq * eq32 * [|q| < 60]);
+      dC = round(eq^T . dnum) on the diagonal blocks;
+    * dE = dC * dim_head^-1/2 / (s * N); ds = -sum_e dC * C32 / s, with C32
+      the context before rounding;
+    * dek = round(v . dE^T) + round(ds); dv = round(ek . dE);
+      dk = round(dek * ek32 * [|k| < 60]);
+    * then through the projection: without g, dx = round(dqkv . round(W)^T)
+      and dW = round(x^T . dqkv); with g, through (a - mean * (g W)) * rstd,
+      a = x . round(diag(g) W) (fp32), to dx (with the paths through mean
+      and rstd), dW and dg.
+    """
+    B, N, C = x.shape
+    dt = x.dtype
+    hd = heads * dim_head
+    with torch.autocast(x.device.type, enabled=False):
+        if g is None:
+            wd = w_qkv.to(dt).float()
+        else:
+            wd = (w_qkv * g[:, None]).to(dt).float()  # round(diag(g) W)
+            u = g @ w_qkv
+        dx = torch.empty_like(x)
+        dwd = torch.zeros_like(w_qkv)
+        du = torch.zeros_like(w_qkv[0]) if g is not None else None
+        F = 3 * hd
+        wt = wd.t().contiguous()  # (F, C)
+        L = _BACKWARD_CHUNK if N % _BACKWARD_CHUNK == 0 else N
+        nc = N // L
+        step = max(1, _BACKWARD_SLICE_BYTES // (N * F * 4))
+        # (samples, chunks of L tokens, features, tokens): each head's block is
+        # contiguous, every product a plain batched matmul, and the sums over
+        # the tokens (E, s, dC, dW) run per chunk, then over the chunks
+        for b0 in range(0, B, step):
+            sl = slice(b0, b0 + step)
+            Bs = x[sl].shape[0]
+
+            def chunked(t, rows):  # (Bs, N, rows) -> (Bs, nc, rows, L), fp32, a copy
+                return (t.transpose(1, 2).reshape(Bs, rows, nc, L).transpose(1, 2)
+                        .to(torch.float32, memory_format=torch.contiguous_format))
+
+            xc = chunked(x[sl], C)
+            a = torch.matmul(wt, xc)  # (Bs, nc, F, L) fp32
+            if g is not None:
+                m = mean[sl].reshape(Bs, nc, 1, L)
+                r = rstd[sl].reshape(Bs, nc, 1, L)
+                a.addcmul_(u[:, None], m, value=-1.0)  # centred: a - (g W) mean
+                qkv = torch.mul(a, r, out=torch.empty(a.shape, dtype=dt, device=a.device))
+            else:
+                qkv = a.to(dt)
+                del a
+            q, k, v = (t.reshape(Bs, nc, heads, dim_head, L) for t in qkv.split(hd, dim=2))
+            # copies (in fp32 ``float()`` would be q itself), then in place
+            eq32 = q.to(torch.float32, copy=True).clamp_(-CLIP, CLIP).exp_()
+            ek32 = k.to(torch.float32, copy=True).clamp_(-CLIP, CLIP).exp_()
+            # the products in fp32 (one rounding to dt, as JAX's), on dt values;
+            # E and s again from this ek and v (see the docstring)
+            eq, ek, vf = eq32.to(dt).float(), ek32.to(dt).float(), v.float()
+            E = torch.matmul(ek, vf.transpose(-1, -2)).sum(dim=1, keepdim=True)  # (Bs,1,h,d,e)
+            s = ek.sum(dim=-1, keepdim=True).sum(dim=1, keepdim=True)  # (Bs, 1, h, d, 1)
+            ctx32 = E * (dim_head**-0.5) / (s * N)
+            ctx = ctx32.to(dt).float()
+            num = torch.matmul(ctx.transpose(-1, -2), eq).to(dt).float()  # (Bs,nc,h,e,L)
+            den = eq.sum(dim=3, keepdim=True).to(dt).float()  # (Bs, nc, h, 1, L)
+            go = chunked(dout[sl], hd).reshape(Bs, nc, heads, dim_head, L)
+            dnum = (go / den).to(dt).float()
+            dden = (-(go * num).sum(dim=3, keepdim=True) / den**2).to(dt).float()
+            del num, go
+            deq = torch.matmul(ctx, dnum).to(dt).float().add_(dden).to(dt)  # (Bs,nc,h,d,L)
+            dctx = (torch.matmul(eq, dnum.transpose(-1, -2)).sum(dim=1, keepdim=True)
+                    .to(dt).float())  # (Bs, 1, h, d, e)
+            del eq, dnum, dden
+            dE = dctx * (dim_head**-0.5) / (s * N)
+            ds = -(dctx * ctx32).sum(dim=-1, keepdim=True) / s  # (Bs, 1, h, d, 1)
+            dek = torch.matmul(dE, vf).to(dt).float().add_(ds.to(dt).float()).to(dt)
+            # the cotangent of qkv, each part rounded to dt
+            dy = torch.empty((Bs, nc, F, L), dtype=torch.float32, device=x.device)
+            dq_, dk_, dv_ = (t.view(Bs, nc, heads, dim_head, L) for t in dy.split(hd, dim=2))
+            torch.mul(deq, eq32, out=dq_).masked_fill_(q.abs() >= CLIP, 0.0)
+            torch.mul(dek, ek32, out=dk_).masked_fill_(k.abs() >= CLIP, 0.0)
+            torch.matmul(dE.transpose(-1, -2), ek, out=dv_)
+            del eq32, ek32, ek, vf, deq, dek, q, k, v, qkv
+            dy.copy_(dy.to(dt))
+            # dx[sl] (x's layout) viewed as (Bs, nc, C, L)
+            dx_c = dx[sl].transpose(1, 2).reshape(Bs, C, nc, L).transpose(1, 2)
+            if g is None:
+                dx_c.copy_(torch.matmul(wd, dy))
+                dwd += torch.matmul(dy, xc.transpose(-1, -2)).sum(dim=(0, 1)).t()
+                continue
+            dm = torch.matmul(u, dy).unsqueeze(2).mul_(r).neg_()  # (Bs, nc, 1, L)
+            du -= torch.matmul(dy, (m * r).transpose(-1, -2)).sum(dim=(0, 1, 3))
+            dr = a.mul_(dy).sum(dim=2, keepdim=True)  # (Bs, nc, 1, L)
+            del a
+            da = dy.mul_(r)
+            dwd += torch.matmul(da, xc.transpose(-1, -2)).sum(dim=(0, 1)).t()
+            dxc = torch.matmul(wd, da)  # (Bs, nc, C, L)
+            del da, dy
+            # mean = sum_c x / C, rstd = (sum_c (x - mean)^2 / C + eps)^-1/2; dx
+            # rounds the projection's part to dt first, as JAX sums cotangents
+            dvar = dr * (-0.5) * r**3
+            dx_c.copy_(dxc.to(dt).float().add_(dm / C).add_(dvar * (2.0 / C) * (xc - m)))
+        dwd = dwd.to(dt).float()  # the cotangent of the weights in dt
+        if g is None:
+            return dx, dwd, None
+        dw = dwd * g[:, None] + g[:, None] * du[None, :]
+        dg = (dwd * w_qkv).sum(dim=1) + w_qkv @ du
+        return dx, dw, dg
+
+
+class LinearAttentionFunction(torch.autograd.Function):
+    """The linear attention under autograd, without a prenorm or with
+    ``prenorm=(g,)``: forward by :func:`_forward` (the two kernels on the
+    card; pass 1 computes the statistics), backward by
+    :func:`linear_attention_backward`.  Saves x (the caller's view, not a
+    copy), w_qkv, g and the fp32 mean and rstd (B, N); the backward
+    recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, x, w_qkv, g, heads, dim_head):
+        out, mean, rstd = _forward(x, w_qkv, g, None, None, heads, dim_head)
+        ctx.save_for_backward(x, w_qkv, g, mean, rstd)
+        ctx.heads, ctx.dim_head = heads, dim_head
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w_qkv, g, mean, rstd = ctx.saved_tensors
+        # a profiler range: a step's profile reads the backward's device time from it
+        with torch.profiler.record_function("linear_attention_backward"):
+            dx, dw, dg = linear_attention_backward(x, w_qkv, g, mean, rstd, dout,
+                                                   ctx.heads, ctx.dim_head)
+        return dx, dw, dg, None, None
+
+
 def linear_attention(x: torch.Tensor, w_qkv: torch.Tensor, heads: int = HEADS,
                      dim_head: int = DIM_HEAD, prenorm=None) -> torch.Tensor:
     """x (B, N, C) fp32 or bf16, any strides; w_qkv (C, 3*heads*dim_head)
@@ -339,32 +539,21 @@ def linear_attention(x: torch.Tensor, w_qkv: torch.Tensor, heads: int = HEADS,
     heads*dim_head) in x.dtype.
 
     CPU tensors go through :func:`linear_attention_reference`; CUDA tensors
-    through the two kernels.  The output has x's layout: channel-major
-    (a transposed (B, 128, N) tensor) when x's token stride is the smaller,
-    as for the UNet's NCHW activations.
+    through the two kernels.  Where a gradient is needed the call goes
+    through :class:`LinearAttentionFunction` on either device; it takes
+    ``prenorm`` None or ``(g,)`` (given statistics raise).  The output
+    has x's layout: channel-major (a transposed (B, 128, N) tensor) when
+    x's token stride is the smaller, as for the UNet's NCHW activations.
     """
-    if x.device.type == "cpu":
-        return linear_attention_reference(x, w_qkv, heads, dim_head, prenorm)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    B, N, C = x.shape
     g = mean = rstd = None
-    compute_stats = False
     if prenorm is not None:
         g = prenorm[-1]
-        if len(prenorm) == 1:
-            compute_stats = True
-            mean = torch.empty((B, N), dtype=torch.float32, device=x.device)
-            rstd = torch.empty_like(mean)
-        else:
-            mean, rstd = (t.reshape(B, N) for t in prenorm[:2])
-    _check_cuda_args(x, w_qkv, heads, dim_head, g,
-                     () if g is None else (("mean", mean), ("rstd", rstd)))
-    sums = torch.zeros((B, SUMS), dtype=torch.float32, device=x.device)
-    linear_attention_pass1(x, w_qkv, g, mean, rstd, compute_stats, sums)
-    if x.stride(1) < x.stride(2):
-        out = torch.empty((B, HIDDEN, N), dtype=x.dtype, device=x.device).transpose(1, 2)
-    else:
-        out = torch.empty((B, N, HIDDEN), dtype=x.dtype, device=x.device)
-    linear_attention_pass2(x, w_qkv, g, mean, rstd, sums, out)
-    return out
+        if len(prenorm) == 3:
+            mean, rstd = prenorm[:2]
+    inputs = (x, w_qkv, g, mean, rstd)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        if mean is not None:
+            raise ValueError("a gradient of linear_attention needs prenorm None or (g,): "
+                             "the statistics are computed, not given")
+        return LinearAttentionFunction.apply(x, w_qkv, g, heads, dim_head)
+    return _forward(x, w_qkv, g, mean, rstd, heads, dim_head)[0]

@@ -1,7 +1,9 @@
-"""HEM training config (the JAX package's ``HEMTrainConfig``; reference
-HEM/experiments/params.json and its stage2 variant), and how the trainer
-resolves its ``attn_impl`` and ``remat`` as the JAX trainer does, with the
-port's ``'cuda'`` in the place of JAX's ``'tpu'`` backend.
+"""Training configs (the JAX package's ``train/config.py``): DGM diffusion
+training (``DGMTrainConfig``, reference DGM/demo.py) and HEM training
+(``HEMTrainConfig``; reference HEM/experiments/params.json and its stage2
+variant), and how the HEM trainer resolves its ``attn_impl`` and ``remat``
+as the JAX trainer does, with the port's ``'cuda'`` in the place of JAX's
+``'tpu'`` backend.
 """
 
 from __future__ import annotations
@@ -10,7 +12,37 @@ import dataclasses
 from typing import Optional, Union
 
 from dmhomo_torch.config import EstimatorConfig, Params
+from dmhomo_torch.diffusion.gaussian import DiffusionConfig
 from dmhomo_torch.losses.hem_losses import LossWeights
+from dmhomo_torch.models.unet import UNetConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class DGMTrainConfig:
+    """DGM diffusion training: Adam(lr, betas (adam_b1, adam_b2)) after a
+    global-norm clip, an EMA of the weights, ``gradient_accumulate_every``
+    microbatches per step of the global ``train_batch_size``.  ``bf16``
+    runs the UNet's activations in bf16 (parameters stay fp32).  One card:
+    the JAX config's ``shard_params`` waits for the parallel layer."""
+
+    unet: UNetConfig = UNetConfig(dim=64, num_classes=5)
+    diffusion: DiffusionConfig = DiffusionConfig(
+        image_size=256, timesteps=1000, sampling_timesteps=32,
+        objective="pred_x0", loss_type="l1")
+    train_batch_size: int = 128  # global
+    lr: float = 5e-4
+    adam_b1: float = 0.9
+    adam_b2: float = 0.99
+    train_num_steps: int = 112_500  # 450k pairs x 32 epochs / bs 128
+    gradient_accumulate_every: int = 1
+    grad_clip_norm: float = 1.0
+    ema_beta: float = 0.995
+    ema_update_every: int = 10
+    save_every: int = 500
+    sample_every: int = 1000
+    results_dir: str = "results"
+    seed: int = 0
+    bf16: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,11 @@
-"""HEM checkpoints in the reference Manager layout (HEM/common/manager.py):
+"""Checkpoint files, written atomically.
+
+HEM checkpoints take the reference Manager layout (HEM/common/manager.py):
 one ``torch.save`` dict ``{"state_dict", "optimizer", "scheduler", "step",
 "epoch"}`` per tag, at ``<root>/model_<tag>.pth`` (``latest``, ``best``).
 ``state_dict`` holds the reference's key names, so the file loads in
-``python -m dmhomo_torch.cli.hem_eval --torch-ckpt``."""
+``python -m dmhomo_torch.cli.hem_eval --torch-ckpt``.  The DGM trainer
+writes its own layout through :func:`atomic_save`."""
 
 from __future__ import annotations
 
@@ -15,14 +18,18 @@ def checkpoint_path(root: str, tag: str) -> str:
     return os.path.join(root, f"model_{tag}.pth")
 
 
-def save_checkpoint(root: str, tag: str, state: dict) -> str:
-    """Write ``state`` atomically (a temporary file, then a rename)."""
-    os.makedirs(root, exist_ok=True)
-    path = checkpoint_path(root, tag)
+def atomic_save(state: dict, path: str) -> str:
+    """``torch.save`` to a temporary file beside ``path``, then a rename."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(state, tmp)
     os.replace(tmp, path)
     return path
+
+
+def save_checkpoint(root: str, tag: str, state: dict) -> str:
+    """Write ``state`` atomically at ``<root>/model_<tag>.pth``."""
+    return atomic_save(state, checkpoint_path(root, tag))
 
 
 def load_checkpoint(root: str, tag: str) -> dict:

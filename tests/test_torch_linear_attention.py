@@ -14,7 +14,21 @@
   weights (round(diag(g) W)^T, g . W) against the plain version's;
 * the CUDA kernels vs the plain version (needs the card; skips here): small,
   ragged and unaligned cases (the element-wise loader), and the UNet's
-  eight LinearAttention sites at the generation batch (the aligned loader).
+  eight LinearAttention sites at the generation batch (the aligned loader);
+* the backward (``LinearAttentionFunction``, ``linear_attention_backward``)
+  against ``jax.vjp`` of ``blockdiag_linear_attention`` with and without the
+  prenorm (whose statistics JAX differentiates), and against
+  ``torch.autograd.grad`` of the plain version, on the CPU and (needs the
+  card) at the UNet's eight sites with the kernels' forward: dx, dW, dg,
+  each relative to its largest value, within 1e-5 in fp32 (summation order) and 2e-2 in
+  bf16 (the backward rounds each cotangent of a bf16 value to bf16, as
+  JAX's autodiff does, and autograd of the plain version rounds the sum of
+  two of them once: in the softmax's backward they nearly cancel, so a
+  rounding lands on the other side; the largest seen is 1.2e-2); on the
+  card 3e-2 in bf16, the forward's tolerance (the kernels compute the
+  statistics in their own order, and dW sums terms that largely cancel,
+  so one rounding of qkv moves it by ~1e-2); given statistics
+  ``(mean, rstd, g)`` under autograd are refused.
 
 JAX is imported inside the tests that use it, so that the card's tests run
 where JAX is not installed:
@@ -28,6 +42,9 @@ import torch
 from dmhomo_torch.ops import linear_attention as la
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+GRAD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# on the card, with the kernels' forward: chip_smoke.py's LA_BWD_TOL
+CUDA_GRAD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 
 
 def _inputs(rng, B, N, C):
@@ -115,6 +132,121 @@ def test_kernel_argument_checks(case, match):
     g = torch.zeros(case.get("g", (8,)))
     with pytest.raises((ValueError, TypeError), match=match):
         la._check_cuda_args(x, w, case.get("heads", 4), 32, g)
+
+
+def _grad_inputs(x, w, g, prenorm, dtype, device="cpu", channel_major=True):
+    """Leaf tensors (x channel-major, w, and g with a prenorm) and the
+    prenorm argument of one call."""
+    xt = torch.from_numpy(x).to(device, getattr(torch, dtype))
+    if channel_major:  # the UNet's NCHW activations: token stride 1
+        xt = xt.transpose(1, 2).contiguous().transpose(1, 2)
+    xt.requires_grad_()
+    wt = torch.from_numpy(w).to(device).requires_grad_()
+    gt = torch.from_numpy(g).to(device).requires_grad_()
+    leaves = [xt, wt]
+    if prenorm == "none":
+        return leaves, None
+    return leaves + [gt], (gt,)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("prenorm", [False, True])
+@pytest.mark.parametrize("N, C", [(64, 24), (200, 64)])
+def test_backward_matches_jax_vjp(N, C, prenorm, dtype):
+    """dx, dW and dg of the Function against ``jax.vjp`` of the JAX
+    production function, whose prenorm statistics come from x inside the
+    differentiated function (``ChannelLayerNorm(return_stats=True)``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from dmhomo_tpu.ops.linear_attention import blockdiag_linear_attention
+
+    rng = np.random.default_rng(N + C)
+    x, w, g = _inputs(rng, 2, N, C)
+    dout = rng.normal(0, 1, (2, N, la.HIDDEN)).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+
+    def f(x, w, g):
+        pn = None
+        if prenorm:
+            xf = x.astype(jnp.float32)
+            pn = (xf.mean(-1, keepdims=True), jax.lax.rsqrt(xf.var(-1, keepdims=True) + 1e-5), g)
+        return blockdiag_linear_attention(x, w, prenorm=pn)
+
+    _, vjp = jax.vjp(f, jnp.asarray(x, jdt), jnp.asarray(w), jnp.asarray(g))
+    want = vjp(jnp.asarray(dout, jdt))
+    leaves, pn = _grad_inputs(x, w, g, "gain" if prenorm else "none", dtype)
+    out = la.linear_attention(leaves[0], leaves[1], prenorm=pn)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(dout).to(out.dtype))
+    assert got[0].dtype == out.dtype and got[0].stride(1) == 1  # x's layout
+    for a, b in zip(got, want):
+        assert _rel_err(a.float().numpy(), np.asarray(b, np.float32)) <= GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("channel_major", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("prenorm", ["none", "gain"])
+def test_function_matches_autograd_of_plain(prenorm, dtype, channel_major):
+    """The Function (plain forward on the CPU, explicit backward) against
+    ``torch.autograd.grad`` through ``linear_attention_reference``; dx in
+    x's layout."""
+    rng = np.random.default_rng(7)
+    x, w, g = _inputs(rng, 2, 200, 64)
+    dout = torch.from_numpy(rng.normal(size=(2, 200, la.HIDDEN)).astype(np.float32))
+    grads, outs = [], []
+    for fn in (la.linear_attention, la.linear_attention_reference):
+        leaves, pn = _grad_inputs(x, w, g, prenorm, dtype, channel_major=channel_major)
+        out = fn(leaves[0], leaves[1], prenorm=pn)
+        outs.append(out.detach())
+        grads.append(torch.autograd.grad(out, leaves, dout.to(out.dtype)))
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+    assert grads[0][0].stride() == leaves[0].stride()
+    for a, b in zip(*grads):
+        assert a.shape == b.shape
+        assert _rel_err(a.float().numpy(), b.float().numpy()) <= GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("prenorm", ["none", "gain"])
+def test_backward_in_slices_and_chunks_equals_one_pass(monkeypatch, prenorm):
+    """The backward takes the batch in slices of samples (to bound its fp32
+    temporaries) and sums over the tokens per chunk of them: the same
+    gradients within fp32 order (a product's blocking depends on its batch;
+    the sums run over the slices and chunks), 1e-6 of each one's largest
+    value."""
+    rng = np.random.default_rng(8)
+    x, w, g = (torch.from_numpy(a) for a in _inputs(rng, 3, 100, 32))
+    x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    mean, rstd = (t.reshape(3, 100) for t in la.layer_norm_stats(x))
+    if prenorm == "none":
+        g = mean = rstd = None
+    dout = torch.from_numpy(rng.normal(size=(3, 100, la.HIDDEN)).astype(np.float32))
+    args = (x, w, g, mean, rstd, dout)
+    whole = la.linear_attention_backward(*args)
+    monkeypatch.setattr(la, "_BACKWARD_SLICE_BYTES", 100 * 384 * 4)  # one sample a slice
+    monkeypatch.setattr(la, "_BACKWARD_CHUNK", 25)  # 4 chunks of 25 tokens
+    sliced = la.linear_attention_backward(*args)
+    assert sliced[0].stride() == x.stride()
+    for a, b in zip(sliced, whole):
+        assert (a is None) == (b is None)
+        if b is not None:
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("leaf", ["x", "w", "g", "mean", "rstd"])
+def test_given_statistics_under_autograd_raise(leaf):
+    """A call with ``prenorm=(mean, rstd, g)`` that needs a gradient is
+    refused, whichever input needs it; without a gradient it runs."""
+    rng = np.random.default_rng(9)
+    x, w, g = (torch.from_numpy(a) for a in _inputs(rng, 2, 40, 16))
+    mean, rstd = la.layer_norm_stats(x)
+    t = dict(x=x, w=w, g=g, mean=mean, rstd=rstd)
+    t[leaf].requires_grad_()
+    with pytest.raises(ValueError, match=r"prenorm None or \(g,\)"):
+        la.linear_attention(t["x"], t["w"], prenorm=(t["mean"], t["rstd"], t["g"]))
+    with torch.no_grad():
+        got = la.linear_attention(t["x"], t["w"], prenorm=(t["mean"], t["rstd"], t["g"]))
+    torch.testing.assert_close(got, la.linear_attention_reference(x, w, prenorm=(g,)),
+                               rtol=0, atol=0)
 
 
 # (N, C) of the UNet's eight LinearAttention sites at 256x256 (dim 64, mults
@@ -268,6 +400,32 @@ def test_bf16_streamed_weights(cuda_device, channel_major):
     want = la.linear_attention_reference(xt, wt, prenorm=(gt,))
     err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
     assert err <= TOL["bfloat16"], err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("site", range(len(UNET_SITES)))
+def test_cuda_backward_at_unet_sites(cuda_device, site, dtype):
+    """The Function on the card (both kernels forward, one launch each, the
+    explicit backward) at a UNet site, B = 2, channel-major, prenorm: dx,
+    dW and dg against ``torch.autograd.grad`` of the plain version."""
+    N, C = UNET_SITES[site]
+    rng = np.random.default_rng(site)
+    x, w, g = _inputs(rng, 2, N, C)
+    dout = torch.from_numpy(rng.normal(size=(2, N, la.HIDDEN)).astype(np.float32))
+    grads = []
+    for fn in (la.linear_attention, la.linear_attention_reference):
+        leaves, pn = _grad_inputs(x, w, g, "gain", dtype, cuda_device)
+        before = (la.linear_attention_pass1.launches, la.linear_attention_pass2.launches)
+        out = fn(leaves[0], leaves[1], prenorm=pn)
+        grads.append(torch.autograd.grad(out, leaves, dout.to(cuda_device, out.dtype)))
+        launched = (la.linear_attention_pass1.launches - before[0],
+                    la.linear_attention_pass2.launches - before[1])
+        assert launched == ((1, 1) if fn is la.linear_attention else (0, 0))
+    assert grads[0][0].stride(1) == 1
+    for a, b in zip(*grads):
+        err = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+        assert bool(torch.isfinite(a).all()) and err <= CUDA_GRAD_TOL[dtype], err
 
 
 def test_breakdown_edits_apply():

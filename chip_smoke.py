@@ -54,6 +54,22 @@ Phases, each printing its results; any failure exits non-zero:
    the CPU's own change when the input moves by 1e-7.
 10. training profile: one step under ``torch.profiler``: device time by
     kernel, and the idle share of phase 8's unprofiled step time.
+8b. graph training slice: phase 8's trainer, from where phase 10 left it,
+    on phase 8's batch: one eager step on the batch already on the card
+    under ``torch.cuda.set_sync_debug_mode('error')`` (any host sync fails
+    it); then ``HEMTrainer.train_steps``, one call per step (the first runs
+    its step eagerly and captures the step as a CUDA graph; 2 more warm up;
+    10 timed replays, host clock around ``synchronize()``), and one call of
+    10 steps: step ms, pairs/s, peak memory (the graph's pool included); the
+    launches per replay counted at capture must be phase 8's 160 + 160 (and
+    its counts by shape), the wrappers' counters must not move on a replay,
+    and a profiled replay must show as many device launches of each kernel,
+    by name; its device busy time and idle share.
+8c. graph vs eager: one fp32 step at the shipped shape (TF32 off) through
+    ``train_steps`` (the first step eager, then one replay) against
+    ``train_step`` from the same seed: losses within 1e-5 relative, weights
+    within 2 lr, BatchNorm statistics within 1e-5 of their largest value;
+    a second eager run beside them gives the eager step's own spread.
 11. linear-attention build: registers, spills and dynamic shared memory of
     each variant of ``dmhomo_torch/csrc/linear_attention.cu`` (built in
     phase 2, in parallel with the window-attention source): the fp32
@@ -130,6 +146,9 @@ Phases, each printing its results; any failure exits non-zero:
     per step, each shape weighted by the launches the wrappers counted for
     it in the timed steps (the rows must cover all 320 and 160), beside the
     forward's bound.
+20b. phase 8b for phase 20's trainer (``fused_block``): 320 + 160
+    whole-block launches per replay, none of the window kernels.
+20c. phase 8c with ``attn_impl='fused_block'``.
 21. whole-block training card vs CPU: phase 9 with ``attn_impl='fused_block'``.
 22. DGM training slice: ``DGMTrainer(DGMTrainConfig())`` as shipped (bf16,
     global batch 128, 256x256, UNet dim 64, mults (1, 2, 4, 8), 5 classes,
@@ -162,7 +181,8 @@ Phases, each printing its results; any failure exits non-zero:
     1e-7, then the clipped Adam update and the EMA.
 
 The line before the last is a JSON object with the six kernels' numbers
-(kernels 3 and 4 with their launches per DGM training step); the last is
+(kernels 3 and 4 with their launches per DGM training step, the HEM
+kernels with their launches per replayed step); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1875,12 +1895,187 @@ def phase_train_fused(dev, batch, seed: int, window_step_ms: float, shapes, bwd_
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
         log(f"[sb-train-profile] {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
-    del trainer
-    torch.cuda.empty_cache()
-    return {"step_ms": step_ms, "peak": peak, "launches": totals, "idle": idle,
+    return {"trainer": trainer, "by_shape": by_shape,
+            "step_ms": step_ms, "peak": peak, "launches": totals, "idle": idle,
             "dev_ms": dev_ms, "kernel_ms": kern, "bwd_parts_ms": parts, "dtypes": expected[:20],
             "fwd_ms_per_step": fwd_step["ms"], "fwd_bound_ms_per_step": fwd_step["bound_ms"],
             "fwd_step_shapes": fwd_rows}
+
+
+# ---------------------------------------------------------------------------
+# the HEM step as a CUDA graph (phases 8b-8c, 20b-20c)
+# ---------------------------------------------------------------------------
+
+# each wrapper's kernel as the profiler names it (one device launch per call:
+# the backwards' first kernel)
+DEVICE_KERNEL = {"window_attention": "window_attention_fwd",
+                 "window_attention_backward": "window_attention_bwd_kernel",
+                 "swin_block": "swin_block_fwd_kernel",
+                 "swin_block_backward": "swin_block_bwd_recompute_kernel"}
+# graph vs eager, one fp32 step at the shipped shape (phase 25's rule): the
+# losses relative, the BatchNorm statistics relative to their largest value,
+# the weights within GRAPH_LR_FACTOR lr (an element whose gradient is near
+# zero may move either way)
+GRAPH_LOSS_TOL = 1e-5
+GRAPH_BN_TOL = 1e-5
+GRAPH_LR_FACTOR = 2.0
+GRAPH_STEPS = 2  # the first eager (the warm-up before capture), then one replay
+
+
+def phase_train_graph(trainer, batch, eager: dict, want: dict, by_shape: dict, tag: str):
+    """Phases 8b and 20b: the eager phase's trainer, from where it left
+    off, on its batch.  One eager step on the batch already on the card with
+    any host sync an error; then ``train_steps``, one call per step: the
+    first runs its step eagerly and captures the graph, 2 more warm up, 10
+    are timed (host clock around ``synchronize()``); one call of 10 steps;
+    the launches each replay makes (counted at capture, and by kernel name
+    in a profiled replay) against the eager step's ``want``; device busy and
+    idle share of the profiled replay."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmhomo_torch.train.hem_trainer import LAUNCH_COUNTERS
+
+    dev_batch = {k: torch.from_numpy(v).to(trainer.device) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.train_step(dev_batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"[{tag}] one eager step on a batch already on the card under "
+        "torch.cuda.set_sync_debug_mode('error'): no host sync")
+    del dev_batch
+
+    counted = {fn.__name__: fn.launches for fn in LAUNCH_COUNTERS}
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for step in range(WARMUP_STEPS + TIMED_STEPS):
+        t0 = time.perf_counter()
+        out = trainer.train_steps([batch])
+        loss = float(out["total"][0])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        if step == 0:
+            # the first call's step ran eagerly (the wrappers counted it); no
+            # replay ran Python, so nothing after it moves their counters
+            moved = {fn.__name__: fn.launches - counted[fn.__name__] for fn in LAUNCH_COUNTERS}
+            counted = {fn.__name__: fn.launches for fn in LAUNCH_COUNTERS}
+    after = {fn.__name__: fn.launches - counted[fn.__name__] for fn in LAUNCH_COUNTERS}
+    sg = trainer.step_graph
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved()
+    timed = times[WARMUP_STEPS:]
+    step_ms = float(np.median(timed))
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"graph training loss not finite: {losses}")
+    if sg.launches != want or moved != want or any(after.values()):
+        raise SystemExit(f"launches per replay counted at capture {sg.launches}, by the "
+                         f"eager first step {moved}, by the replays {after}; expected {want}")
+    shapes = {n: {k: v / TIMED_STEPS for k, v in c.items()} for n, c in by_shape.items()}
+    if {n: dict(sg.launches_by_shape[n]) for n in shapes} != shapes:
+        raise SystemExit(f"launches per replay by shape {sg.launches_by_shape}, eager {shapes}")
+    log(f"[{tag}] train_steps, one call per step: first call (an eager step, then the "
+        f"capture) {times[0]:.1f} ms, steady {step_ms:.2f} ms (timed "
+        f"{', '.join(f'{t:.1f}' for t in timed)}), {1e3 * BATCH / step_ms:.2f} training "
+        f"pairs/s; eager step (this trainer's phase) {eager['step_ms']:.2f} ms; peak allocated "
+        f"{peak / 2**30:.2f} GiB, reserved {reserved / 2**30:.2f} GiB (the graph's pool "
+        f"included); losses {losses[0]:.5f} -> {losses[-1]:.5f}")
+    shapes_seen = {n: {str(k): v for k, v in c.items()} for n, c in sg.launches_by_shape.items()
+                   if c}
+    log(f"[{tag}] launches per replay, counted at capture: {sg.launches} (the eager step's); "
+        f"by shape {json.dumps(shapes_seen)}")
+
+    t0 = time.perf_counter()
+    out = trainer.train_steps([batch] * TIMED_STEPS)
+    last = float(out["total"][-1])
+    torch.cuda.synchronize()
+    fused_ms = 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
+    log(f"[{tag}] train_steps of {TIMED_STEPS} steps in one call: {fused_ms:.2f} ms per step, "
+        f"{1e3 * BATCH / fused_ms:.2f} training pairs/s (last loss {last:.5f})")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_steps([batch])
+        torch.cuda.synchronize()
+    events = kernel_events(prof.key_averages())
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if dev_ms <= 0:
+        raise SystemExit("the profiler saw no device time in a replay")
+    idle = max(0.0, 1.0 - dev_ms / step_ms)
+    device = {n: sum(e.count for e in events if part in e.key)
+              for n, part in DEVICE_KERNEL.items()}
+    kernel_ms = {n: sum(e.self_device_time_total for e in events if part in e.key) / 1e3
+                 for n, part in DEVICE_KERNEL.items()}
+    if device != want:
+        raise SystemExit(f"device-side launches in a profiled replay {device}, expected {want}")
+    log(f"[{tag}-profile] one replayed step: device busy {dev_ms:.2f} ms of the {step_ms:.2f} ms "
+        f"unprofiled step: idle {100 * idle:.1f}% (eager step idle "
+        f"{100 * eager['idle']:.1f}%); device-side launches by kernel name {device}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"[{tag}-profile] {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+            f"{e.key[:90]}")
+    return {"step_ms": step_ms, "pairs_per_s": 1e3 * BATCH / step_ms, "first_call_ms": times[0],
+            "timed_ms": timed, "fused_call_ms_per_step": fused_ms, "idle": idle,
+            "dev_ms": dev_ms, "peak_bytes": peak, "reserved_bytes": reserved,
+            "launches_per_step": sg.launches, "device_launches": device,
+            "kernel_ms": kernel_ms, "eager_step_ms": eager["step_ms"], "eager_idle": eager["idle"]}
+
+
+def phase_graph_vs_eager(dev, batch, seed: int, attn_impl: str, tag: str):
+    """Phases 8c and 20c: one fp32 graph step at the shipped shape (TF32
+    off) against an eager one.  Three trainers from the same seed take
+    GRAPH_STEPS steps on the batch: two by ``train_step``, one by one
+    ``train_steps`` call (its first step eager, then one replay, whose
+    forward reads the first step's weights and whose Adam update moves
+    them): the losses, the BatchNorm statistics and the weights after it.
+    The two eager trainers give the run-to-run spread of the eager step
+    (cuDNN's backward is not bit-reproducible) beside it."""
+    import dataclasses
+
+    import torch
+
+    from dmhomo_torch.train.config import HEMTrainConfig
+    from dmhomo_torch.train.hem_trainer import HEMTrainer
+
+    cfg = dataclasses.replace(HEMTrainConfig(), bf16=False, attn_impl=attn_impl)
+    eager, again, graph = (HEMTrainer(cfg, steps_per_epoch=1000, device=dev) for _ in range(3))
+    for t in (eager, again, graph):
+        t.init_state(seed + 2)
+    start = {n: p.detach().clone() for n, p in eager.model.named_parameters()}
+    want = torch.stack([eager.train_step(batch)["total"] for _ in range(GRAPH_STEPS)])
+    spread = torch.stack([again.train_step(batch)["total"] for _ in range(GRAPH_STEPS)])
+    got = graph.train_steps([batch] * GRAPH_STEPS)["total"]
+    torch.cuda.synchronize()
+
+    @torch.no_grad()
+    def differ(a, b):
+        loss = float(((a[0] - b[0]).abs() / b[0].abs()).max())
+        w = max(float((p - q).abs().max()) for p, q in
+                zip(a[1].model.parameters(), b[1].model.parameters()))
+        bufs = dict(b[1].model.named_buffers())
+        bn = max(float((v - bufs[n]).abs().max()) / float(bufs[n].abs().max())
+                 for n, v in a[1].model.named_buffers() if "running_" in n)
+        return {"loss_rel": loss, "weight_abs": w, "bn_rel": bn}
+
+    d = differ((got, graph), (want, eager))
+    noise = differ((spread, again), (want, eager))
+    with torch.no_grad():
+        moved = max(float((p - start[n]).abs().max()) for n, p in eager.model.named_parameters())
+    log(f"[{tag}] attn_impl={attn_impl!r}, fp32, B={BATCH} in microbatches of {MICROBATCH}: "
+        f"{GRAPH_STEPS} steps eager vs train_steps (step 1 eager, then a replay): losses "
+        f"{', '.join(f'{x:.8f}' for x in want.tolist())} vs "
+        f"{', '.join(f'{x:.8f}' for x in got.tolist())}: rel {d['loss_rel']:.3g} (tol "
+        f"{GRAPH_LOSS_TOL:g}); weights max |graph - eager| {d['weight_abs']:.3g} (tol "
+        f"{GRAPH_LR_FACTOR:g} lr = {GRAPH_LR_FACTOR * cfg.lr:g}; the steps moved them by up to "
+        f"{moved:.3g}); BatchNorm statistics {d['bn_rel']:.3g} of their largest value (tol "
+        f"{GRAPH_BN_TOL:g}); two eager runs differ by {json.dumps(noise)}")
+    if not (d["loss_rel"] <= GRAPH_LOSS_TOL and d["weight_abs"] <= GRAPH_LR_FACTOR * cfg.lr
+            and d["bn_rel"] <= GRAPH_BN_TOL):
+        raise SystemExit(f"graph and eager steps disagree: {d}")
+    del eager, again, graph
+    torch.cuda.empty_cache()
+    return {**d, "eager_vs_eager": noise, "weights_moved": moved}
 
 
 # ---------------------------------------------------------------------------
@@ -2332,8 +2527,15 @@ def main(argv=None):
     per_step_launches = 40 * (BATCH // MICROBATCH)
     count_step_launches(step_rows, train["by_shape"]["fwd"], per_step_launches, "kernel-step")
     count_step_launches(bwd_results, train["by_shape"]["bwd"], per_step_launches, "bwd-kernel")
-    del train["trainer"]
+    graph = phase_train_graph(
+        train.pop("trainer"), train_batch, {"step_ms": train["step_ms"], "idle": idle},
+        {"window_attention": per_step_launches, "window_attention_backward": per_step_launches,
+         "swin_block": 0, "swin_block_backward": 0},
+        {"window_attention": train["by_shape"]["fwd"],
+         "window_attention_backward": train["by_shape"]["bwd"]}, "graph-train")
     torch.cuda.empty_cache()
+    graph["vs_eager"] = phase_graph_vs_eager(dev, train_batch, args.seed, "auto",
+                                             "graph-vs-eager")
 
     from dmhomo_torch.models.unet import UNetConfig
 
@@ -2358,6 +2560,18 @@ def main(argv=None):
     sbb_results, sbb_worst = phase_swin_bwd_kernels(train_shapes, dev, args.seed)
     sb_train = phase_train_fused(dev, train_batch, args.seed, train["step_ms"], train_shapes,
                                  sbb_results)
+    sb_launches_step = {k: v // TIMED_STEPS for k, v in sb_train["launches"].items()}
+    sb_graph = phase_train_graph(
+        sb_train.pop("trainer"), train_batch,
+        {"step_ms": sb_train["step_ms"], "idle": sb_train["idle"]},
+        {"window_attention": sb_launches_step["wa_fwd"],
+         "window_attention_backward": sb_launches_step["wa_bwd"],
+         "swin_block": sb_launches_step["fwd"], "swin_block_backward": sb_launches_step["bwd"]},
+        {"swin_block": sb_train["by_shape"]["fwd"],
+         "swin_block_backward": sb_train["by_shape"]["bwd"]}, "sb-graph-train")
+    torch.cuda.empty_cache()
+    sb_graph["vs_eager"] = phase_graph_vs_eager(dev, train_batch, args.seed, "fused_block",
+                                                "sb-graph-vs-eager")
     sb_step_diffs = phase_train_card_vs_cpu(dev, args.seed, attn_impl="fused_block",
                                             tag="sb-train-card-vs-cpu")
     torch.cuda.empty_cache()
@@ -2393,6 +2607,8 @@ def main(argv=None):
         "unit": f"sum over the {expected} launches of one estimator forward, B={BATCH}, fp32",
         "max_abs_err_bf16": worst["bfloat16"],
         "launches_train": train["fwd_launches"],
+        # launches per replay of the captured training step (phase 8b)
+        "launches_per_graph_step": graph["launches_per_step"]["window_attention"],
         # per training step: the 160 launches at B=8, bf16
         "ms_per_step": sum(r["ms"] * r["launches_per_step"] for r in step_rows),
         "bound_ms_per_step": sum(r["bound_ms"] * r["launches_per_step"] for r in step_rows),
@@ -2407,6 +2623,7 @@ def main(argv=None):
         "source": "dmhomo_torch/csrc/window_attention.cu",
         "replaces": "dmhomo_tpu/ops/window_attention.py:117",
         "launches": train["bwd_launches"], "max_abs_err": bwd_worst[("bfloat16", "dqkv")],
+        "launches_per_graph_step": graph["launches_per_step"]["window_attention_backward"],
         "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
         "bound_ms": per_step("bound_ms"),
         "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in train_rows)
@@ -2510,6 +2727,7 @@ def main(argv=None):
         "max_abs_err_bf16": sb_worst["bfloat16"],
         "eval_batch_ms": sb_slice["batch_ms"],
         "launches_train": sb_train["launches"]["fwd"],
+        "launches_per_graph_step": sb_graph["launches_per_step"]["swin_block"],
         # per fused_block training step: the 320 launches at B=8 and the step's dtypes
         "ms_per_step": sb_train["fwd_ms_per_step"],
         "bound_ms_per_step": sb_train["fwd_bound_ms_per_step"],
@@ -2541,6 +2759,7 @@ def main(argv=None):
         "source": "dmhomo_torch/csrc/swin_block.cu",
         "replaces": "dmhomo_tpu/ops/swin_block.py:158",
         "launches": sb_train["launches"]["bwd"],
+        "launches_per_graph_step": sb_graph["launches_per_step"]["swin_block_backward"],
         "max_abs_err": max(v for (dt, _), v in sbb_worst.items() if dt == "bfloat16"),
         "ms": sbb_per_step("ms"), "plain_ms": sbb_per_step("plain_ms"),
         "bound_ms": sbb_per_step("bound_ms"),
@@ -2598,6 +2817,14 @@ def main(argv=None):
         "backward_per_step": bwd_step,
         "backward_max_rel_err": {f"{dt} {n}": v for (dt, n), v in la_bwd_worst.items()},
         "backward_sites": la_bwd_rows, "card_vs_cpu": dgm_diffs}))
+    for model_name, g in (("window kernels", graph), ("fused_block", sb_graph)):
+        log(f"[summary] graph training step ({model_name}): {g['step_ms']:.2f} ms, "
+            f"{g['pairs_per_s']:.2f} pairs/s, idle {100 * g['idle']:.1f}%, peak "
+            f"{g['peak_bytes'] / 2**30:.2f} GiB (reserved {g['reserved_bytes'] / 2**30:.2f}); "
+            f"eager {g['eager_step_ms']:.2f} ms, idle {100 * g['eager_idle']:.1f}%; "
+            f"{g['fused_call_ms_per_step']:.2f} ms per step at {TIMED_STEPS} steps per call; "
+            f"graph vs eager {json.dumps(g['vs_eager'])}")
+    log("[graph-summary] " + json.dumps({"window": graph, "fused_block": sb_graph}))
     log(smi)  # nvidia-smi: card name, power limit
     log(json.dumps({"kernels": [kernel, bwd_kernel] + la_kernels + [sb_kernel, sbb_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

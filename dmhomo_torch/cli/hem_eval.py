@@ -1,7 +1,12 @@
 """HEM CAHomo evaluation on the card: per-category point-matching errors.
 
-Example:
+Examples:
   python -m dmhomo_torch.cli.hem_eval --test-data CAHomo --torch-ckpt HEM.pth
+  python -m dmhomo_torch.cli.hem_eval --test-data CAHomo --ckpt experiments/hem/best
+
+``--torch-ckpt`` takes a reference HEM .pth; ``--ckpt`` a checkpoint of the
+port's own trainer (``hem_train --out DIR`` writes ``DIR/model_latest.pth``
+and ``DIR/model_best.pth``): ``DIR/best``, ``DIR/latest`` or the file.
 
 Runs on ``cuda`` (raises without a card) unless ``--device cpu``.
 """
@@ -36,7 +41,10 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--test-data", type=str, required=True)
     parser.add_argument("--model-dir", type=str, default=None, help="dir with params.json")
-    parser.add_argument("--torch-ckpt", type=str, required=True, help="reference HEM .pth")
+    ckpt = parser.add_mutually_exclusive_group(required=True)
+    ckpt.add_argument("--ckpt", type=str, default=None,
+                      help="the port trainer's checkpoint: <out>/best, <out>/latest or the file")
+    ckpt.add_argument("--torch-ckpt", type=str, default=None, help="reference HEM .pth")
     parser.add_argument("--batch-size", type=int, default=32)
     parser.add_argument("--out-json", type=str, default=None)
     parser.add_argument("--seed-zero", action="store_true",
@@ -50,11 +58,13 @@ def main(argv=None):
     from dmhomo_torch.data.hem_data import CAHomoTestDataset
     from dmhomo_torch.data.loader import iterate_batches, pad_batch
     from dmhomo_torch.models.convert import load_hem_checkpoint, load_reference_state_dict
+    from dmhomo_torch.utils.checkpoint import resolve_checkpoint
 
     cfg = (EstimatorConfig.from_params(Params(os.path.join(args.model_dir, "params.json")))
            if args.model_dir else EstimatorConfig())
     model = build_estimator(cfg, device=args.device)
-    load_reference_state_dict(model, load_hem_checkpoint(args.torch_ckpt))
+    path = resolve_checkpoint(args.ckpt) if args.ckpt else args.torch_ckpt
+    load_reference_state_dict(model, load_hem_checkpoint(path))
     device = next(model.parameters()).device
 
     ds = CAHomoTestDataset(args.test_data, crop_size=cfg.crop_size)

@@ -12,8 +12,16 @@ Example (CPU, tiny config):
 --attn picks the attention implementation as the JAX CLI's does ('auto':
 the window-attention kernel on the card, the plain path on the CPU;
 'fused_block': each Swin block as one whole-block kernel, forward and
-backward).  The kernels take the shipped widths only: --tiny with
---attn fused_block raises on the card and trains on --device cpu.
+backward).  The kernels take the shipped windows only: 8x8 (64 tokens) for
+the window attention, 8x8 and C in 24/48/96 for the whole block.  --tiny's
+window 4 (16 tokens) therefore raises on the card under every --attn; it
+trains on --device cpu through the plain versions.
+
+--fuse-steps K (default 1) runs up to K optimizer steps per host call
+(HEMTrainer.train_steps), each chunk ending at the eval boundaries, as the
+JAX CLI's does.  On the card each step is then one replay of a CUDA graph of
+the whole step, captured at the first chunk (whose first step runs eagerly);
+on the CPU the steps run one by one.
 
 Runs on ``cuda`` (raises without a card) unless ``--device cpu``.
 """
@@ -54,6 +62,9 @@ def main(argv=None):
     parser.add_argument("--torch-ckpt", type=str, default=None, help="init from a HEM .pth")
     parser.add_argument("--steps", type=int, default=0, help="total steps (default: epochs)")
     parser.add_argument("--tiny", action="store_true", help="tiny config")
+    parser.add_argument("--fuse-steps", type=int, default=1,
+                        help="optimizer steps per host call (a CUDA graph of the step on "
+                             "the card)")
     parser.add_argument("--attn", type=str, default=None,
                         choices=("auto", "xla", "pallas", "fused_block"),
                         help="attention impl (default: the config's 'auto' = the "
@@ -120,7 +131,7 @@ def main(argv=None):
 
     total = args.steps or cfg.num_epochs * steps_per_epoch
     trainer.train_and_evaluate(cycle(train_dl), eval_loader=eval_dl, total_steps=total,
-                               log_every=max(1, min(100, total)))
+                               log_every=max(1, min(100, total)), fuse_steps=args.fuse_steps)
     path = trainer.save(tag="latest")
     trainer.logger.info(f"done: step {trainer.step}, {path}")
     return trainer

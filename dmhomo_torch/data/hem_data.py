@@ -82,6 +82,16 @@ class CAHomoTestDataset:
         }
 
 
+@functools.lru_cache(maxsize=None)
+def _gray_stats(device: torch.device):
+    """MEAN_I and STD_I as fp32 tensors on ``device``, copied there once (a
+    copy per batch would make the training step wait for it), made outside
+    inference mode."""
+    with torch.inference_mode(False):
+        return (torch.tensor(MEAN_I.ravel(), dtype=torch.float32, device=device),
+                torch.tensor(STD_I.ravel(), dtype=torch.float32, device=device))
+
+
 def device_build_patches(img12_u8: torch.Tensor, homo: torch.Tensor, homo_inv: torch.Tensor,
                          start: torch.Tensor, crop_size, ori_size) -> dict:
     """The training batch from raw samples, on their device.
@@ -97,8 +107,7 @@ def device_build_patches(img12_u8: torch.Tensor, homo: torch.Tensor, homo_inv: t
     imgs = img12_u8.permute(0, 2, 3, 1).float()  # (B, S, S, 6)
     if tuple(imgs.shape[1:3]) != (oh, ow):
         imgs = resize_bilinear(imgs, (oh, ow))
-    mean = torch.tensor(MEAN_I.ravel(), dtype=torch.float32, device=imgs.device)
-    std = torch.tensor(STD_I.ravel(), dtype=torch.float32, device=imgs.device)
+    mean, std = _gray_stats(imgs.device)
     gray = torch.cat([((imgs[..., :3] - mean) / std).mean(-1, keepdim=True),
                       ((imgs[..., 3:] - mean) / std).mean(-1, keepdim=True)], dim=-1)
     flows = torch.cat([homography_to_flow(homo_inv.float(), oh, ow, eps=1e-8),

@@ -6,7 +6,9 @@ Per sample: the mean over 6 ground-truth point pairs of
 with the integer-truncated pixel lookup into the full-resolution flow.
 Categories RE/LT/LL/SF/LF over the test video ids; AVG is the mean of the
 category means.  ``seed_zero=True`` reproduces the reference eval's
-spurious 0 element at the head of every category list.
+spurious 0 element at the head of every category list.  The point errors
+under a homography (``point_error_under_h``, ``_v2``) are the reference's
+unused loss-side metrics.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Dict, Sequence
 
 import numpy as np
 import torch
+
+from dmhomo_torch.geometry.homography import apply_homography
 
 CATEGORY_NAMES = ("RE", "LT", "LL", "SF", "LF")
 
@@ -79,3 +83,27 @@ def category_report(buckets: Dict[str, list]) -> Dict[str, float]:
     cats = [report[c] for c in CATEGORY_NAMES]
     report["AVG"] = float(np.nanmean(cats)) if not all(np.isnan(cats)) else float("nan")
     return report
+
+
+def point_error_under_h(src: torch.Tensor, dst: torch.Tensor, H: torch.Tensor,
+                        reproduce_axis_quirk: bool = False) -> torch.Tensor:
+    """Per-point matching error under a homography (ComputeErrH_kornia,
+    HEM/loss/losses.py:187-194): src, dst (B, N, 2) matched (x, y) points,
+    H (B, 3, 3) -> (B, N) errors ||dst - H(src)||.
+
+    The reference expression (dead code there) compares the warped x with
+    *src* x; ``reproduce_axis_quirk=True`` keeps that, the default compares
+    with dst x."""
+    src_warp = apply_homography(H, src)
+    ref_x = src if reproduce_axis_quirk else dst
+    return torch.sqrt((src_warp[:, :, 0] - ref_x[:, :, 0]) ** 2
+                      + (src_warp[:, :, 1] - dst[:, :, 1]) ** 2)
+
+
+def point_error_under_h_v2(src: torch.Tensor, dst: torch.Tensor,
+                           H: torch.Tensor) -> torch.Tensor:
+    """One Frobenius error over all points of one sample (ComputeErrH_v2,
+    HEM/loss/losses.py:196-205, dead code there): src, dst (N, 2), H (3, 3)
+    -> 0-d ||dst - H(src)||_F."""
+    src_warp = apply_homography(H[None], src[None])[0]
+    return torch.sqrt(torch.sum((dst - src_warp) ** 2))

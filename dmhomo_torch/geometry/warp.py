@@ -12,7 +12,10 @@ Two bilinear boundary semantics, as in the reference:
 Resizes follow torch ``F.interpolate`` semantics (align_corners=True
 bilinear as two interpolation matrices; floor-scaled nearest with the
 indices computed explicitly on the host), and cv2's half-pixel bilinear for
-``resize_bilinear``.
+``resize_bilinear``.  The matrices and indices are copied to the device once
+per (sizes, device, dtype) and kept there, so that a training step makes no
+host-to-device copy (a copy from pageable memory waits for the stream, and a
+CUDA graph cannot capture it).
 """
 
 from __future__ import annotations
@@ -102,15 +105,25 @@ def _align_corners_matrix(n_in: int, n_out: int) -> np.ndarray:
 def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
     """torch F.interpolate(mode='bilinear', align_corners=True) on NHWC, as
     two separable interpolation-matrix products (full fp32 with TF32 off)."""
+    return _separable(x, out_hw, _align_corners_matrix)
+
+
+@functools.lru_cache(maxsize=128)
+def _device_matrix(matrix, n_in: int, n_out: int, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """``matrix(n_in, n_out)`` as a tensor on ``device``, copied there once
+    (outside inference mode, so that autograd may save it later)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(matrix(n_in, n_out)).to(device, dtype)
+
+
+def _separable(x: torch.Tensor, out_hw, matrix) -> torch.Tensor:
+    """Rows then columns of NHWC ``x`` through the (oh, H) and (ow, W)
+    matrices ``matrix`` gives, in x.dtype with autocast off (coordinates and
+    images stay fp32)."""
     _, H, W, _ = x.shape
-    return _separable(x, _align_corners_matrix(H, out_hw[0]), _align_corners_matrix(W, out_hw[1]))
-
-
-def _separable(x: torch.Tensor, mh: np.ndarray, mw: np.ndarray) -> torch.Tensor:
-    """Rows then columns of NHWC ``x`` through (oh, H) and (ow, W) matrices,
-    in x.dtype with autocast off (coordinates and images stay fp32)."""
-    Mh = torch.from_numpy(mh).to(x.device, x.dtype)
-    Mw = torch.from_numpy(mw).to(x.device, x.dtype)
+    Mh = _device_matrix(matrix, H, out_hw[0], x.device, x.dtype)
+    Mw = _device_matrix(matrix, W, out_hw[1], x.device, x.dtype)
     with torch.autocast(x.device.type, enabled=False):
         y = torch.einsum("oh,bhwc->bowc", Mh, x)
         return torch.einsum("pw,bowc->bopc", Mw, y)
@@ -132,8 +145,16 @@ def _half_pixel_matrix(n_in: int, n_out: int) -> np.ndarray:
 def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
     """Half-pixel bilinear resize on NHWC (cv2 INTER_LINEAR semantics for
     float inputs), as two separable interpolation-matrix products."""
-    _, H, W, _ = x.shape
-    return _separable(x, _half_pixel_matrix(H, out_hw[0]), _half_pixel_matrix(W, out_hw[1]))
+    return _separable(x, out_hw, _half_pixel_matrix)
+
+
+@functools.lru_cache(maxsize=128)
+def _nearest_index(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """floor(i * n_in / n_out) in float64 on the host, clipped; copied to
+    ``device`` once (outside inference mode)."""
+    idx = np.clip(np.floor(np.arange(n_out) * (n_in / n_out)).astype(np.int64), 0, n_in - 1)
+    with torch.inference_mode(False):
+        return torch.from_numpy(idx).to(device)
 
 
 def resize_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:
@@ -141,18 +162,18 @@ def resize_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:
     indices computed explicitly in float64 on the host."""
     _, H, W, _ = x.shape
     oh, ow = out_hw
-    iy = np.clip(np.floor(np.arange(oh) * (H / oh)).astype(np.int64), 0, H - 1)
-    ix = np.clip(np.floor(np.arange(ow) * (W / ow)).astype(np.int64), 0, W - 1)
-    iy = torch.from_numpy(iy).to(x.device)
-    ix = torch.from_numpy(ix).to(x.device)
-    return x.index_select(1, iy).index_select(2, ix)
+    return x.index_select(1, _nearest_index(H, oh, x.device)).index_select(
+        2, _nearest_index(W, ow, x.device))
 
 
 def upsample_flow_to(flow: torch.Tensor, out_hw) -> torch.Tensor:
     """Resize a flow (B, h, w, 2) with magnitude rescale: (u, v) is
     multiplied by (w_out/w_in, h_out/h_in) *before* the align-corners
-    bilinear resize (``upsample2d_flow_as(..., if_rate=True)``)."""
+    bilinear resize (``upsample2d_flow_as(..., if_rate=True)``).  Each rate
+    multiplies its channel as a scalar, rounded to the flow's dtype as a
+    rate tensor of that dtype would be."""
     _, h, w, _ = flow.shape
     oh, ow = out_hw
-    flow = flow * torch.tensor([ow / w, oh / h], dtype=flow.dtype, device=flow.device)
+    rate = torch.tensor([ow / w, oh / h], dtype=flow.dtype).tolist()
+    flow = torch.cat([flow[..., :1] * rate[0], flow[..., 1:] * rate[1]], dim=-1)
     return resize_bilinear_align_corners(flow, out_hw)

@@ -36,7 +36,11 @@ from dmhomo_torch.config import SwinConfig, level_impl
 from dmhomo_torch.geometry.basis import NUM_BASIS, gen_homography_basis
 from dmhomo_torch.geometry.warp import upsample_flow_to, warp_by_flow
 from dmhomo_torch.ops.swin_block import swin_block
-from dmhomo_torch.ops.window_attention import window_attention
+from dmhomo_torch.ops.window_attention import (
+    max_abs_logit,
+    window_attention,
+    window_attention_reference,
+)
 
 
 def relative_position_index(ws: int) -> np.ndarray:
@@ -107,7 +111,14 @@ class Mlp(nn.Module):
 
 
 class WindowAttention(nn.Module):
-    """W-MSA over ws*ws-token windows with the max-free clipped softmax."""
+    """W-MSA over ws*ws-token windows with the max-free clipped softmax.
+
+    With ``logits`` set to a list, the forward runs the plain window
+    attention and appends each call's largest |logit| (mask left out) to it:
+    the clip-validity diagnostic of ``HEMTrainer.logit_health``, which the
+    kernels cannot serve since they never write their logits out."""
+
+    logits = None
 
     def __init__(self, dim: int, window_size: int, num_heads: int, qkv_bias: bool = True):
         super().__init__()
@@ -129,8 +140,11 @@ class WindowAttention(nn.Module):
         return bias.permute(2, 0, 1).contiguous().float()
 
     def forward(self, x: torch.Tensor, mask: "torch.Tensor | None" = None) -> torch.Tensor:
-        return self.proj(window_attention(self.qkv(x), self.position_bias(), mask,
-                                          num_heads=self.num_heads))
+        qkv, bias = self.qkv(x), self.position_bias()
+        if self.logits is None:
+            return self.proj(window_attention(qkv, bias, mask, num_heads=self.num_heads))
+        self.logits.append(max_abs_logit(qkv, bias, num_heads=self.num_heads))
+        return self.proj(window_attention_reference(qkv, bias, mask, num_heads=self.num_heads))
 
 
 class SwinBlock(nn.Module):
@@ -236,7 +250,9 @@ class BasicLayer(nn.Module):
     def forward(self, x):
         for m in self.layer:
             if self.remat and isinstance(m, SwinBlock) and torch.is_grad_enabled():
-                x = checkpoint(m, x, use_reentrant=False)
+                # the blocks draw no random numbers: no RNG state to keep
+                # (and none to restore while a CUDA graph is captured)
+                x = checkpoint(m, x, use_reentrant=False, preserve_rng_state=False)
             else:
                 x = m(x)
         return x

@@ -109,6 +109,16 @@ def window_attention_reference(qkv: torch.Tensor, bias: torch.Tensor,
     return _tokens(out.to(dt))
 
 
+def max_abs_logit(qkv: torch.Tensor, bias: torch.Tensor, *, num_heads: int) -> torch.Tensor:
+    """0-d fp32 max |q k^T + bias| over every window and head of qkv
+    (Bn, N, 3C), q scaled as the forward scales it, without the SW-MSA mask
+    (its -100 entries are meant to clip): the plain logits, which the
+    kernels never write out."""
+    with torch.autocast(qkv.device.type, enabled=False):
+        q, k, _ = _split_scaled(qkv, num_heads)
+        return _logits(q, k, bias, None).abs().max()
+
+
 def window_attention_backward_reference(qkv: torch.Tensor, bias: torch.Tensor,
                                         mask: "torch.Tensor | None", gout: torch.Tensor, *,
                                         num_heads: int):

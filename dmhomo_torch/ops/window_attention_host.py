@@ -14,8 +14,10 @@ arguments, allocate and enqueue the launches (the card runs behind): the
 median of 11 rounds of ``--calls`` calls, and the CPU time over all of
 them.  Then the shipped training step (``attn_impl='auto'``: the window
 kernels) on 32 synthetic pairs: the median step of ``--steps`` after 3
-warm-up steps, and over 3 more steps the wall-clock and CPU time the host
-spends inside the backward's calls per step.  Prints the card's name and
+warm-up steps, the host's time for ``train_step`` to return (the time to
+enqueue the step: with no wait inside the step the card runs behind it), and over
+3 more steps the wall-clock and CPU time the host spends inside the
+backward's calls per step.  Prints the card's name and
 power limit, one line per shape and one JSON line.
 """
 
@@ -107,12 +109,14 @@ def step(steps: int) -> dict:
     def one():
         t0 = time.perf_counter()
         out = trainer.train_step(batch)
+        enqueued = time.perf_counter()
         loss = float(out["total"])
         torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0), loss
+        return 1e3 * (time.perf_counter() - t0), loss, 1e3 * (enqueued - t0)
 
     runs = [one() for _ in range(WARMUP + steps)]
-    times = [t for t, _ in runs[WARMUP:]]
+    times = [t for t, _, _ in runs[WARMUP:]]
+    enqueue = [t for _, _, t in runs[WARMUP:]]
     # the host's time inside the backward's calls (WindowAttentionFunction.backward
     # looks window_attention_backward up in its module at each call)
     inner = wa.window_attention_backward
@@ -137,10 +141,11 @@ def step(steps: int) -> dict:
             one()
     finally:
         wa.window_attention_backward = inner
-    losses = [loss for _, loss in runs]
+    losses = [loss for _, loss, _ in runs]
     if not np.isfinite(losses).all():
         raise SystemExit(f"training loss not finite: {losses}")
     return {"step_ms": statistics.median(times), "step_ms_all": times,
+            "enqueue_ms": statistics.median(enqueue), "enqueue_ms_all": enqueue,
             "bwd_calls_per_step": spent["calls"] / 3,
             "bwd_host_wall_ms_per_step": 1e3 * spent["wall"] / 3,
             "bwd_host_cpu_ms_per_step": 1e3 * spent["cpu"] / 3}
@@ -169,7 +174,8 @@ def main(argv=None) -> None:
                 for k in ("fwd_wall_us", "fwd_cpu_us", "bwd_wall_us", "bwd_cpu_us")}
     st = step(args.steps)
     print(f"[host] a step's calls, weighted by shape: forward {weighted['fwd_wall_us']:.2f} ms "
-          f"wall, backward {weighted['bwd_wall_us']:.2f} ms wall; step {st['step_ms']:.2f} ms, "
+          f"wall, backward {weighted['bwd_wall_us']:.2f} ms wall; step {st['step_ms']:.2f} ms "
+          f"(train_step returns after {st['enqueue_ms']:.2f} ms), "
           f"inside the backward's {st['bwd_calls_per_step']:.0f} calls "
           f"{st['bwd_host_wall_ms_per_step']:.2f} ms wall, {st['bwd_host_cpu_ms_per_step']:.2f} "
           f"ms CPU", flush=True)

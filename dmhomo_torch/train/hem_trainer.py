@@ -10,10 +10,18 @@ checkpoints in the reference Manager layout.  On the card every window
 attention of the step runs the CUDA forward and backward kernels; with
 ``attn_impl='fused_block'`` every Swin block runs the whole-block forward
 and backward kernels instead.
+
+:meth:`HEMTrainer.train_steps` runs K steps per host call, as the JAX
+trainer's scanned ``train_steps`` does: on the card each step is one replay
+of a CUDA graph of the whole step (every microbatch forward and backward,
+Adam, the BatchNorm updates), so the host enqueues a step in one call instead
+of several thousand.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import logging
 from typing import Iterator, Optional
 
@@ -26,12 +34,33 @@ from dmhomo_torch.evaluation.metrics import bucket_by_category, category_report
 from dmhomo_torch.losses.hem_losses import compute_losses
 from dmhomo_torch.models.convert import estimator_state_dict_from_jax
 from dmhomo_torch.models.estimator import HomographyEstimator, random_init_
+from dmhomo_torch.models.swin import WindowAttention
+from dmhomo_torch.ops.swin_block import swin_block, swin_block_backward
+from dmhomo_torch.ops.window_attention import window_attention, window_attention_backward
 from dmhomo_torch.train.config import HEMTrainConfig, estimator_for_training
 from dmhomo_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from dmhomo_torch.utils.device import resolve_device
 from dmhomo_torch.utils.meters import MetricTracker
 
 RAW_KEYS = ("img12", "homo", "homo_inv", "start")
+PATCH_KEYS = ("imgs_gray_patch", "flow_gt_patch")
+# the kernel wrappers a training step may launch, each counting its launches
+LAUNCH_COUNTERS = (window_attention, window_attention_backward, swin_block,
+                   swin_block_backward)
+
+
+@dataclasses.dataclass
+class StepGraph:
+    """One optimizer step captured as a CUDA graph: its static input buffers
+    and loss outputs, and the kernel launches of one replay by wrapper name
+    (and by shape), as the wrappers counted them while the step was captured.
+    A replay runs no Python, so the wrappers' own counters do not move."""
+
+    graph: "torch.cuda.CUDAGraph"
+    inputs: dict
+    losses: dict
+    launches: dict
+    launches_by_shape: dict
 
 
 class HEMTrainer:
@@ -48,6 +77,10 @@ class HEMTrainer:
         self.model: Optional[HomographyEstimator] = None
         self.step = 0
         self.epoch = 0
+        self._lr_dev: Optional[torch.Tensor] = None
+        self._graphs: dict = {}  # (key, shape, dtype) of each input -> StepGraph
+        self.step_graph: Optional[StepGraph] = None  # the graph train_steps last replayed
+        self._health_model: Optional[HomographyEstimator] = None
 
     # -- state --------------------------------------------------------------
 
@@ -59,13 +92,20 @@ class HEMTrainer:
         est = estimator_for_training(cfg, self.device.type)
         self.model = random_init_(HomographyEstimator(est), gen)
         self.model.to(self.device)
+        cuda = self.device.type == "cuda"
+        # capturable on the card: Adam keeps its step count there and reads
+        # its LR from _lr_dev, so eager steps and graph replays take the same
+        # arithmetic from one optimizer
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=cfg.lr,
-                                          betas=(0.9, 0.999), eps=1e-8)
+                                          betas=(0.9, 0.999), eps=1e-8, capturable=cuda)
+        self._lr_dev = torch.tensor(cfg.lr, device=self.device) if cuda else None
         spe, gamma = self.steps_per_epoch, cfg.gamma
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(
             self.optimizer, lambda k: gamma ** (k // spe))
         self.step = 0
         self.epoch = 0
+        self._graphs = {}
+        self.step_graph = None
         return self.model
 
     def load_params(self, params: dict, batch_stats: dict) -> None:
@@ -84,20 +124,18 @@ class HEMTrainer:
     # -- train step ---------------------------------------------------------
 
     def _device_batch(self, batch: dict) -> dict:
-        dev = self.device
-        if "img12" in batch:  # raw schema: the batch is built on the device
-            est = self.config.estimator
-            raw = {k: torch.as_tensor(batch[k]).to(dev) for k in RAW_KEYS}
-            return device_build_patches(raw["img12"], raw["homo"], raw["homo_inv"],
-                                        raw["start"], est.crop_size, est.ori_size)
-        return {k: torch.as_tensor(batch[k]).to(dev)
-                for k in ("imgs_gray_patch", "flow_gt_patch")}
+        keys = RAW_KEYS if "img12" in batch else PATCH_KEYS
+        return {k: torch.as_tensor(batch[k]).to(self.device) for k in keys}
 
-    def train_step(self, batch: dict) -> dict:
-        """One optimizer step on a batch of either schema; returns the loss
-        terms (0-d tensors on the device, means over the microbatches)."""
+    def _forward_backward(self, batch: dict) -> dict:
+        """The step's gradients, summed over its microbatches into ``.grad``
+        (None before), and its loss terms (means over the microbatches), from
+        a batch of either schema on the device."""
         cfg = self.config
-        batch = self._device_batch(batch)
+        if "img12" in batch:  # raw schema: the batch is built on the device
+            est = cfg.estimator
+            batch = device_build_patches(batch["img12"], batch["homo"], batch["homo_inv"],
+                                         batch["start"], est.crop_size, est.ori_size)
         imgs, flows = batch["imgs_gray_patch"], batch["flow_gt_patch"]
         B = imgs.shape[0]
         # one card: the per-device batch is the batch
@@ -105,23 +143,128 @@ class HEMTrainer:
         while accum > 1 and B % accum:
             accum -= 1
         mb = B // accum
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
         sums: dict = {}
         for a in range(accum):
             sl = slice(a * mb, (a + 1) * mb)
-            with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=cfg.bf16):
+            # no cast cache: a captured graph must cast the weights it reads
+            with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=cfg.bf16,
+                                cache_enabled=False):
                 outputs = self.model(imgs[sl])
             losses = compute_losses({"flow_gt_patch": flows[sl]}, outputs, cfg.loss)
             (losses["total"] / accum).backward()
             for k, v in losses.items():
                 sums[k] = sums.get(k, 0.0) + v.detach()
-        self.optimizer.step()
+        return {k: v / accum for k, v in sums.items()}
+
+    def _set_lr(self) -> None:
+        """On the card, the staircase LR of the next step into ``_lr_dev``
+        (outside any graph: a replay reads it there)."""
+        if self._lr_dev is not None:
+            self._lr_dev.fill_(self.lr)
+
+    def _adam_step(self) -> None:
+        """Adam's update.  On the card it reads the LR from ``_lr_dev``; the
+        param group keeps the float that ``LambdaLR`` steps and checkpoints
+        hold."""
+        if self._lr_dev is None:
+            self.optimizer.step()
+            return
+        group = self.optimizer.param_groups[0]
+        lr, group["lr"] = group["lr"], self._lr_dev
+        try:
+            self.optimizer.step()
+        finally:
+            group["lr"] = lr
+
+    def _advance(self) -> None:
         self.scheduler.step()
         self.step += 1
         # epoch-equivalent counter: the reference's per-epoch ExponentialLR
         self.epoch = self.step // self.steps_per_epoch
-        return {k: v / accum for k, v in sums.items()}
+
+    def train_step(self, batch: dict) -> dict:
+        """One optimizer step on a batch of either schema; returns the loss
+        terms (0-d tensors on the device, means over the microbatches)."""
+        batch = self._device_batch(batch)
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        losses = self._forward_backward(batch)
+        self._set_lr()
+        self._adam_step()
+        self._advance()
+        return losses
+
+    def train_steps(self, batches: list) -> dict:
+        """K optimizer steps on a list of K batches of one schema and shape;
+        returns the loss terms as (K,) tensors on the device.  The state
+        afterwards is that of K :meth:`train_step` calls.
+
+        On the card each step replays one CUDA graph of the whole step, which
+        is captured at the first call for each schema and batch shape: that
+        call's first step runs eagerly on a side stream (it sets the kernels'
+        attributes, the libraries' handles, Adam's state and the resizes'
+        device tables), then the step is captured.  The K batches are copied
+        to the card first (one wait); then each step copies its batch into
+        the graph's input buffers, writes the LR, replays and copies the
+        losses out, with no wait for the device.  A capture or replay that
+        fails raises; no step falls back to the eager path.  On the CPU (no
+        graphs there), K :meth:`train_step` calls.
+        """
+        if self.device.type == "cuda":
+            outs = self._graph_steps(batches)
+        else:
+            outs = [self.train_step(b) for b in batches]
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    def _graph_steps(self, batches: list) -> list:
+        staged = [self._device_batch(b) for b in batches]  # one wait, before any step
+        key = tuple((k, tuple(v.shape), v.dtype) for k, v in staged[0].items())
+        self.model.train()
+        outs, first = [], 0
+        if key not in self._graphs:
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                outs.append(self.train_step(staged[0]))
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self._graphs[key] = self._capture(staged[0])
+            first = 1
+        sg = self.step_graph = self._graphs[key]
+        for batch in staged[first:]:
+            for k, buf in sg.inputs.items():
+                buf.copy_(batch[k])
+            self._set_lr()
+            sg.graph.replay()
+            outs.append({k: v.clone() for k, v in sg.losses.items()})
+            self._advance()
+        return outs
+
+    def _capture(self, batch: dict) -> StepGraph:
+        """A CUDA graph of one optimizer step (forward and backward of every
+        microbatch, Adam, the BatchNorm updates) reading static copies of
+        ``batch``'s tensors.  The ``.grad`` tensors are made inside the graph,
+        from its memory pool."""
+        inputs = {k: v.clone() for k, v in batch.items()}
+        self.optimizer.zero_grad(set_to_none=True)
+        before = {fn.__name__: (fn.launches, collections.Counter(fn.launches_by_shape))
+                  for fn in LAUNCH_COUNTERS}
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                losses = self._forward_backward(inputs)
+                self._adam_step()
+        finally:
+            launches, by_shape = {}, {}
+            for fn in LAUNCH_COUNTERS:
+                n, shapes = before[fn.__name__]
+                launches[fn.__name__] = fn.launches - n
+                by_shape[fn.__name__] = fn.launches_by_shape - shapes
+                # nothing ran while the step was captured: the counters count
+                # launches that run, so they go back to where they were
+                fn.launches = n
+                fn.launches_by_shape.clear()
+                fn.launches_by_shape.update(shapes)
+        return StepGraph(graph, inputs, losses, launches, by_shape)
 
     # -- eval ---------------------------------------------------------------
 
@@ -146,24 +289,67 @@ class HEMTrainer:
         self.logger.info(f"[{split}] " + " ".join(f"{k}:{v:.4f}" for k, v in report.items()))
         return report
 
+    @torch.no_grad()
+    def logit_health(self, imgs_gray_patch) -> float:
+        """Largest |q k^T scale + bias| over every ``WindowAttention`` of one
+        eval forward of ``imgs_gray_patch`` (B, hp, wp, 2), the SW-MSA mask
+        left out: the validity check of the max-free softmax's +-60 clip, as
+        the JAX trainer's ``logit_health``.
+
+        The kernels keep their logits on chip, so, as JAX runs a non-remat
+        XLA twin of its model, this runs a twin with the current weights and
+        BatchNorm statistics whose window attention is the plain version
+        (``ops/window_attention.py::_logits``), with unfused blocks under
+        ``fused_block``, no remat, in fp32 without autocast (JAX's twin takes
+        the config's fp32 estimator).  This diagnostic forward is the one
+        place where the plain window attention runs on the card; training
+        and eval never run it there."""
+        if self._health_model is None:
+            est = self.model.config
+            est = dataclasses.replace(est, swin=dataclasses.replace(
+                est.swin, attn_impl="xla", remat=False))
+            self._health_model = HomographyEstimator(est).to(self.device).eval()
+        twin = self._health_model
+        twin.load_state_dict(self.model.state_dict(), strict=True)
+        probes = [m for m in twin.modules() if isinstance(m, WindowAttention)]
+        for m in probes:
+            m.logits = []
+        try:
+            twin(torch.as_tensor(imgs_gray_patch).to(self.device))
+            return float(torch.stack([v for m in probes for v in m.logits]).max())
+        finally:
+            for m in probes:
+                m.logits = None
+
     # -- loop ---------------------------------------------------------------
 
     def train_and_evaluate(self, train_batches: Iterator, eval_loader=None,
-                           total_steps: Optional[int] = None, log_every: int = 100):
-        """Steps until ``total_steps`` (default ``num_epochs`` epochs); every
-        ``train_num_steps`` steps, with an eval loader: evaluate, save
-        ``latest``, and ``best`` when the major metric improved.  Returns the
-        best report (None without evals)."""
+                           total_steps: Optional[int] = None, log_every: int = 100,
+                           fuse_steps: int = 1):
+        """Steps until ``total_steps`` (default ``num_epochs`` epochs), in
+        chunks of up to ``fuse_steps`` through :meth:`train_steps` (one step:
+        :meth:`train_step`); a chunk ends at every ``train_num_steps``
+        boundary, where, with an eval loader: evaluate, save ``latest``, and
+        ``best`` when the major metric improved.  The loss terms are logged
+        when a chunk crosses a multiple of ``log_every``.  Returns the best
+        report (None without evals)."""
         cfg = self.config
         if self.model is None:
             self.init_state()
         total_steps = total_steps or cfg.num_epochs * self.steps_per_epoch
         best_report = None
         while self.step < total_steps:
-            losses = self.train_step(next(train_batches))
-            if self.step % log_every == 0:
+            k = min(fuse_steps, total_steps - self.step,
+                    cfg.train_num_steps - self.step % cfg.train_num_steps)
+            prev = self.step
+            if k == 1:
+                losses = self.train_step(next(train_batches))
+            else:
+                losses = {key: v[-1] for key, v in
+                          self.train_steps([next(train_batches) for _ in range(k)]).items()}
+            if self.step // log_every > prev // log_every:
                 self.logger.info(f"step {self.step}/{total_steps} " + " ".join(
-                    f"{k}:{float(v):.4f}" for k, v in losses.items()))
+                    f"{key}:{float(v):.4f}" for key, v in losses.items()))
             if eval_loader is not None and self.step % cfg.train_num_steps == 0:
                 report = self.evaluate(iter(eval_loader))
                 is_best = self.metrics.is_best("val")
@@ -196,6 +382,14 @@ class HEMTrainer:
         self.model.load_state_dict(ckpt["state_dict"], strict=True)
         if not weights_only:
             self.optimizer.load_state_dict(ckpt["optimizer"])
+            # the file may come from the other device: this trainer's Adam form
+            cuda = self.device.type == "cuda"
+            for group in self.optimizer.param_groups:
+                group["capturable"] = cuda
+            if cuda:
+                for st in self.optimizer.state.values():
+                    st["step"] = st["step"].to(self.device, torch.float32)
             self.scheduler.load_state_dict(ckpt["scheduler"])
             self.step = int(ckpt["step"])
             self.epoch = int(ckpt["epoch"])
+            self._graphs = {}  # they hold the replaced optimizer state

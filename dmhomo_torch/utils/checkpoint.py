@@ -4,7 +4,8 @@ HEM checkpoints take the reference Manager layout (HEM/common/manager.py):
 one ``torch.save`` dict ``{"state_dict", "optimizer", "scheduler", "step",
 "epoch"}`` per tag, at ``<root>/model_<tag>.pth`` (``latest``, ``best``).
 ``state_dict`` holds the reference's key names, so the file loads in
-``python -m dmhomo_torch.cli.hem_eval --torch-ckpt``.  The DGM trainer
+``python -m dmhomo_torch.cli.hem_eval --torch-ckpt FILE`` or ``--ckpt
+<root>/<tag>``.  The DGM trainer
 writes its own layout through :func:`atomic_save`."""
 
 from __future__ import annotations
@@ -30,6 +31,19 @@ def atomic_save(state: dict, path: str) -> str:
 def save_checkpoint(root: str, tag: str, state: dict) -> str:
     """Write ``state`` atomically at ``<root>/model_<tag>.pth``."""
     return atomic_save(state, checkpoint_path(root, tag))
+
+
+def resolve_checkpoint(path: str) -> str:
+    """A checkpoint file: ``path`` itself, or ``<root>/model_<tag>.pth`` for
+    ``path`` = ``<root>/<tag>`` (the JAX CLI's ``--ckpt experiments/hem/best``
+    form)."""
+    if os.path.isfile(path):
+        return path
+    root, tag = os.path.split(os.path.normpath(path))
+    found = checkpoint_path(root, tag)
+    if not os.path.isfile(found):
+        raise FileNotFoundError(f"no checkpoint at {path} or {found}")
+    return found
 
 
 def load_checkpoint(root: str, tag: str) -> dict:

@@ -179,6 +179,25 @@ Phases, each printing its results; any failure exits non-zero:
     on the card (kernels) and on the CPU (plain versions): the loss, each
     gradient held against the CPU's own change when the conditions move by
     1e-7, then the clipped Adam update and the EMA.
+26. the data pipeline end to end, under a temporary directory in
+    ``build/``: (a) ``make_conditions --synthetic 100`` on the card at
+    360x640 -> 256 (the cache's shape, 20 per scene class; ms per condition
+    of the CLI and of ``build_conditions`` alone; the card against the CPU
+    on the same raw pairs: images and rgb_flow 1e-5, the mask exact, the
+    flow 1e-4 px); (b) ``dgm_sample --conditions`` at its defaults, 4
+    batches of 25, seeded random weights: 256 + 256 linear-attention
+    launches per batch, none element-wise, the plain version made to raise,
+    each fitted H within 1e-2 px of its condition's flow; (c)
+    ``make_samples``: 100 files that ``HEMTrainDataset`` reads (its host
+    pipeline against ``device_build_patches`` on one sample); (d)
+    ``HEMTrainConfig()`` streamed from the files as ``hem_train --samples``
+    streams it (4 worker threads, prefetch 2, pinned): ``train_steps`` with
+    one loader batch per call, 3 warm-up then 10 timed steps; the loader
+    alone with 0 and 4 workers; a profiled streamed step: idle share, 160 +
+    160 window kernels per replay; a streamed step profiled in a fresh
+    process (``--streamed-step-copies``): its host-to-device copies from
+    pinned memory on a stream the window kernels do not run on; (e) ``hem_train
+    --samples --steps 4 --fuse-steps 2`` writes its checkpoint.
 
 The line before the last is a JSON object with the six kernels' numbers
 (kernels 3 and 4 with their launches per DGM training step, the HEM
@@ -2101,8 +2120,8 @@ def la_counts():
 
 
 class PlainLinearAttentionRefused:
-    """Inside it, the plain linear-attention passes raise: the training path
-    on the card must not reach them."""
+    """Inside it, the plain linear-attention passes raise: the DGM training
+    and generation paths on the card must not reach them."""
 
     NAMES = ("linear_attention_pass1_reference", "linear_attention_pass2_reference",
              "linear_attention_reference")
@@ -2111,7 +2130,7 @@ class PlainLinearAttentionRefused:
         from dmhomo_torch.ops import linear_attention as la
 
         def refuse(*_, **__):
-            raise SystemExit("the plain linear attention ran on the DGM training path")
+            raise SystemExit("the plain linear attention ran on a path of the card's kernels")
 
         self.saved = {n: getattr(la, n) for n in self.NAMES}
         for n in self.NAMES:
@@ -2483,12 +2502,309 @@ def phase_dgm_card_vs_cpu(dev, seed: int):
             "param_max_diff": float(d.max()), "param_frac_over_1e-6": off}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the data pipeline end to end
+# ---------------------------------------------------------------------------
+
+PIPE_N = 100  # synthetic raw pairs at 360x640: 4 generation batches of GEN_BS
+PIPE_SRC_HW = (360, 640)
+COND_TOL = {"image": 1e-5, "rgb_flow": 1e-5, "flow": 1e-4}  # card vs CPU; the mask exact
+COND_CHANNELS = {"image": slice(0, 6), "mask": slice(6, 7), "rgb_flow": slice(7, 10),
+                 "flow": slice(10, 12)}
+PIPE_WORKERS, PIPE_PREFETCH = 4, 2  # hem_train's loader
+HOST_GRAY_TOL = 0.03  # host pipeline's uint8 resize vs the device's float resize
+
+
+def trace_copies(prof, path: str, compute_part: str):
+    """From a profile's trace: the host-to-device copies (name, stream, bytes,
+    ms) and the streams that ran kernels whose name holds ``compute_part``."""
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    copies = [(e["name"], e.get("args", {}).get("stream"), e.get("args", {}).get("bytes", 0),
+               e.get("dur", 0) / 1e3)
+              for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    compute = {e.get("args", {}).get("stream") for e in events
+               if e.get("cat") == "kernel" and compute_part in e.get("name", "")}
+    return copies, compute
+
+
+def streamed_step_copies(samples: str, seed: int) -> dict:
+    """The host-to-device copies of one streamed replay of the shipped HEM
+    step, by torch.profiler's trace, in the process that runs this (a fresh
+    one: after earlier profiler sessions and a graph capture in the same
+    process the trace carries no copies at all, as phase 8b's profile of the
+    full run shows): the trainer from the files of ``samples`` as phase 26
+    builds it, one eager step, two replays, then a profiled replay."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmhomo_torch.data.hem_data import HEMTrainDataset
+    from dmhomo_torch.data.loader import DataLoader, cycle
+    from dmhomo_torch.train.config import HEMTrainConfig
+    from dmhomo_torch.train.hem_trainer import HEMTrainer
+    from dmhomo_torch.utils.device import resolve_device
+
+    cfg = HEMTrainConfig()
+    est = cfg.estimator
+    ds = HEMTrainDataset(samples, est.crop_size, est.ori_size, cfg.rho,
+                         rng=np.random.default_rng(seed))
+    dl = DataLoader(ds, cfg.train_batch_size, seed=seed, num_workers=PIPE_WORKERS,
+                    prefetch=PIPE_PREFETCH, pin_memory=True)
+    stream = cycle(dl)
+    trainer = HEMTrainer(cfg, steps_per_epoch=len(dl), device=resolve_device("cuda"))
+    trainer.init_state(seed)
+    for _ in range(3):
+        trainer.train_steps([next(stream)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_steps([next(stream)])
+        torch.cuda.synchronize()
+    copies, compute = trace_copies(prof, os.path.join(os.path.dirname(samples), "step.json"),
+                                   "window_attention")
+    stream.close()
+    dl.close()
+    return {"copies": copies, "compute_streams": sorted(compute)}
+
+
+def phase_pipeline(dev, seed: int, tmp: str):
+    """make_conditions -> dgm_sample --conditions -> make_samples -> HEM
+    training streamed from the per-sample files, through the CLIs' entry
+    points, under ``tmp``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmhomo_torch.cli import dgm_sample, hem_train, make_conditions, make_samples
+    from dmhomo_torch.models.unet import UNetConfig
+    from dmhomo_torch.data.conditions import build_conditions
+    from dmhomo_torch.data.hem_data import HEMTrainDataset, device_build_patches
+    from dmhomo_torch.data.loader import DataLoader, collate, cycle
+    from dmhomo_torch.data.shards import load_generation_shard
+    from dmhomo_torch.geometry.homography import homography_to_flow
+    from dmhomo_torch.ops import linear_attention as la
+    from dmhomo_torch.train.config import HEMTrainConfig
+    from dmhomo_torch.train.hem_trainer import LAUNCH_COUNTERS, HEMTrainer
+    from dmhomo_torch.utils.checkpoint import checkpoint_path
+
+    t_phase = time.perf_counter()
+    out = {}
+    # a. conditions on the card, through the CLI; then the build alone, and the CPU's
+    cdir = os.path.join(tmp, "conditions")
+    t0 = time.perf_counter()
+    cache = make_conditions.main(["--synthetic", str(PIPE_N), "--out", cdir, "--seed", str(seed),
+                                  "--src-hw", ",".join(map(str, PIPE_SRC_HW)),
+                                  "--image-size", str(GEN_SIZE)])
+    cli_ms = 1e3 * (time.perf_counter() - t0)
+    counts = np.bincount(cache.classes, minlength=5).tolist()
+    if cache.conditions.shape != (PIPE_N, GEN_SIZE, GEN_SIZE, 12) or counts != [PIPE_N // 5] * 5:
+        raise SystemExit(f"condition cache {cache.conditions.shape}, class counts {counts}")
+    t0 = time.perf_counter()
+    raw = list(make_conditions.synthetic_raw_samples(PIPE_N, PIPE_SRC_HW, seed))
+    raw_ms = 1e3 * (time.perf_counter() - t0)
+    cols = list(zip(*raw))[:4]
+    times = []
+    for _ in range(3):  # the first builds the device tables
+        t0 = time.perf_counter()
+        for b in range(0, PIPE_N, 32):
+            build_conditions(*(c[b:b + 32] for c in cols), GEN_SIZE, PIPE_SRC_HW, device=dev)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    cond_ms = float(np.median(times[1:])) / PIPE_N
+    cpu = np.concatenate([build_conditions(*(c[b:b + 32] for c in cols), GEN_SIZE, PIPE_SRC_HW,
+                                           device="cpu").numpy() for b in range(0, PIPE_N, 32)])
+    card = np.asarray(cache.conditions)
+    diffs = {k: float(np.abs(card[..., sl] - cpu[..., sl]).max())
+             for k, sl in COND_CHANNELS.items()}
+    log(f"[pipe-conditions] make_conditions --synthetic {PIPE_N} at {PIPE_SRC_HW} -> "
+        f"{GEN_SIZE}: cache {cache.conditions.shape}, class counts RE/LT/LL/SF/LF {counts}; the "
+        f"CLI {cli_ms:.1f} ms ({cli_ms / PIPE_N:.2f} ms per condition, the raw pairs' numpy "
+        f"draws {raw_ms / PIPE_N:.2f} of it); build_conditions on the card in batches of 32 "
+        f"(host upload included) {cond_ms:.3f} ms per condition (runs "
+        f"{', '.join(f'{t:.1f}' for t in times)} ms)")
+    log(f"[pipe-conditions] card vs CPU on the same {PIPE_N} raw pairs: {json.dumps(diffs)} "
+        f"(tolerances {json.dumps(COND_TOL)}, the mask exact)")
+    if diffs["mask"] != 0.0 or any(not diffs[k] <= tol for k, tol in COND_TOL.items()):
+        raise SystemExit(f"conditions on the card and the CPU disagree: {diffs}")
+    out["conditions"] = {"cli_ms": cli_ms, "raw_ms": raw_ms, "build_ms_per_condition": cond_ms,
+                         "build_runs_ms": times, "card_vs_cpu": diffs, "class_counts": counts}
+    del cpu, card, raw, cols
+
+    # b. generation on the built conditions at dgm_sample's defaults
+    gdir = os.path.join(tmp, "gen")
+    la.linear_attention_pass1.launches = la.linear_attention_pass1.elementwise = 0
+    la.linear_attention_pass2.launches = la.linear_attention_pass2.elementwise = 0
+    t0 = time.perf_counter()
+    with PlainLinearAttentionRefused():
+        gen = dgm_sample.main(["--conditions", cdir, "--num-classes", "5",
+                               "--batches", str(PIPE_N // GEN_BS),
+                               "--exp", "pipeline", "--out", gdir, "--seed", str(seed)])
+    torch.cuda.synchronize()
+    gen_ms = 1e3 * (time.perf_counter() - t0)
+    launches = la_counts()
+    elementwise = (la.linear_attention_pass1.elementwise, la.linear_attention_pass2.elementwise)
+    batches = PIPE_N // GEN_BS
+    want = GEN_STEPS * len(linear_attention_sites(UNetConfig(), GEN_SIZE)) * batches
+    if launches != (want, want) or elementwise != (0, 0) or gen["samples"] != PIPE_N:
+        raise SystemExit(f"generation: {gen['samples']} samples, launches {launches} "
+                         f"(element-wise loader {elementwise}), expected {want} each")
+    homos = np.concatenate([np.asarray(b["homos"]) for p in gen["shards"]
+                            for b in load_generation_shard(p)])
+    flows = homography_to_flow(torch.from_numpy(homos).float(), GEN_SIZE, GEN_SIZE).numpy()
+    fit_err = float(np.abs(flows - np.asarray(cache.conditions[..., 10:12])).max())
+    log(f"[pipe-generate] dgm_sample --conditions ({batches} batches of {GEN_BS}, defaults: "
+        f"bf16, {GEN_STEPS} DDIM steps, CFG {3.0:g}, seeded random weights): {gen_ms:.0f} ms "
+        f"with the sampler's set-up, {gen['samples_per_s']:.3f} samples/s after the first "
+        f"batch; linear-attention launches {launches} = {want // batches} + {want // batches} "
+        f"per batch, none element-wise, the plain version never called; fitted H within "
+        f"{fit_err:.3g} px of the condition flows (tol {FIT_TOL_PX:g})")
+    if not fit_err <= FIT_TOL_PX:
+        raise SystemExit(f"fitted homographies miss the condition flows by {fit_err} px")
+    out["generate"] = {"ms": gen_ms, "samples_per_s": gen["samples_per_s"],
+                       "launches": launches, "launches_per_batch": want // batches,
+                       "fit_px": fit_err}
+
+    # c. per-sample files
+    sdir = os.path.join(tmp, "samples")
+    n = make_samples.main(["--shards", os.path.join(gdir, "pipeline", "dataset", "*.npy"),
+                           "--out", sdir])
+    cfg = HEMTrainConfig()
+    est = cfg.estimator
+    ds = HEMTrainDataset(sdir, est.crop_size, est.ori_size, cfg.rho,
+                         rng=np.random.default_rng(seed))
+    host = HEMTrainDataset(sdir, est.crop_size, est.ori_size, cfg.rho,
+                           rng=np.random.default_rng(seed), device_pipeline=False)
+    if n != PIPE_N or len(ds) != PIPE_N:
+        raise SystemExit(f"make_samples wrote {n} files, HEMTrainDataset reads {len(ds)}")
+    item, host_item = ds[0], host[0]
+    built = device_build_patches(*(torch.from_numpy(collate([item])[k]).to(dev) for k in
+                                   ("img12", "homo", "homo_inv", "start")),
+                                 est.crop_size, est.ori_size)
+    gray_diff = float(np.abs(built["imgs_gray_patch"][0].cpu().numpy()
+                             - host_item["imgs_gray_patch"]).max())
+    flow_diff = float(np.abs(built["flow_gt_patch"][0].cpu().numpy()
+                             - host_item["flow_gt_patch"]).max())
+    log(f"[pipe-samples] make_samples: {n} files; HEMTrainDataset reads them (img12 "
+        f"{item['img12'].shape} {item['img12'].dtype}); its host pipeline (native kernels, "
+        f"fixed-point resize) vs device_build_patches on sample 0: gray {gray_diff:.3g} (tol "
+        f"{HOST_GRAY_TOL:g}), flow {flow_diff:.3g} px")
+    if not gray_diff <= HOST_GRAY_TOL or not flow_diff <= 2e-3:
+        raise SystemExit(f"host and device pipelines disagree: gray {gray_diff}, flow {flow_diff}")
+
+    # d. the shipped HEM config streamed from the files
+    loader_ms = {}
+    for workers in (0, PIPE_WORKERS):
+        dl = DataLoader(ds, cfg.train_batch_size, seed=seed, num_workers=workers, prefetch=0,
+                        pin_memory=True)
+        t0, nb = time.perf_counter(), 0
+        for _ in range(2):
+            for batch in dl:
+                nb += 1
+        loader_ms[workers] = 1e3 * (time.perf_counter() - t0) / nb
+        dl.close()
+    dl = DataLoader(ds, cfg.train_batch_size, seed=seed, num_workers=PIPE_WORKERS,
+                    prefetch=PIPE_PREFETCH, pin_memory=True)
+    stream = cycle(dl)
+    trainer = HEMTrainer(cfg, steps_per_epoch=len(dl), device=dev)
+    trainer.init_state(seed)
+    before = {fn.__name__: fn.launches for fn in LAUNCH_COUNTERS}
+    losses, times = [], []
+    for _ in range(WARMUP_STEPS + TIMED_STEPS):
+        t0 = time.perf_counter()
+        step_out = trainer.train_steps([next(stream)])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(step_out["total"][0]))
+    eager = {k: fn.launches - before[k] for k, fn in
+             ((fn.__name__, fn) for fn in LAUNCH_COUNTERS)}
+    per_replay = trainer.step_graph.launches
+    want_step = {"window_attention": 40 * (BATCH // MICROBATCH),
+                 "window_attention_backward": 40 * (BATCH // MICROBATCH),
+                 "swin_block": 0, "swin_block_backward": 0}
+    step_ms = float(np.median(times[WARMUP_STEPS:]))
+    if per_replay != want_step or eager != want_step or not np.isfinite(losses).all():
+        raise SystemExit(f"streamed steps: launches per replay {per_replay}, by the eager first "
+                         f"step {eager}, expected {want_step}; losses {losses}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_steps([next(stream)])
+        torch.cuda.synchronize()
+    events = kernel_events(prof.key_averages())
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    device = {n: sum(e.count for e in events if part in e.key)
+              for n, part in DEVICE_KERNEL.items()}
+    stream.close()
+    dl.close()
+    del trainer
+    torch.cuda.empty_cache()
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--streamed-step-copies",
+                            sdir, "--seed", str(seed)], capture_output=True, text=True,
+                           timeout=600)
+    if child.returncode != 0:
+        raise SystemExit(f"the streamed step's profile in a fresh process failed "
+                         f"({child.returncode}):\n{child.stdout[-3000:]}\n{child.stderr[-3000:]}")
+    traced = json.loads(child.stdout.strip().splitlines()[-1])
+    copies, compute = traced["copies"], set(traced["compute_streams"])
+    copy_ms = sum(c[3] for c in copies)
+    idle = max(0.0, 1.0 - dev_ms / step_ms)
+    log(f"[pipe-train] HEMTrainConfig() (bf16, B={cfg.train_batch_size}, grad_accum "
+        f"{cfg.grad_accum}) from {n} files, loader with {PIPE_WORKERS} worker threads, prefetch "
+        f"{PIPE_PREFETCH}, pinned: train_steps one call per step, first {times[0]:.1f} ms, "
+        f"steady {step_ms:.2f} ms (timed {', '.join(f'{t:.1f}' for t in times[WARMUP_STEPS:])}), "
+        f"{1e3 * cfg.train_batch_size / step_ms:.2f} training pairs/s; losses {losses[0]:.5f} "
+        f"-> {losses[-1]:.5f}")
+    log(f"[pipe-train] the loader alone (prefetch 0, pinned): {loader_ms[0]:.2f} ms per batch "
+        f"with 0 workers, {loader_ms[PIPE_WORKERS]:.2f} with {PIPE_WORKERS}")
+    log(f"[pipe-train] profiled streamed step: device busy {dev_ms:.2f} ms of the {step_ms:.2f} "
+        f"ms unprofiled step: idle {100 * idle:.1f}%; launches per replay {per_replay} (at "
+        f"capture), {device} by kernel name")
+    log(f"[pipe-train] a streamed replay profiled in a fresh process: host-to-device copies "
+        f"{[(c[0], c[1], c[2]) for c in copies]}: {copy_ms:.3f} ms on the card (phase 8b "
+        f"copies a 141 MB patch batch from pageable memory instead), on streams "
+        f"{sorted({c[1] for c in copies})}, the window kernels on {sorted(compute)}")
+    if (device != want_step or not copies or any("Pinned" not in c[0] for c in copies)
+            or {c[1] for c in copies} & compute):
+        raise SystemExit(f"the streamed replay: launches {device}, copies {copies}, compute "
+                         f"streams {compute}")
+    out["train"] = {"step_ms": step_ms, "pairs_per_s": 1e3 * cfg.train_batch_size / step_ms,
+                    "first_call_ms": times[0], "timed_ms": times[WARMUP_STEPS:],
+                    "losses": losses, "idle": idle, "dev_ms": dev_ms, "copy_ms": copy_ms,
+                    "copies": copies, "loader_ms_per_batch": loader_ms,
+                    "launches_per_replay": per_replay,
+                    "replays": WARMUP_STEPS + TIMED_STEPS, "launches_eager": eager}
+    # the first call's step ran eagerly; every later call, the profiled one
+    # included, replayed the graph
+    out["train"]["launches"] = {k: eager[k] + v * out["train"]["replays"]
+                                for k, v in per_replay.items()}
+
+    # e. the CLI
+    hdir = os.path.join(tmp, "hem")
+    t0 = time.perf_counter()
+    tr = hem_train.main(["--samples", sdir, "--steps", "4", "--fuse-steps", "2", "--out", hdir,
+                         "--seed", str(seed)])
+    torch.cuda.synchronize()
+    cli_train_ms = 1e3 * (time.perf_counter() - t0)
+    ckpt = checkpoint_path(hdir, "latest")
+    if tr.step != 4 or not os.path.exists(ckpt):
+        raise SystemExit(f"hem_train stopped at step {tr.step}; {ckpt} written: "
+                         f"{os.path.exists(ckpt)}")
+    log(f"[pipe-hem-train] hem_train --samples --steps 4 --fuse-steps 2: {cli_train_ms:.0f} ms "
+        f"(set-up and capture included), wrote {os.path.basename(ckpt)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    out["hem_train_cli_ms"] = cli_train_ms
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--streamed-step-copies", metavar="SAMPLES", default=None,
+                        help="phase 26's child: profile one streamed step, print its copies")
     args = parser.parse_args(argv)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.streamed_step_copies:
+        print(json.dumps(streamed_step_copies(args.streamed_step_copies, args.seed)), flush=True)
+        return
     t_start = time.perf_counter()
 
     dev, name, smi = phase_device()
@@ -2583,6 +2899,14 @@ def main(argv=None):
     torch.cuda.empty_cache()
     la_bwd_rows, la_bwd_worst = phase_la_backward(sites, dev, args.seed, dgm["microbatch"])
     dgm_diffs = phase_dgm_card_vs_cpu(dev, args.seed)
+    torch.cuda.empty_cache()
+
+    import tempfile
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="pipeline_", dir=build) as tmp:
+        pipe = phase_pipeline(dev, args.seed, tmp)
 
     # per-forward totals at the eval path's dtype (fp32) and launch mix
     main = [r for r in results if r["dtype"] == "float32"]
@@ -2609,6 +2933,8 @@ def main(argv=None):
         "launches_train": train["fwd_launches"],
         # launches per replay of the captured training step (phase 8b)
         "launches_per_graph_step": graph["launches_per_step"]["window_attention"],
+        # phase 26: HEM training streamed from generated samples
+        "launches_pipeline": pipe["train"]["launches"]["window_attention"],
         # per training step: the 160 launches at B=8, bf16
         "ms_per_step": sum(r["ms"] * r["launches_per_step"] for r in step_rows),
         "bound_ms_per_step": sum(r["bound_ms"] * r["launches_per_step"] for r in step_rows),
@@ -2624,6 +2950,7 @@ def main(argv=None):
         "replaces": "dmhomo_tpu/ops/window_attention.py:117",
         "launches": train["bwd_launches"], "max_abs_err": bwd_worst[("bfloat16", "dqkv")],
         "launches_per_graph_step": graph["launches_per_step"]["window_attention_backward"],
+        "launches_pipeline": pipe["train"]["launches"]["window_attention_backward"],
         "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
         "bound_ms": per_step("bound_ms"),
         "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in train_rows)
@@ -2680,6 +3007,8 @@ def main(argv=None):
             "unit": (f"sum over one generation batch: {len(sites)} sites x {GEN_STEPS} UNet "
                      f"forwards at B={2 * GEN_BS} (CFG-doubled bs {GEN_BS}), bf16, prenorm"),
             "launches_per_batch": len(sites) * GEN_STEPS,
+            # phase 26: generation on the built conditions
+            "launches_pipeline": pipe["generate"]["launches"][p - 1],
             "max_abs_err_fp32": la_worst[("float32", f"pass{p}")],
             "max_abs_err_output_bf16": la_worst[("bfloat16", "out")],
             "max_abs_err_output_fp32": la_worst[("float32", "out")],
@@ -2825,6 +3154,14 @@ def main(argv=None):
             f"{g['fused_call_ms_per_step']:.2f} ms per step at {TIMED_STEPS} steps per call; "
             f"graph vs eager {json.dumps(g['vs_eager'])}")
     log("[graph-summary] " + json.dumps({"window": graph, "fused_block": sb_graph}))
+    pt = pipe["train"]
+    log(f"[summary] pipeline: {pipe['conditions']['build_ms_per_condition']:.3f} ms per "
+        f"condition on the card; generation {pipe['generate']['samples_per_s']:.3f} samples/s; "
+        f"streamed HEM step {pt['step_ms']:.2f} ms, {pt['pairs_per_s']:.2f} pairs/s, idle "
+        f"{100 * pt['idle']:.1f}%, its batch's copy {pt['copy_ms']:.3f} ms from pinned memory; "
+        f"loader {pt['loader_ms_per_batch'][0]:.2f} / {pt['loader_ms_per_batch'][PIPE_WORKERS]:.2f}"
+        f" ms per batch with 0 / {PIPE_WORKERS} workers; phase {pipe['phase_s']:.1f} s")
+    log("[pipeline-summary] " + json.dumps(pipe))
     log(smi)  # nvidia-smi: card name, power limit
     log(json.dumps({"kernels": [kernel, bwd_kernel] + la_kernels + [sb_kernel, sbb_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

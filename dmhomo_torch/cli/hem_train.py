@@ -1,10 +1,17 @@
 """HEM estimator training on the card (reference: accelerate launch HEM/train.py).
 
 Reads reference-format params.json experiment dirs (--model-dir), trains on
-the generated per-sample npys (--samples, built into batches on the device)
-or on synthetic pairs (--synthetic N), evaluates on the CAHomo test layout
-(--test-data) every train_num_steps and keeps the best AVG.  Stage 2: a
-stage-2 params.json or --stage2, and --resume --ow from stage 1.
+the generated per-sample npys (--samples: by default the raw pairs go to the
+device, which builds the training batch; --host-pipeline builds it on the
+host, as the JAX CLI's flag does) or on synthetic pairs (--synthetic N),
+evaluates on the CAHomo test layout (--test-data) every train_num_steps and
+keeps the best AVG.  Stage 2: a stage-2 params.json or --stage2, and
+--resume --ow from stage 1.
+
+The training batches stream through the loader with 4 worker threads and
+2 batches prefetched, as the JAX CLI's; on the card each batch is handed
+over in pinned memory, so its copy runs on a copy stream, overlapping the
+steps before it.
 
 Example (CPU, tiny config):
   python -m dmhomo_torch.cli.hem_train --synthetic 64 --tiny --steps 10 --device cpu
@@ -62,6 +69,9 @@ def main(argv=None):
     parser.add_argument("--torch-ckpt", type=str, default=None, help="init from a HEM .pth")
     parser.add_argument("--steps", type=int, default=0, help="total steps (default: epochs)")
     parser.add_argument("--tiny", action="store_true", help="tiny config")
+    parser.add_argument("--host-pipeline", action="store_true",
+                        help="with --samples: build the gray and flow batches on the host "
+                             "instead of from the raw pairs on the device")
     parser.add_argument("--fuse-steps", type=int, default=1,
                         help="optimizer steps per host call (a CUDA graph of the step on "
                              "the card)")
@@ -106,13 +116,15 @@ def main(argv=None):
     crop, ori, rho = cfg.estimator.crop_size, cfg.estimator.ori_size, cfg.rho
     if args.samples:
         train_ds = HEMTrainDataset(args.samples, crop_size=crop, ori_size=ori, rho=rho,
-                                   rng=np.random.default_rng(args.seed))
+                                   rng=np.random.default_rng(args.seed),
+                                   device_pipeline=not args.host_pipeline)
     elif args.synthetic:
         train_ds = SyntheticHomoPairs(n=args.synthetic, crop_size=crop, ori_size=ori,
                                       rho=min(rho, 3), seed=args.seed)
     else:
         parser.error("need --samples or --synthetic")
-    train_dl = DataLoader(train_ds, batch_size=cfg.train_batch_size, seed=args.seed)
+    train_dl = DataLoader(train_ds, batch_size=cfg.train_batch_size, seed=args.seed,
+                          num_workers=4, pin_memory=device.type == "cuda")
     steps_per_epoch = max(len(train_dl), 1)
     eval_dl = None
     if args.test_data:

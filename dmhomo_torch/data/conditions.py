@@ -1,10 +1,17 @@
-"""DGM conditions, read side (the JAX package's ``data/conditions.py``):
-the CAHomo scene classes, the HSV flow image, the flat condition cache and
-synthetic condition batches.
+"""DGM conditions (the JAX package's ``data/conditions.py``): the CAHomo
+scene classes, building conditions on the device, the flat condition cache
+and synthetic condition batches.
 
 A condition is a (S, S, 12) float32 tensor: img1 (3) img2 (3) mask (1)
-rgb_flow (3) flow (2), images and rgb_flow in [0, 1].  Building conditions
-from real CAHomo pairs (``build_condition``, OpenCV) is not ported yet.
+rgb_flow (3) flow (2), images and rgb_flow in [0, 1].  It is built from a
+raw pair (``build_condition``; batched, ``build_conditions``): the images
+resized half-pixel bilinearly (OpenCV's INTER_LINEAR on float input), the
+dominant-plane mask resized to its nearest pixels (INTER_NEAREST) and closed
+by a 3x3 erode then dilate, the homography rescaled from the source
+resolution, its dense flow in float64 (one float32 rounding) and the flow's
+HSV image.  Every step but the 3x3 homography rescale runs on the device it
+is given (the card by default).  ``iter_cahomo_train_samples`` reads the
+real CAHomo train layout with OpenCV, which it imports when called.
 """
 
 from __future__ import annotations
@@ -14,9 +21,13 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from dmhomo_torch.geometry.host import homography_to_flow_np
-from dmhomo_torch.geometry.warp import resize_bilinear
+from dmhomo_torch.geometry.flow_viz import flow_to_rgb
+from dmhomo_torch.geometry.homography import homography_from_points
+from dmhomo_torch.geometry.host import homography_to_flow_np, rescale_homography_np
+from dmhomo_torch.geometry.warp import resize_bilinear, resize_nearest
+from dmhomo_torch.utils.device import resolve_device
 
 # CAHomo *train* split video ids per scene category; label order RE=0 LT=1
 # LL=2 SF=3 LF=4 (the reference's prefix2label).
@@ -124,6 +135,88 @@ def flow_to_rgb_np(flow: np.ndarray, max_flow: float = 256.0, n: float = 8.0) ->
     return hsv_to_rgb_np(np.stack([im_h, im_s, im_v], axis=2)).astype(np.float32)
 
 
+def _close(mask: torch.Tensor, ksize: int) -> torch.Tensor:
+    """(B, H, W) float: ksize x ksize erode then dilate.  Max-pooling pads
+    with -inf, so the border wins neither the min nor the max, as OpenCV's
+    default border for erode and dilate."""
+    x = mask[:, None]
+    x = -F.max_pool2d(-x, ksize, stride=1, padding=ksize // 2)
+    return F.max_pool2d(x, ksize, stride=1, padding=ksize // 2)[:, 0]
+
+
+def morph_close_mask(mask: np.ndarray, ksize: int = 3, device=None) -> np.ndarray:
+    """3x3 erode then dilate (the reference's mask cleanup) of an (H, W) or
+    (B, H, W) mask, as float32, computed on ``device`` (default: the card)."""
+    m = torch.from_numpy(np.asarray(mask, np.float32)).to(resolve_device(device))
+    return _close(m.reshape(-1, *m.shape[-2:]), ksize).reshape(m.shape).cpu().numpy()
+
+
+def _images_f01(imgs, device: torch.device) -> torch.Tensor:
+    """A stack of (H, W, 3) images, uint8 (scaled by 1/255) or in [0, 1], as
+    float32 on ``device``."""
+    t = torch.from_numpy(np.ascontiguousarray(np.stack([np.asarray(im) for im in imgs])))
+    t = t.to(device)
+    return t.float() / 255.0 if t.dtype == torch.uint8 else t.float()
+
+
+def _flow_f64(H: np.ndarray, h: int, w: int, device: torch.device,
+              eps: float = 1e-6) -> torch.Tensor:
+    """Dense flows of homographies (B, 3, 3) in float64 with the +eps divide
+    guard and one float32 rounding, on ``device``: (B, h, w, 2)."""
+    Ht = torch.from_numpy(np.asarray(H, np.float64)).to(device)[:, :, :, None, None]
+    y, x = torch.meshgrid(torch.arange(h, dtype=torch.float64, device=device),
+                          torch.arange(w, dtype=torch.float64, device=device), indexing="ij")
+    u = Ht[:, 0, 0] * x + Ht[:, 0, 1] * y + Ht[:, 0, 2]
+    v = Ht[:, 1, 0] * x + Ht[:, 1, 1] * y + Ht[:, 1, 2]
+    z = Ht[:, 2, 0] * x + Ht[:, 2, 1] * y + Ht[:, 2, 2] + eps
+    return torch.stack([u / z - x, v / z - y], dim=-1).float()
+
+
+def _condition(img1, img2, mask, homo, image_size: int, src_hw,
+               dev: torch.device) -> torch.Tensor:
+    """(B, S, S, 12) conditions (11 channels without a mask) from homographies
+    at ``src_hw``."""
+    S = (image_size, image_size)
+    parts = [resize_bilinear(_images_f01(img1, dev), S), resize_bilinear(_images_f01(img2, dev), S)]
+    if mask is not None:
+        # uploaded as given (uint8 masks: a quarter of the bytes), float32 there
+        m = torch.from_numpy(np.stack([np.squeeze(np.asarray(x)) for x in mask])).to(dev).float()
+        parts.append(_close(resize_nearest(m[..., None], S)[..., 0], 3)[..., None])
+    H = np.stack([rescale_homography_np(h, src_hw, S) for h in homo])
+    flow = _flow_f64(H, image_size, image_size, dev)
+    return torch.cat(parts + [flow_to_rgb(flow), flow], dim=-1)
+
+
+def build_conditions(img1, img2, mask, homo_f, image_size: int = 256, src_hw=(360, 640),
+                     device=None) -> torch.Tensor:
+    """A batch of conditions (B, image_size, image_size, 12) float32 on
+    ``device`` (default: the card).  img1 / img2: B images (H, W, 3) uint8 or
+    in [0, 1]; mask: B masks (H', W') (or (H', W', 1)); homo_f: B homographies
+    (3, 3) in ``src_hw`` pixel coordinates (img1 -> img2)."""
+    return _condition(img1, img2, mask, homo_f, image_size, src_hw, resolve_device(device))
+
+
+def build_condition(img1, img2, mask, homo_f, image_size: int = 256, src_hw=(360, 640),
+                    device=None) -> np.ndarray:
+    """One condition (image_size, image_size, 12) float32, built on
+    ``device`` (default: the card): :func:`build_conditions` of one pair."""
+    return build_conditions([img1], [img2], [mask], [homo_f], image_size, src_hw,
+                            device)[0].cpu().numpy()
+
+
+def build_test_condition(img1, img2, matched_pts, image_size: int = 256, src_hw=(360, 640),
+                         device=None) -> np.ndarray:
+    """A CATestSet-style 11-channel condition without a mask: img1 (3) img2
+    (3) rgb_flow (3) flow (2), the homography fitted to the ground-truth
+    matched points ``matched_pts`` (>= 4, 2, 2) = [pair, (src, dst), (x, y)]
+    by ``homography_from_points`` in float32; built on ``device`` (default:
+    the card)."""
+    dev = resolve_device(device)
+    pts = torch.from_numpy(np.asarray(matched_pts, np.float32)).to(dev)
+    H = homography_from_points(pts[None, :, 0], pts[None, :, 1])[0].cpu().numpy()
+    return _condition([img1], [img2], None, [H], image_size, src_hw, dev)[0].cpu().numpy()
+
+
 class ConditionCache:
     """Flat condition cache: ``conditions.npy`` (N, S, S, 12) float32 and
     ``classes.npy`` (N,) in one directory, read through a memory map."""
@@ -141,6 +234,35 @@ class ConditionCache:
 
     def batch(self, indices: Sequence[int]):
         return np.asarray(self.conditions[list(indices)]), self.classes[list(indices)]
+
+    @staticmethod
+    def build(out_dir: str, samples, image_size: int = 256, src_hw=(360, 640), device=None,
+              batch: int = 32) -> "ConditionCache":
+        """Build the cache from (img1, img2, mask, homo_f, class) tuples, in
+        batches of ``batch`` on ``device`` (default: the card).  The class is
+        an int or a CAHomo pair name, whose scene class
+        :func:`pair_name_to_class` gives.  Writes ``conditions.npy`` and
+        ``classes.npy`` (int32) into out_dir."""
+        dev = resolve_device(device)
+        os.makedirs(out_dir, exist_ok=True)
+        conds, classes, chunk = [], [], []
+
+        def flush():
+            img1, img2, mask, homo, _ = zip(*chunk)
+            conds.append(_condition(img1, img2, mask, homo, image_size, src_hw, dev).cpu().numpy())
+            chunk.clear()
+
+        for sample in samples:
+            chunk.append(sample)
+            cls = sample[4]
+            classes.append(pair_name_to_class(cls) if isinstance(cls, str) else int(cls))
+            if len(chunk) == batch:
+                flush()
+        if chunk:
+            flush()
+        np.save(os.path.join(out_dir, "conditions.npy"), np.concatenate(conds))
+        np.save(os.path.join(out_dir, "classes.npy"), np.asarray(classes, np.int32))
+        return ConditionCache(out_dir)
 
 
 def synthetic_condition_batches(n: int, image_size: int, batch_size: int, num_classes: int,
@@ -166,3 +288,29 @@ def synthetic_condition_batches(n: int, image_size: int, batch_size: int, num_cl
     while True:
         idx = rng.integers(0, n, (batch_size,))
         yield conds[idx], classes[idx]
+
+
+def iter_cahomo_train_samples(trainset_path: str, pseudo_labels_npy: str,
+                              masks_dir: str = "HomoGAN_Bug_Masks"):
+    """Yield (img1, img2, mask, homo_f, pair_name) over the CAHomo train
+    layout, pairs in sorted order: a BasesHomo pseudo-label dict
+    ``{pair_name: [homo_b, homo_f]}`` and a dominant-plane mask
+    ``masks_dir/<pair_name>.npy`` per pair; the images as OpenCV reads them
+    (BGR uint8).  Feed to :meth:`ConditionCache.build`."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError("iter_cahomo_train_samples reads the CAHomo images with OpenCV "
+                          f"(cv2), which does not import here: {e}") from e
+
+    # the pseudo-label dict is pickled by the dataset's authors
+    labels = np.load(pseudo_labels_npy, allow_pickle=True).item()
+    for name in sorted(labels.keys()):
+        parts = name.split("_")
+        im1 = "_".join(parts[:2]) + ".png"
+        im2 = "_".join(parts[2:]) + ".png"
+        homo_f = np.asarray(labels[name][1], np.float64)
+        mask = np.load(os.path.join(trainset_path, masks_dir, name + ".npy"))
+        img1 = cv2.imread(os.path.join(trainset_path, parts[0], im1))
+        img2 = cv2.imread(os.path.join(trainset_path, parts[0], im2))
+        yield img1, img2, mask, homo_f, name

@@ -1,13 +1,19 @@
 """HEM data: the generated training set, synthetic pairs and the CAHomo
 test split.
 
-* :class:`HEMTrainDataset` - per-sample npys of the generated training set;
-  each sample is the raw uint8 pair, its homography (and inverse) at the
-  training resolution and a random crop start, and
-  :func:`device_build_patches` turns a batch of them into the training
-  batch on the device (resize, gray normalization, GT flows, crops).
+* :class:`HEMTrainDataset` - per-sample npys of the generated training set.
+  By default (``device_pipeline=True``) each sample is the raw uint8 pair,
+  its homography (and inverse) at the training resolution and a random crop
+  start, and :func:`device_build_patches` turns a batch of them into the
+  training batch on the device (resize, gray normalization, GT flows,
+  crops).  With ``device_pipeline=False`` the host builds the patch schema
+  itself (the JAX package's host pipeline: a fixed-point uint8 resize,
+  gray normalization and float64 flows by the native kernels, the crops,
+  and unless ``minimal`` the full-resolution extras).
 * :class:`SyntheticHomoPairs` - random textures and their warps by random
-  homographies, with exact GT flows: no disk, numpy only (no OpenCV).
+  homographies, with exact GT flows, optionally with an independently moving
+  rectangle (``outlier_frac``) whose labels follow the global H or its own
+  motion (``label_outliers``): no disk, numpy only (no OpenCV).
 * :class:`CAHomoTestDataset` - the CAHomo test split.  Layout of
   ``data_dir``: ``test.txt`` (one "video/img1 video/img2" pair per line),
   ``img/`` and ``pt/<img1>_<img2>.npy`` with the matched points.  Samples
@@ -40,9 +46,47 @@ STD_I = np.array([69.85, 68.81, 72.45], np.float64).reshape(1, 1, 3)
 
 def normalize_gray(img: np.ndarray) -> np.ndarray:
     """(H, W, 3) uint8/float -> (H, W, 1) normalized grayscale, in float64
-    then rounded to float32."""
+    then rounded to float32, by the native kernel (``dmhomo_torch/native``)."""
+    from dmhomo_torch import native
+
+    return native.normalize_gray(img, MEAN_I, STD_I)
+
+
+def normalize_gray_plain(img: np.ndarray) -> np.ndarray:
+    """The numpy version of :func:`normalize_gray`."""
     x = (np.asarray(img, np.float64) - MEAN_I) / STD_I
     return np.mean(x, axis=2, keepdims=True).astype(np.float32)
+
+
+RESIZE_COEF_BITS = 11  # OpenCV's INTER_RESIZE_COEF_BITS
+
+
+def _linear_u8_taps(n_in: int, n_out: int):
+    """Per output pixel: the two source taps and their fixed-point weights
+    (sum 2^11) of a half-pixel bilinear resize, as OpenCV computes them for
+    uint8: the position in float32, taps past an edge clamped to it."""
+    f = ((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5).astype(np.float32)
+    lo = np.floor(f).astype(np.int64)
+    f = f - lo.astype(np.float32)
+    edge = (lo < 0) | (lo >= n_in - 1)
+    f[edge] = 0.0
+    lo = np.clip(lo, 0, n_in - 1)
+    one = 1 << RESIZE_COEF_BITS
+    return (lo, np.minimum(lo + 1, n_in - 1), np.rint((np.float32(1) - f) * one).astype(np.int64),
+            np.rint(f * one).astype(np.int64))
+
+
+def resize_linear_u8(img: np.ndarray, out_hw) -> np.ndarray:
+    """(H, W, C) uint8 -> (oh, ow, C) uint8: cv2.resize's INTER_LINEAR on
+    uint8 in fixed point: 11-bit weights, the rows first into integers, then
+    the columns with OpenCV's vectorized rounding (within one grey level of
+    OpenCV, whose scalar tail rounds once at the end)."""
+    x0, x1, a0, a1 = _linear_u8_taps(img.shape[1], out_hw[1])
+    y0, y1, b0, b1 = _linear_u8_taps(img.shape[0], out_hw[0])
+    im = np.asarray(img).astype(np.int64)
+    rows = (im[:, x0] * a0[None, :, None] + im[:, x1] * a1[None, :, None]) >> 4
+    out = ((b0[:, None, None] * rows[y0]) >> 16) + ((b1[:, None, None] * rows[y1]) >> 16)
+    return ((out + 2) >> 2).clip(0, 255).astype(np.uint8)
 
 
 class CAHomoTestDataset:
@@ -120,23 +164,43 @@ def device_build_patches(img12_u8: torch.Tensor, homo: torch.Tensor, homo_inv: t
 
 
 class HEMTrainDataset:
-    """Generated-pair training set over per-sample npys, in the raw schema
-    that :func:`device_build_patches` takes: ``img12`` (6, S, S) uint8,
-    ``homo`` / ``homo_inv`` (3, 3) float32 at ori_size, ``start`` (2,)
-    int32 (x, y), drawn inside a ``rho`` margin."""
+    """Generated-pair training set over per-sample npys (sorted, the first
+    ``limit`` when given), crop starts drawn inside a ``rho`` margin.
+
+    ``device_pipeline=True`` (the port's trainer consumes this): the raw
+    schema that :func:`device_build_patches` takes: ``img12`` (6, S, S)
+    uint8, ``homo`` / ``homo_inv`` (3, 3) float32 at ori_size, ``start`` (2,)
+    int32 (x, y).  ``device_pipeline=False``: the patch schema built on the
+    host, ``imgs_gray_patch`` (ph, pw, 2), ``flow_gt_patch`` (ph, pw, 4) =
+    (backward, forward), ``start`` (2,) float32, and unless ``minimal`` the
+    full-resolution ``imgs_gray_full``, ``flow_gt_full``, ``imgs_rgb_full``
+    and a ``ganhomo_mask`` of ones."""
 
     def __init__(self, samples_dir: str, crop_size=(320, 576), ori_size=(360, 640),
-                 rho: int = 16, rng: Optional[np.random.Generator] = None):
+                 rho: int = 16, rng: Optional[np.random.Generator] = None,
+                 limit: Optional[int] = None, minimal: bool = False,
+                 device_pipeline: bool = True):
         self.paths = sorted(glob.glob(os.path.join(samples_dir, "*.npy")))
+        if limit:
+            self.paths = self.paths[:limit]
         self.crop_size = tuple(crop_size)
         self.ori_size = tuple(ori_size)
         # clamp the crop margin so small geometries stay valid
         max_rho = min((ori_size[0] - crop_size[0]) // 2, (ori_size[1] - crop_size[1]) // 2)
         self.rho = max(0, min(rho, max_rho))
         self.rng = rng or np.random.default_rng()
+        self.minimal = minimal
+        self.device_pipeline = device_pipeline
 
     def __len__(self):
         return len(self.paths)
+
+    def _start(self):
+        oh, ow = self.ori_size
+        ph, pw = self.crop_size
+        x = int(self.rng.integers(self.rho, ow - self.rho - pw + 1))
+        y = int(self.rng.integers(self.rho, oh - self.rho - ph + 1))
+        return x, y
 
     def __getitem__(self, idx):
         buf = load_sample(self.paths[idx])
@@ -146,14 +210,37 @@ class HEMTrainDataset:
         ph, pw = self.crop_size
         h, w = img12.shape[1:]
         H = homo if (h, w) == (oh, ow) else rescale_homography_np(homo, (h, w), (oh, ow))
-        x = int(self.rng.integers(self.rho, ow - self.rho - pw + 1))
-        y = int(self.rng.integers(self.rho, oh - self.rho - ph + 1))
-        return {
-            "img12": img12,
-            "homo": H.astype(np.float32),
-            "homo_inv": np.linalg.inv(H).astype(np.float32),
-            "start": np.asarray([x, y], np.int32),
+        if self.device_pipeline:
+            x, y = self._start()
+            return {
+                "img12": img12,
+                "homo": H.astype(np.float32),
+                "homo_inv": np.linalg.inv(H).astype(np.float32),
+                "start": np.asarray([x, y], np.int32),
+            }
+        img1, img2 = img12[:3].transpose(1, 2, 0), img12[3:].transpose(1, 2, 0)
+        if (h, w) != (oh, ow):
+            img1, img2 = resize_linear_u8(img1, (oh, ow)), resize_linear_u8(img2, (oh, ow))
+        g1, g2 = normalize_gray(img1), normalize_gray(img2)
+        x, y = self._start()
+        flow_f = homography_to_flow_np(H, oh, ow, eps=1e-8)
+        flow_b = homography_to_flow_np(np.linalg.inv(H), oh, ow, eps=1e-8)
+        out = {
+            "imgs_gray_patch": np.concatenate([g1[y:y + ph, x:x + pw], g2[y:y + ph, x:x + pw]],
+                                              axis=2),
+            "flow_gt_patch": np.concatenate(
+                [flow_b[y:y + ph, x:x + pw], flow_f[y:y + ph, x:x + pw]], axis=2),
+            "start": np.asarray([x, y], np.float32),
         }
+        if self.minimal:
+            return out
+        out.update({
+            "imgs_gray_full": np.concatenate([g1, g2], axis=2),
+            "flow_gt_full": np.concatenate([flow_b, flow_f], axis=2),
+            "imgs_rgb_full": np.concatenate([img1, img2], axis=2).astype(np.float32) / 255.0,
+            "ganhomo_mask": np.ones((ph, pw, 1), np.float32),
+        })
+        return out
 
 
 @functools.lru_cache(maxsize=16)
@@ -201,31 +288,73 @@ def remap_bilinear_np(img: np.ndarray, mapping: np.ndarray) -> np.ndarray:
 class SyntheticHomoPairs:
     """Random-texture pairs under known homographies (no disk), in the
     schema of the JAX package's ``SyntheticHomoPairs``: img2 is img1 warped
-    by H (corner offsets up to 8 px) plus 1% noise, so the GT flows are
-    exact.  The random draws come in the JAX version's order from
-    ``default_rng(seed * 100003 + idx)``: the homographies and flows are the
-    same; the images differ from OpenCV's by float rounding only.
+    by H (corner offsets up to ``max_offset`` px) plus Gaussian noise of
+    ``noise`` * 255, so the GT flows are exact.
+
+    ``outlier_frac`` > 0 moves a rectangle of that share of the image area
+    in img2 by an independent shift (an object that breaks the global H).
+    Its GT flows stay the H flows unless ``label_outliers``, which makes
+    them the rectangle's own motion, as a dense-flow fit would label it, and
+    zeroes ``inlier_mask_full`` over the rectangle dilated by 12 px.
+
+    The random draws come in the JAX version's order from
+    ``default_rng(seed * 100003 + idx)``: the homographies, rectangles and
+    flows are the same; the images differ from OpenCV's by float rounding
+    only.
     """
 
     MAX_OFFSET = 8.0
     NOISE = 0.01
+    OUTLIER_PAD = 12  # px of the inlier mask's exclusion band around the rectangle
 
     def __init__(self, n: int = 64, crop_size=(320, 576), ori_size=(360, 640), rho: int = 16,
-                 seed: int = 0):
+                 max_offset: float = MAX_OFFSET, seed: int = 0, noise: float = NOISE,
+                 outlier_frac: float = 0.0, label_outliers: bool = False):
         self.n = n
         self.crop_size = tuple(crop_size)
         self.ori_size = tuple(ori_size)
         self.rho = rho
+        self.max_offset = max_offset
+        self.noise = noise
         self.seed = seed
+        self.outlier_frac = outlier_frac
+        self.label_outliers = label_outliers
 
     def __len__(self):
         return self.n
 
     def _random_homography(self, rng, h, w) -> np.ndarray:
         corners = np.array([[0, 0], [w - 1, 0], [0, h - 1], [w - 1, h - 1]], np.float32)
-        off = rng.uniform(-self.MAX_OFFSET, self.MAX_OFFSET, (4, 2)).astype(np.float32)
+        off = rng.uniform(-self.max_offset, self.max_offset, (4, 2)).astype(np.float32)
         H = dlt_solve_4pt(torch.from_numpy(corners[None]), torch.from_numpy(off[None]))[0]
         return H.numpy().astype(np.float64)
+
+    def _move_outlier(self, rng, img2, flow_f, flow_b, inlier) -> None:
+        """Copy a rectangle of img2 from a shifted place (in place); with
+        ``label_outliers`` its flows take that shift and the inlier mask
+        excludes it."""
+        oh, ow = self.ori_size
+        area = self.outlier_frac * oh * ow
+        rh = int(np.sqrt(area * rng.uniform(0.5, 2.0)))
+        rw = max(int(area / max(rh, 1)), 8)
+        rh = min(max(rh, 8), oh // 2)
+        rw = min(rw, ow // 2)
+        ry = int(rng.integers(0, oh - rh))
+        rx = int(rng.integers(0, ow - rw))
+        dy = int(rng.integers(-rh // 2, rh // 2 + 1))
+        dx = int(rng.integers(-rw // 2, rw // 2 + 1))
+        sy = np.clip(ry + dy, 0, oh - rh)
+        sx = np.clip(rx + dx, 0, ow - rw)
+        img2[ry:ry + rh, rx:rx + rw] = img2[sy:sy + rh, sx:sx + rw]
+        if self.label_outliers:
+            # content at q in the rectangle came from q + (s - r): it moved
+            # by the H flow plus (r - s)
+            ddx, ddy = float(rx - sx), float(ry - sy)
+            flow_f[ry:ry + rh, rx:rx + rw] += (ddx, ddy)
+            flow_b[ry:ry + rh, rx:rx + rw] -= (ddx, ddy)
+            pad = self.OUTLIER_PAD
+            inlier[max(ry - pad, 0):min(ry + rh + pad, oh),
+                   max(rx - pad, 0):min(rx + rw + pad, ow)] = 0.0
 
     def __getitem__(self, idx):
         rng = np.random.default_rng(self.seed * 100003 + idx)
@@ -236,16 +365,19 @@ class SyntheticHomoPairs:
         homo_inv = np.linalg.inv(homo)
         # a feature at x in img1 sits at H(x) in img2: img2(y) = img1(H^-1 y)
         img2 = remap_bilinear_np(img1, homography_to_mapping_np(homo_inv, oh, ow, eps=1e-8))
-        img2 = np.clip(img2 + rng.normal(0, self.NOISE * 255, img2.shape), 0, 255)
+        img2 = np.clip(img2 + rng.normal(0, self.noise * 255, img2.shape), 0, 255)
         flow_f = homography_to_flow_np(homo, oh, ow, eps=1e-8)
         flow_b = homography_to_flow_np(homo_inv, oh, ow, eps=1e-8)
+        inlier = np.ones((oh, ow, 1), np.float32)
+        if self.outlier_frac > 0:
+            self._move_outlier(rng, img2, flow_f, flow_b, inlier)
         g1 = normalize_gray(img1)
         g2 = normalize_gray(img2)
         ph, pw = self.crop_size
         x = int(rng.integers(self.rho, ow - self.rho - pw + 1))
         y = int(rng.integers(self.rho, oh - self.rho - ph + 1))
         return {
-            "inlier_mask_full": np.ones((oh, ow, 1), np.float32),
+            "inlier_mask_full": inlier,
             "imgs_gray_full": np.concatenate([g1, g2], axis=2),
             "imgs_gray_patch": np.concatenate([g1[y:y + ph, x:x + pw], g2[y:y + ph, x:x + pw]],
                                               axis=2),

@@ -117,6 +117,20 @@ def homography_from_points(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor
     return H / H[..., 2:3, 2:3]
 
 
+def homography_from_points_ax0(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """Null-space (Ax0) DLT: H is the right singular vector of the smallest
+    singular value of the homogeneous (..., 2N, 9) system [A | -b] (the
+    reference's ``DLT(method='Ax0')``), on Hartley-normalized points; scaled
+    to H[2, 2] = 1."""
+    src_n, T_src = _normalize_points(src)
+    dst_n, T_dst = _normalize_points(dst)
+    A8, b = _dlt_system(src_n, dst_n)
+    _, _, vh = torch.linalg.svd(torch.cat([A8, -b[..., None]], dim=-1), full_matrices=True)
+    Hn = vh[..., -1, :].reshape(*vh.shape[:-2], 3, 3)
+    H = torch.linalg.inv(T_dst) @ Hn @ T_src
+    return H / H[..., 2:3, 2:3]
+
+
 def fit_homography_to_flow(flow: torch.Tensor) -> torch.Tensor:
     """One H per batch item fitted to a dense flow: (B, h, w, 2) -> (B, 3, 3)
     with H(x) ~= x + flow(x), least squares over every pixel through the 8x8

@@ -1,6 +1,7 @@
 """Host-side (numpy, float64) geometry for the data pipelines (the JAX
 package's ``geometry/host.py``): condition flows in float64 with one fp32
-cast at the end, as the reference's numpy pipeline."""
+cast at the end, as the reference's numpy pipeline.  The flow runs through
+the native host kernel; its numpy version stays beside it."""
 
 from __future__ import annotations
 
@@ -21,7 +22,15 @@ def homography_to_mapping_np(H: np.ndarray, h: int, w: int, eps: float = 1e-6) -
 
 
 def homography_to_flow_np(H: np.ndarray, h: int, w: int, eps: float = 1e-6) -> np.ndarray:
-    """flow(x) = H(x) - x in float64, one fp32 cast at the end: (h, w, 2)."""
+    """flow(x) = H(x) - x in float64, one fp32 cast at the end: (h, w, 2),
+    by the native kernel (``dmhomo_torch/native``)."""
+    from dmhomo_torch import native
+
+    return native.homography_to_flow(H, h, w, eps)
+
+
+def homography_to_flow_plain(H: np.ndarray, h: int, w: int, eps: float = 1e-6) -> np.ndarray:
+    """The numpy version of :func:`homography_to_flow_np`."""
     mx, my, X, Y = _mapped(H, h, w, eps)
     return np.stack([mx - X, my - Y], axis=-1).astype(np.float32)
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from dmhomo_torch.geometry.grids import pixel_grid
+from dmhomo_torch.geometry.homography import homography_to_mapping
 
 
 def _taps_and_weights(hw, coords: torch.Tensor, mode: str, wdt):
@@ -84,6 +85,13 @@ def warp_by_flow(img: torch.Tensor, flow: torch.Tensor,
     _, h, w, _ = flow.shape
     coords = pixel_grid(h, w, dtype=flow.dtype, device=flow.device)[None] + flow
     return bilinear_sample(img, coords, mode=mode)
+
+
+def warp_by_homography(img: torch.Tensor, H: torch.Tensor, mode: str = "collapse",
+                       guard: str = "cond") -> torch.Tensor:
+    """out(x) = img(H(x)).  img (B, H, W, C), H (B, 3, 3)."""
+    _, hh, ww, _ = img.shape
+    return bilinear_sample(img, homography_to_mapping(H, hh, ww, guard=guard), mode=mode)
 
 
 @functools.lru_cache(maxsize=128)
@@ -166,14 +174,15 @@ def resize_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:
         2, _nearest_index(W, ow, x.device))
 
 
-def upsample_flow_to(flow: torch.Tensor, out_hw) -> torch.Tensor:
-    """Resize a flow (B, h, w, 2) with magnitude rescale: (u, v) is
-    multiplied by (w_out/w_in, h_out/h_in) *before* the align-corners
-    bilinear resize (``upsample2d_flow_as(..., if_rate=True)``).  Each rate
-    multiplies its channel as a scalar, rounded to the flow's dtype as a
-    rate tensor of that dtype would be."""
-    _, h, w, _ = flow.shape
-    oh, ow = out_hw
-    rate = torch.tensor([ow / w, oh / h], dtype=flow.dtype).tolist()
-    flow = torch.cat([flow[..., :1] * rate[0], flow[..., 1:] * rate[1]], dim=-1)
+def upsample_flow_to(flow: torch.Tensor, out_hw, scale: bool = True) -> torch.Tensor:
+    """Resize a flow (B, h, w, 2) by the align-corners bilinear resize; with
+    ``scale`` (``upsample2d_flow_as(..., if_rate=True)``) (u, v) is first
+    multiplied by (w_out/w_in, h_out/h_in).  Each rate multiplies its channel
+    as a scalar, rounded to the flow's dtype as a rate tensor of that dtype
+    would be (no copy to the device)."""
+    if scale:
+        _, h, w, _ = flow.shape
+        oh, ow = out_hw
+        rate = torch.tensor([ow / w, oh / h], dtype=flow.dtype).tolist()
+        flow = torch.cat([flow[..., :1] * rate[0], flow[..., 1:] * rate[1]], dim=-1)
     return resize_bilinear_align_corners(flow, out_hw)

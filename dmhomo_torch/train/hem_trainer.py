@@ -78,6 +78,7 @@ class HEMTrainer:
         self.step = 0
         self.epoch = 0
         self._lr_dev: Optional[torch.Tensor] = None
+        self._copy_stream: Optional["torch.cuda.Stream"] = None  # batches from pinned memory
         self._graphs: dict = {}  # (key, shape, dtype) of each input -> StepGraph
         self.step_graph: Optional[StepGraph] = None  # the graph train_steps last replayed
         self._health_model: Optional[HomographyEstimator] = None
@@ -123,9 +124,35 @@ class HEMTrainer:
 
     # -- train step ---------------------------------------------------------
 
-    def _device_batch(self, batch: dict) -> dict:
+    def _stage(self, batch: dict):
+        """Start copying a batch (numpy arrays or tensors) to the device.
+        Tensors in pinned host memory (``DataLoader(pin_memory=True)``) are
+        copied on the trainer's copy stream without waiting for it; the event
+        returned marks their arrival.  Anything else is copied as before (a
+        copy from pageable memory makes the host wait for it); the event is
+        then None.  Returns (tensors on the device, event)."""
         keys = RAW_KEYS if "img12" in batch else PATCH_KEYS
-        return {k: torch.as_tensor(batch[k]).to(self.device) for k in keys}
+        host = {k: torch.as_tensor(batch[k]) for k in keys}
+        if self.device.type != "cuda" or not any(t.is_pinned() for t in host.values()):
+            return {k: t.to(self.device) for k, t in host.items()}, None
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            staged = {k: t.to(self.device, non_blocking=True) for k, t in host.items()}
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+        return staged, event
+
+    def _device_batch(self, staged: dict, event) -> dict:
+        """A staged batch, ready for the current stream: the stream waits for
+        its copy, and its tensors (allocated on the copy stream) stay reserved
+        until the work the stream has queued on them is done."""
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            for t in staged.values():
+                t.record_stream(stream)
+        return staged
 
     def _forward_backward(self, batch: dict) -> dict:
         """The step's gradients, summed over its microbatches into ``.grad``
@@ -185,7 +212,7 @@ class HEMTrainer:
     def train_step(self, batch: dict) -> dict:
         """One optimizer step on a batch of either schema; returns the loss
         terms (0-d tensors on the device, means over the microbatches)."""
-        batch = self._device_batch(batch)
+        batch = self._device_batch(*self._stage(batch))
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         losses = self._forward_backward(batch)
@@ -203,12 +230,15 @@ class HEMTrainer:
         is captured at the first call for each schema and batch shape: that
         call's first step runs eagerly on a side stream (it sets the kernels'
         attributes, the libraries' handles, Adam's state and the resizes'
-        device tables), then the step is captured.  The K batches are copied
-        to the card first (one wait); then each step copies its batch into
-        the graph's input buffers, writes the LR, replays and copies the
-        losses out, with no wait for the device.  A capture or replay that
-        fails raises; no step falls back to the eager path.  On the CPU (no
-        graphs there), K :meth:`train_step` calls.
+        device tables), then the step is captured.  The K batches are staged
+        first: from pinned memory their copies run on the copy stream while
+        earlier replays run, and the call does not wait for them (from
+        pageable memory it waits for each).  Then each step waits on the
+        device for its batch's copy, copies the batch into the graph's input
+        buffers, writes the LR, replays and copies the losses out, with no
+        wait for the device.  A capture or replay that fails raises; no step
+        falls back to the eager path.  On the CPU (no graphs there), K
+        :meth:`train_step` calls.
         """
         if self.device.type == "cuda":
             outs = self._graph_steps(batches)
@@ -217,20 +247,24 @@ class HEMTrainer:
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     def _graph_steps(self, batches: list) -> list:
-        staged = [self._device_batch(b) for b in batches]  # one wait, before any step
-        key = tuple((k, tuple(v.shape), v.dtype) for k, v in staged[0].items())
+        staged = [self._stage(b) for b in batches]
+        key = tuple((k, tuple(v.shape), v.dtype) for k, v in staged[0][0].items())
         self.model.train()
         outs, first = [], 0
         if key not in self._graphs:
+            # ready on this stream, which the side stream follows and which
+            # waits for the side stream before the batch can be freed
+            batch = self._device_batch(*staged[0])
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
-                outs.append(self.train_step(staged[0]))
+                outs.append(self.train_step(batch))
             torch.cuda.current_stream(self.device).wait_stream(side)
-            self._graphs[key] = self._capture(staged[0])
+            self._graphs[key] = self._capture(batch)
             first = 1
         sg = self.step_graph = self._graphs[key]
         for batch in staged[first:]:
+            batch = self._device_batch(*batch)
             for k, buf in sg.inputs.items():
                 buf.copy_(batch[k])
             self._set_lr()

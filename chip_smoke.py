@@ -198,6 +198,27 @@ Phases, each printing its results; any failure exits non-zero:
     process (``--streamed-step-copies``): its host-to-device copies from
     pinned memory on a stream the window kernels do not run on; (e) ``hem_train
     --samples --steps 4 --fuse-steps 2`` writes its checkpoint.
+27. data parallel (``dmhomo_torch/parallel/``), under a temporary directory
+    in ``build/``: (a) the shipped HEM graph step (bf16, B=32) inside a
+    one-rank ``nccl`` group, where the BatchNorm moments, the NLL counts and
+    the gradient all-reduce all run: the all-reduces of an eager step and of
+    the captured step (equal), 160 + 160 window launches per replay at
+    capture and by name in a profiled replay, the NCCL kernels found there
+    (a one-rank in-place all-reduce launches none), step ms with and
+    without the group; one fp32 step as a graph and eagerly under the group
+    and eagerly without it, within phase 8c's rule of each other; (b) 2
+    ranks in child processes (``--dp-rank``), ``nccl`` with a card each
+    when there are 2, else ``gloo`` with both on card 0 (printed): on each
+    rank's rows of the global batch, one fp32 eager HEM step (B=32, 16 per
+    rank, grad_accum 4) within phase 8c's rule of one process on the whole
+    batch, 160 + 160 window launches per rank; one fp32 DGM step at phase
+    25's shape with the same injected draws within phase 25's rule, 16 + 16
+    linear-attention launches per rank (8 a microbatch); ``evaluate`` of
+    half of 32 pairs per rank, merged, equal to one process's of all 32;
+    only rank 0's checkpoint file; (c) with 2 cards, the shipped HEM graph
+    step (B=32) and DGM step (128, microbatches of 32 per rank) over both
+    against card 0 alone, the idle share per rank; on one card it says it
+    did not run.
 
 The line before the last is a JSON object with the six kernels' numbers
 (kernels 3 and 4 with their launches per DGM training step, the HEM
@@ -2041,6 +2062,32 @@ def phase_train_graph(trainer, batch, eager: dict, want: dict, by_shape: dict, t
             "kernel_ms": kernel_ms, "eager_step_ms": eager["step_ms"], "eager_idle": eager["idle"]}
 
 
+def trainer_state(trainer) -> dict:
+    """A HEM trainer's weights and BatchNorm running statistics, detached."""
+    return {"params": {n: p.detach() for n, p in trainer.model.named_parameters()},
+            "bn": {n: b.detach() for n, b in trainer.model.named_buffers() if "running_" in n}}
+
+
+def step_diff(a_losses, a_state, b_losses, b_state) -> dict:
+    """Phase 8c's measures of two training runs: the losses relative, the
+    weights' largest difference, the BatchNorm statistics relative to their
+    largest value."""
+    import torch
+
+    with torch.no_grad():
+        loss = float(((a_losses.cpu() - b_losses.cpu()).abs() / b_losses.cpu().abs()).max())
+        w = max(float((p.cpu() - b_state["params"][n].cpu()).abs().max())
+                for n, p in a_state["params"].items())
+        bn = max(float((v.cpu() - b_state["bn"][n].cpu()).abs().max())
+                 / float(b_state["bn"][n].abs().max()) for n, v in a_state["bn"].items())
+    return {"loss_rel": loss, "weight_abs": w, "bn_rel": bn}
+
+
+def within_graph_rule(d: dict, lr: float) -> bool:
+    return (d["loss_rel"] <= GRAPH_LOSS_TOL and d["weight_abs"] <= GRAPH_LR_FACTOR * lr
+            and d["bn_rel"] <= GRAPH_BN_TOL)
+
+
 def phase_graph_vs_eager(dev, batch, seed: int, attn_impl: str, tag: str):
     """Phases 8c and 20c: one fp32 graph step at the shipped shape (TF32
     off) against an eager one.  Three trainers from the same seed take
@@ -2067,15 +2114,8 @@ def phase_graph_vs_eager(dev, batch, seed: int, attn_impl: str, tag: str):
     got = graph.train_steps([batch] * GRAPH_STEPS)["total"]
     torch.cuda.synchronize()
 
-    @torch.no_grad()
     def differ(a, b):
-        loss = float(((a[0] - b[0]).abs() / b[0].abs()).max())
-        w = max(float((p - q).abs().max()) for p, q in
-                zip(a[1].model.parameters(), b[1].model.parameters()))
-        bufs = dict(b[1].model.named_buffers())
-        bn = max(float((v - bufs[n]).abs().max()) / float(bufs[n].abs().max())
-                 for n, v in a[1].model.named_buffers() if "running_" in n)
-        return {"loss_rel": loss, "weight_abs": w, "bn_rel": bn}
+        return step_diff(a[0], trainer_state(a[1]), b[0], trainer_state(b[1]))
 
     d = differ((got, graph), (want, eager))
     noise = differ((spread, again), (want, eager))
@@ -2089,8 +2129,7 @@ def phase_graph_vs_eager(dev, batch, seed: int, attn_impl: str, tag: str):
         f"{GRAPH_LR_FACTOR:g} lr = {GRAPH_LR_FACTOR * cfg.lr:g}; the steps moved them by up to "
         f"{moved:.3g}); BatchNorm statistics {d['bn_rel']:.3g} of their largest value (tol "
         f"{GRAPH_BN_TOL:g}); two eager runs differ by {json.dumps(noise)}")
-    if not (d["loss_rel"] <= GRAPH_LOSS_TOL and d["weight_abs"] <= GRAPH_LR_FACTOR * cfg.lr
-            and d["bn_rel"] <= GRAPH_BN_TOL):
+    if not within_graph_rule(d, cfg.lr):
         raise SystemExit(f"graph and eager steps disagree: {d}")
     del eager, again, graph
     torch.cuda.empty_cache()
@@ -2794,21 +2833,539 @@ def phase_pipeline(dev, seed: int, tmp: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 27: data parallel
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_TIMEOUT_S = 300.0  # a collective that waits longer raises in the rank
+DP_JOIN_S = 900  # the ranks' whole run; then they are killed and the phase fails
+DP_EVAL_PAIRS = 32  # evaluated in halves, one per rank, and merged
+DP_DGM_SPEED_MICROBATCH = 32  # per rank at the shipped batch of 128 (phase 22's microbatch)
+DP_DGM_WARMUP, DP_DGM_TIMED = 2, 5
+HEM_STEP_LAUNCHES = {"window_attention": 40 * (BATCH // MICROBATCH),
+                     "window_attention_backward": 40 * (BATCH // MICROBATCH),
+                     "swin_block": 0, "swin_block_backward": 0}
+
+
+def graph_step_times(trainer, batch):
+    """``train_steps`` one call per step: the first (an eager step, then the
+    capture), WARMUP_STEPS - 1 more, TIMED_STEPS timed (host clock around
+    ``synchronize()``).  Returns (median ms of the timed, all times)."""
+    import torch
+
+    times = []
+    for _ in range(WARMUP_STEPS + TIMED_STEPS):
+        t0 = time.perf_counter()
+        out = trainer.train_steps([batch])
+        float(out["total"][0])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times[WARMUP_STEPS:])), times
+
+
+def profile_replay(trainer, batch):
+    """One replayed step under torch.profiler: (device ms, launches of each
+    counted kernel by name, NCCL kernels' (count, device ms), top events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_steps([batch])
+        torch.cuda.synchronize()
+    events = kernel_events(prof.key_averages())
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    launches = {n: sum(e.count for e in events if part in e.key)
+                for n, part in DEVICE_KERNEL.items()}
+    nccl = [e for e in events if "nccl" in e.key.lower()]
+    return (dev_ms, launches,
+            (sum(e.count for e in nccl), sum(e.self_device_time_total for e in nccl) / 1e3,
+             sorted({e.key[:60] for e in nccl})))
+
+
+def phase_dp_one_rank(dev, batch, seed: int, tmp: str):
+    """27a: the shipped HEM graph step and the fp32 step inside a one-rank
+    ``nccl`` group, where every collective of the data-parallel step runs,
+    against the same steps with no group."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from dmhomo_torch.parallel import distributed as pd
+    from dmhomo_torch.train.config import HEMTrainConfig
+    from dmhomo_torch.train.hem_trainer import HEMTrainer
+
+    shipped, fp32 = HEMTrainConfig(), dataclasses.replace(HEMTrainConfig(), bf16=False)
+    # no group: the shipped graph step's time, and the fp32 eager steps
+    plain = HEMTrainer(shipped, steps_per_epoch=1000, device=dev)
+    plain.init_state(seed)
+    no_group_ms, _ = graph_step_times(plain, batch)
+    del plain
+    ref = HEMTrainer(fp32, steps_per_epoch=1000, device=dev)
+    ref.init_state(seed + 2)
+    ref_losses = torch.stack([ref.train_step(batch)["total"] for _ in range(GRAPH_STEPS)])
+    ref_state = {k: {n: v.clone() for n, v in d.items()} for k, d in trainer_state(ref).items()}
+    del ref
+    torch.cuda.empty_cache()
+
+    pd.maybe_initialize_distributed(backend="nccl", init_method=f"file://{tmp}/pg-27a",
+                                    world_size=1, rank=0, device=dev, timeout_s=DP_TIMEOUT_S)
+    try:
+        tr = HEMTrainer(shipped, steps_per_epoch=1000, device=dev)
+        tr.init_state(seed)
+        if tr._grads is None or tr.mesh.data != 1:
+            raise SystemExit("the trainer under a one-rank group is not data-parallel")
+        c0 = pd.all_reduce_.calls
+        tr.train_step(batch)
+        eager_calls = pd.all_reduce_.calls - c0
+        torch.cuda.synchronize()
+        c0 = pd.all_reduce_.calls
+        group_ms, times = graph_step_times(tr, batch)
+        # the first call ran one eager step, then captured the step; replays run no Python
+        captured = pd.all_reduce_.calls - c0 - eager_calls
+        sg = tr.step_graph
+        dev_ms, device, (n_nccl, nccl_ms, nccl_names) = profile_replay(tr, batch)
+        idle = max(0.0, 1.0 - dev_ms / group_ms)
+        if sg.launches != HEM_STEP_LAUNCHES or device != HEM_STEP_LAUNCHES:
+            raise SystemExit(f"one-rank group: launches per replay at capture {sg.launches}, by "
+                             f"name in a profiled replay {device}; expected {HEM_STEP_LAUNCHES}")
+        if captured != eager_calls or captured < 3:
+            raise SystemExit(f"the captured step holds {captured} all-reduces, the eager step "
+                             f"{eager_calls}")
+        log(f"[dp-1] one-rank nccl group, shipped config B={BATCH} (bf16, microbatches of "
+            f"{MICROBATCH}): graph step {group_ms:.2f} ms (timed "
+            f"{', '.join(f'{t:.1f}' for t in times[WARMUP_STEPS:])}), no group {no_group_ms:.2f} "
+            f"ms (this phase, same card); {1e3 * BATCH / group_ms:.2f} pairs/s; idle "
+            f"{100 * idle:.1f}%")
+        n_grad = sum(p.numel() for p in tr.model.parameters())
+        log(f"[dp-1] all-reduces per step: {eager_calls} eager, {captured} captured in the graph "
+            f"(BatchNorm moments forward and backward, the NLL counts, one gradient buffer of "
+            f"{n_grad:,} fp32 values, {4 * n_grad / 1e6:.2f} MB, and 5 loss terms); "
+            f"launches per replay {sg.launches}, by name {device}; NCCL kernels in a profiled "
+            f"replay: {n_nccl} ({nccl_ms:.3f} ms) {nccl_names} (NCCL runs a one-rank in-place "
+            "all-reduce as no kernel)")
+        del tr
+        torch.cuda.empty_cache()
+        # fp32: eager and graph under the group, against each other and the no-group eager
+        eager = HEMTrainer(fp32, steps_per_epoch=1000, device=dev)
+        eager.init_state(seed + 2)
+        eager_losses = torch.stack([eager.train_step(batch)["total"]
+                                    for _ in range(GRAPH_STEPS)])
+        eager_state = trainer_state(eager)
+        graph = HEMTrainer(fp32, steps_per_epoch=1000, device=dev)
+        graph.init_state(seed + 2)
+        graph_losses = graph.train_steps([batch] * GRAPH_STEPS)["total"]
+        torch.cuda.synchronize()
+        d_graph = step_diff(graph_losses, trainer_state(graph), eager_losses, eager_state)
+        d_plain = step_diff(eager_losses, eager_state, ref_losses, ref_state)
+        log(f"[dp-1] fp32, {GRAPH_STEPS} steps: graph vs eager under the group "
+            f"{json.dumps(d_graph)}; eager under the group vs eager with no group "
+            f"{json.dumps(d_plain)} (phase 8c's rule: losses {GRAPH_LOSS_TOL:g}, weights "
+            f"{GRAPH_LR_FACTOR:g} lr, BatchNorm {GRAPH_BN_TOL:g})")
+        if not (within_graph_rule(d_graph, fp32.lr) and within_graph_rule(d_plain, fp32.lr)):
+            raise SystemExit(f"one-rank group: graph vs eager {d_graph}, vs no group {d_plain}")
+        del eager, graph
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"step_ms": group_ms, "no_group_step_ms": no_group_ms, "idle": idle,
+            "all_reduces_eager": eager_calls, "all_reduces_captured": captured,
+            "gradient_values": n_grad,
+            "nccl_kernels_per_replay": n_nccl, "nccl_ms_per_replay": nccl_ms,
+            "launches_per_replay": sg.launches, "graph_vs_eager": d_graph,
+            "eager_vs_no_group": d_plain}
+
+
+def dp_eval_samples(cfg, seed: int) -> dict:
+    """DP_EVAL_PAIRS synthetic eval pairs with a video name of each
+    category in turn (numpy, as the loader collates them)."""
+    from dmhomo_torch.evaluation.metrics import TEST_CATEGORIES
+
+    patch, pts = make_pairs(DP_EVAL_PAIRS, cfg.ori_size, cfg.crop_size, seed)
+    names = [ids[0] for ids in TEST_CATEGORIES.values()]
+    return {"imgs_gray_patch": patch, "pt_set": pts,
+            "video_names": [names[i % len(names)] for i in range(DP_EVAL_PAIRS)]}
+
+
+def dgm_dp_setup(seed: int):
+    """Phase 25's fp32 DGM step config (full-width UNet at DGM_CPU_SIZE,
+    batch DGM_CPU_BATCH in DGM_CPU_ACCUM microbatches) and its global
+    conditions, classes and draws (numpy)."""
+    import dataclasses
+
+    from dmhomo_torch.data.conditions import synthetic_condition_batches
+    from dmhomo_torch.train.config import DGMTrainConfig
+
+    base = DGMTrainConfig()
+    cfg = dataclasses.replace(
+        base, bf16=False, train_batch_size=DGM_CPU_BATCH, gradient_accumulate_every=DGM_CPU_ACCUM,
+        ema_update_every=1, diffusion=dataclasses.replace(base.diffusion, image_size=DGM_CPU_SIZE))
+    S, mb = DGM_CPU_SIZE, DGM_CPU_BATCH // DGM_CPU_ACCUM
+    cond, cls = next(synthetic_condition_batches(DGM_CPU_BATCH, S, DGM_CPU_BATCH,
+                                                 base.unet.num_classes, seed + 27))
+    rng = np.random.default_rng(seed + 27)
+    draws = [(rng.integers(0, base.diffusion.timesteps, (mb,)),
+              rng.normal(size=(mb, S, S, base.unet.channels)).astype(np.float32),
+              np.array([True, False][:mb])) for _ in range(DGM_CPU_ACCUM)]
+    return cfg, cond, cls, draws
+
+
+def dp_rank(rank: int, world: int, root: str, backend: str, seed: int) -> None:
+    """27b/27c, one rank (a child process of the phase): joins the group
+    through ``root``, runs the cases on its rows, writes
+    ``root/rank<rank>.pt``; with its own card under nccl, then times the
+    shipped HEM graph step and DGM step."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from dmhomo_torch.ops.window_attention import window_attention, window_attention_backward
+    from dmhomo_torch.parallel import distributed as pd
+    from dmhomo_torch.parallel.mesh import accum_for, shard_batch
+    from dmhomo_torch.train.config import HEMTrainConfig
+    from dmhomo_torch.train.dgm_trainer import DGMTrainer
+    from dmhomo_torch.train.hem_trainer import HEMTrainer
+
+    speed = backend == "nccl"
+    dev = torch.device("cuda", rank if speed else 0)
+    pd.maybe_initialize_distributed(backend=backend, init_method=f"file://{root}/pg",
+                                    world_size=world, rank=rank, device=dev,
+                                    timeout_s=DP_TIMEOUT_S)
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "device": str(dev), "card": torch.cuda.get_device_name(dev)}
+    try:
+        cfg = dataclasses.replace(HEMTrainConfig(), bf16=False)
+        tr = HEMTrainer(cfg, steps_per_epoch=1000, device=dev)
+        tr.init_state(seed + 3)
+        ev = dp_eval_samples(cfg.estimator, seed + 3)
+        out["eval"] = tr.evaluate(iter([{k: v[rank::world] for k, v in ev.items()}]))
+        batch = synthetic_train_batch(BATCH, seed)
+        accum = accum_for(BATCH // world, world, cfg.grad_accum)
+        rows = shard_batch(batch, rank, world, accum)
+        for fn in (window_attention, window_attention_backward):
+            fn.launches = 0
+        losses = tr.train_step(rows)
+        out["hem"] = {"accum": accum, "rows": int(rows["imgs_gray_patch"].shape[0]),
+                      "losses": losses["total"].reshape(1).cpu(),
+                      "launches": (window_attention.launches, window_attention_backward.launches),
+                      "state": {k: {n: v.cpu() for n, v in d.items()}
+                                for k, d in trainer_state(tr).items()}}
+        out["ckpt"] = tr.save(os.path.join(root, "ckpt"))
+        del tr
+        torch.cuda.empty_cache()
+
+        dcfg, cond, cls, draws = dgm_dp_setup(seed)
+        dt = DGMTrainer(dcfg, device=dev)
+        dt.init_state(seed + 27)
+        c0 = la_counts()
+        with PlainLinearAttentionRefused():
+            loss = dt.loss_and_grads(shard_batch(cond, rank, world, DGM_CPU_ACCUM),
+                                     shard_batch(cls, rank, world, DGM_CPU_ACCUM), draws=draws)
+        launches = tuple(b - a for a, b in zip(c0, la_counts()))
+        grads = {n: p.grad.detach().cpu().clone() for n, p in dt.model.named_parameters()}
+        upd = dt.apply_gradients()
+        out["dgm"] = {"loss": float(loss), "grads": grads, "launches": launches,
+                      "gradient_values": sum(p.numel() for p in dt.model.parameters()),
+                      "grad_norm": float(upd["grad_norm"]),
+                      "params": [p.detach().cpu() for p in dt.model.parameters()],
+                      "ema_is_params": all(torch.equal(e, p) for e, p in
+                                           zip(dt.ema.params, dt.model.parameters()))}
+        del dt
+        torch.cuda.empty_cache()
+        torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+        if speed:
+            dp_speed(rank, world, root, dev, seed)
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_speed(rank: int, world: int, root: str, dev, seed: int) -> None:
+    """27c, one rank on its own card: once the parent says so (``root/go``),
+    the shipped HEM graph step at the global batch of 32 and the shipped DGM
+    step at the global batch of 128 (microbatches of DP_DGM_SPEED_MICROBATCH
+    per rank); the idle share of a profiled HEM replay.  Writes
+    ``root/speed<rank>.json``."""
+    import dataclasses
+
+    import torch
+
+    from dmhomo_torch.parallel import distributed as pd
+    from dmhomo_torch.parallel.mesh import accum_for, shard_batch
+    from dmhomo_torch.train.config import DGMTrainConfig, HEMTrainConfig
+    from dmhomo_torch.train.dgm_trainer import DGMTrainer
+    from dmhomo_torch.train.hem_trainer import HEMTrainer
+
+    deadline = time.time() + DP_TIMEOUT_S
+    while not os.path.exists(os.path.join(root, "go")):
+        if time.time() > deadline:
+            raise SystemExit("the parent never said go")
+        time.sleep(0.2)
+    cfg = HEMTrainConfig()
+    tr = HEMTrainer(cfg, steps_per_epoch=1000, device=dev)
+    tr.init_state(seed)
+    batch = synthetic_train_batch(BATCH, seed)
+    rows = shard_batch(batch, rank, world, accum_for(BATCH // world, world, cfg.grad_accum))
+    pd.all_reduce_(torch.zeros(1, device=dev))  # start together
+    hem_ms, times = graph_step_times(tr, rows)
+    dev_ms, device, nccl = profile_replay(tr, rows)
+    del tr
+    torch.cuda.empty_cache()
+    base = DGMTrainConfig()
+    B = base.train_batch_size
+    dcfg = dataclasses.replace(base, gradient_accumulate_every=B // world // DP_DGM_SPEED_MICROBATCH)
+    cond, cls = dgm_condition_pool(B, base.diffusion.image_size, base.unet.num_classes, seed, dev)
+    c, k = (shard_batch(x, rank, world, dcfg.gradient_accumulate_every) for x in (cond, cls))
+    dt = DGMTrainer(dcfg, device=dev)
+    dt.init_state(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1 + rank)
+    dgm_ms, dgm_times = dgm_step_times(dt, c, k, gen)
+    peak = torch.cuda.max_memory_allocated(dev)
+    with open(os.path.join(root, f"speed{rank}.json"), "w") as f:
+        json.dump({"hem_step_ms": hem_ms, "hem_times": times, "hem_idle": max(0.0, 1 - dev_ms / hem_ms),
+                   "hem_launches_by_name": device, "nccl_kernels_per_replay": nccl[0],
+                   "nccl_ms_per_replay": nccl[1], "nccl_names": nccl[2],
+                   "dgm_step_ms": dgm_ms, "dgm_times": dgm_times, "dgm_microbatch": DP_DGM_SPEED_MICROBATCH,
+                   "peak_bytes": peak}, f)
+
+
+def dgm_step_times(trainer, cond, cls, gen):
+    """DP_DGM_WARMUP + DP_DGM_TIMED DGM steps, each timed by the host clock
+    around ``synchronize()``: (median ms of the timed, all times)."""
+    import torch
+
+    times = []
+    for _ in range(DP_DGM_WARMUP + DP_DGM_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(trainer.train_step(cond, cls, generator=gen)["loss"])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times[DP_DGM_WARMUP:])), times
+
+
+def one_card_speed(dev, seed: int) -> dict:
+    """27c's baseline on card 0 with no group: the shipped HEM graph step at
+    B=32 and the shipped DGM step at 128 in microbatches of
+    DP_DGM_SPEED_MICROBATCH."""
+    import dataclasses
+
+    import torch
+
+    from dmhomo_torch.train.config import DGMTrainConfig, HEMTrainConfig
+    from dmhomo_torch.train.dgm_trainer import DGMTrainer
+    from dmhomo_torch.train.hem_trainer import HEMTrainer
+
+    tr = HEMTrainer(HEMTrainConfig(), steps_per_epoch=1000, device=dev)
+    tr.init_state(seed)
+    batch = synthetic_train_batch(BATCH, seed)
+    hem_ms, _ = graph_step_times(tr, batch)
+    dev_ms, _, _ = profile_replay(tr, batch)
+    del tr
+    torch.cuda.empty_cache()
+    base = DGMTrainConfig()
+    B = base.train_batch_size
+    dt = DGMTrainer(dataclasses.replace(base, gradient_accumulate_every=B // DP_DGM_SPEED_MICROBATCH),
+                    device=dev)
+    dt.init_state(seed)
+    cond, cls = dgm_condition_pool(B, base.diffusion.image_size, base.unet.num_classes, seed, dev)
+    dgm_ms, times = dgm_step_times(dt, cond, cls, torch.Generator(device=dev).manual_seed(seed + 1))
+    del dt
+    torch.cuda.empty_cache()
+    return {"hem_step_ms": hem_ms, "hem_idle": max(0.0, 1 - dev_ms / hem_ms),
+            "dgm_step_ms": dgm_ms, "dgm_times": times}
+
+
+def phase_dp_ranks(dev, seed: int, tmp: str):
+    """27b and 27c: DP_WORLD ranks in child processes (``nccl``, one card
+    each, when there are enough cards; else ``gloo`` with every rank on card
+    0), held against one process on the same global batch; with nccl, then
+    the step times over the ranks' cards against card 0 alone."""
+    import dataclasses
+
+    import torch
+
+    from dmhomo_torch.train.config import HEMTrainConfig
+    from dmhomo_torch.train.dgm_trainer import DGMTrainer
+    from dmhomo_torch.train.hem_trainer import HEMTrainer
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= DP_WORLD else "gloo"
+    log(f"[dp-2] {DP_WORLD} ranks, backend {backend} ({cards} card(s): "
+        f"{'one card per rank' if backend == 'nccl' else 'both ranks on card 0'})")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+                               "--dp-rank", str(r), "--dp-world", str(DP_WORLD), "--dp-dir", tmp,
+                               "--dp-backend", backend],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(DP_WORLD)]
+    try:
+        # meanwhile, one process on the global batch: the same seeds and draws
+        cfg = dataclasses.replace(HEMTrainConfig(), bf16=False)
+        tr = HEMTrainer(cfg, steps_per_epoch=1000, device=dev)
+        tr.init_state(seed + 3)
+        want_eval = tr.evaluate(iter([dp_eval_samples(cfg.estimator, seed + 3)]))
+        want_losses = tr.train_step(synthetic_train_batch(BATCH, seed))["total"].reshape(1).cpu()
+        want_state = {k: {n: v.cpu() for n, v in d.items()} for k, d in trainer_state(tr).items()}
+        del tr
+        torch.cuda.empty_cache()
+        dcfg, cond, cls, draws = dgm_dp_setup(seed)
+        nudged = (cond + STEP_INPUT_NOISE * np.random.default_rng(seed).normal(size=cond.shape)
+                  ).astype(np.float32)
+        dt = DGMTrainer(dcfg, device=dev)
+        dt.init_state(seed + 27)
+        dt.loss_and_grads(nudged, cls, draws=draws)
+        g_nudged = {n: p.grad.detach().cpu().clone() for n, p in dt.model.named_parameters()}
+        want_dgm = float(dt.loss_and_grads(cond, cls, draws=draws))
+        g_want = {n: p.grad.detach().cpu().clone() for n, p in dt.model.named_parameters()}
+        upd = dt.apply_gradients()
+        p_want = [p.detach().cpu() for p in dt.model.parameters()]
+        del dt
+        torch.cuda.empty_cache()
+        if backend == "nccl":
+            open(os.path.join(tmp, "go"), "w").close()
+        logs = [p.communicate(timeout=DP_JOIN_S)[0].decode(errors="replace") for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise SystemExit(f"rank {r} failed ({p.returncode}):\n{text[-4000:]}")
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(DP_WORLD)]
+    out = {"backend": backend, "cards": cards}
+    for r, got in enumerate(ranks):
+        h = got["hem"]
+        d = step_diff(h["losses"], h["state"], want_losses, want_state)
+        if h["launches"] != (HEM_STEP_LAUNCHES["window_attention"],) * 2 or \
+                not within_graph_rule(d, cfg.lr) or got["backend"] != backend:
+            raise SystemExit(f"rank {r}: HEM step against one process {d}, launches "
+                             f"{h['launches']}, backend {got['backend']}")
+        log(f"[dp-2] rank {r} on {got['device']} ({got['card']}): HEM fp32 eager step, "
+            f"{h['rows']} of the global {BATCH} rows in {h['accum']} microbatches, against one "
+            f"process on the whole batch: {json.dumps(d)} (phase 8c's rule); window-attention "
+            f"launches forward/backward {h['launches'][0]}/{h['launches'][1]}")
+        out[f"rank{r}_hem"] = {**d, "launches": h["launches"]}
+        g = got["dgm"]
+        loss_rel = abs(g["loss"] - want_dgm) / abs(want_dgm)
+        rels = {n: float((g["grads"][n] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+                for n, v in g_want.items()}
+        tols = {n: max(STEP_GRAD_TOL, STEP_NOISE_FACTOR * float((g_nudged[n] - v).abs().max())
+                       / max(float(v.abs().max()), 1e-30)) for n, v in g_want.items()}
+        bad = [n for n in rels if not rels[n] <= tols[n]]
+        diff = torch.cat([(a - b).abs().flatten() for a, b in zip(g["params"], p_want)])
+        norm_rel = abs(g["grad_norm"] - float(upd["grad_norm"])) / float(upd["grad_norm"])
+        per_step = (8 * DGM_CPU_ACCUM,) * 2  # 8 sites a microbatch
+        worst = max(rels, key=lambda n: rels[n] / tols[n])
+        log(f"[dp-2] rank {r}: DGM fp32 step ({DGM_CPU_SIZE}x{DGM_CPU_SIZE}, global batch "
+            f"{DGM_CPU_BATCH} in {DGM_CPU_ACCUM} microbatches) against one process with the same "
+            f"draws: loss rel {loss_rel:.3g} (tol {STEP_LOSS_TOL:g}); closest gradient {worst} "
+            f"{rels[worst]:.3g} (tol {tols[worst]:.3g}); global norm rel {norm_rel:.3g}; weights "
+            f"after Adam max {float(diff.max()):.3g} (2 lr = {2 * dcfg.lr:g}); gradient all-reduce "
+            f"of {g['gradient_values']:,} fp32 values ({4 * g['gradient_values'] / 1e6:.2f} MB, the "
+            f"shipped UNet's); linear-attention "
+            f"launches pass 1/2 {g['launches'][0]}/{g['launches'][1]}; EMA = weights "
+            f"{g['ema_is_params']}")
+        if bad or loss_rel > STEP_LOSS_TOL or norm_rel > STEP_GRAD_TOL or \
+                float(diff.max()) > 2 * dcfg.lr + 1e-6 or \
+                float((diff > 1e-6).float().mean()) >= 0.01 or g["launches"] != per_step or \
+                not g["ema_is_params"]:
+            raise SystemExit(f"rank {r}: DGM step against one process: loss {loss_rel}, "
+                             f"gradients {[(n, rels[n], tols[n]) for n in bad]}, norm {norm_rel}, "
+                             f"launches {g['launches']} (expected {per_step})")
+        out[f"rank{r}_dgm"] = {"loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+                               "param_max_diff": float(diff.max()), "launches": g["launches"]}
+        bad_eval = [k for k, v in want_eval.items()
+                    if not (np.isnan(v) and np.isnan(got["eval"][k])
+                            or abs(got["eval"][k] - v) <= 1e-6 * abs(v))]
+        log(f"[dp-2] rank {r}: merged evaluate of {DP_EVAL_PAIRS // DP_WORLD} pairs per rank "
+            f"{json.dumps(got['eval'])} vs one process {json.dumps(want_eval)}")
+        if bad_eval:
+            raise SystemExit(f"rank {r}: merged evaluate differs in {bad_eval}")
+    ckpt = os.path.join(tmp, "ckpt")
+    files = sorted(os.listdir(ckpt))
+    paths = {got["ckpt"] for got in ranks}
+    log(f"[dp-2] checkpoint: every rank returned {sorted(paths)}; files written {files}")
+    if files != ["model_latest.pth"] or paths != {os.path.join(ckpt, "model_latest.pth")}:
+        raise SystemExit(f"checkpoint writers: files {files}, paths {paths}")
+    out["launches_per_rank"] = {"window_attention": HEM_STEP_LAUNCHES["window_attention"],
+                                "linear_attention_per_microbatch": 8}
+    if backend != "nccl":
+        log(f"[dp-3] speed over {DP_WORLD} cards: not run ({cards} card(s); {DP_WORLD} ranks "
+            "sharing one card measure no scaling)")
+        return out
+    speed = [json.load(open(os.path.join(tmp, f"speed{r}.json"))) for r in range(DP_WORLD)]
+    one = one_card_speed(dev, seed)
+    hem_ms = max(s["hem_step_ms"] for s in speed)
+    dgm_ms = max(s["dgm_step_ms"] for s in speed)
+    log(f"[dp-3] HEM graph step, global B={BATCH}: {DP_WORLD} cards {hem_ms:.2f} ms "
+        f"({1e3 * BATCH / hem_ms:.2f} pairs/s; per rank "
+        f"{[round(s['hem_step_ms'], 2) for s in speed]} ms, idle "
+        f"{[round(100 * s['hem_idle'], 1) for s in speed]}%, NCCL kernels per replay "
+        f"{[s['nccl_kernels_per_replay'] for s in speed]} "
+        f"({[round(s['nccl_ms_per_replay'], 3) for s in speed]} ms) {speed[0]['nccl_names']}) vs "
+        f"one card {one['hem_step_ms']:.2f} ms ({1e3 * BATCH / one['hem_step_ms']:.2f} pairs/s, "
+        f"idle {100 * one['hem_idle']:.1f}%)")
+    log(f"[dp-3] DGM step, global batch 128 in microbatches of {DP_DGM_SPEED_MICROBATCH} per "
+        f"rank: {DP_WORLD} cards {dgm_ms:.2f} ms ({1e3 * 128 / dgm_ms:.3f} samples/s; per rank "
+        f"{[round(s['dgm_step_ms'], 2) for s in speed]}) vs one card {one['dgm_step_ms']:.2f} ms "
+        f"({1e3 * 128 / one['dgm_step_ms']:.3f} samples/s)")
+    for s in speed:
+        if s["hem_launches_by_name"] != HEM_STEP_LAUNCHES or s["nccl_kernels_per_replay"] == 0:
+            raise SystemExit(f"a rank's profiled replay: launches {s['hem_launches_by_name']}, "
+                             f"NCCL kernels {s['nccl_kernels_per_replay']}")
+    out["speed"] = {"ranks": speed, "one_card": one, "hem_step_ms": hem_ms, "dgm_step_ms": dgm_ms}
+    return out
+
+
+def phase_data_parallel(dev, batch, seed: int):
+    """Phase 27, under a temporary directory in ``build/``."""
+    import tempfile
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dp_", dir=build) as tmp:
+        one = phase_dp_one_rank(dev, batch, seed, tmp)
+        ranks = phase_dp_ranks(dev, seed, tmp)
+    out = {"one_rank": one, "ranks": ranks, "phase_s": time.perf_counter() - t0}
+    log(f"[dp-summary] " + json.dumps(out))
+    return out
+
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--streamed-step-copies", metavar="SAMPLES", default=None,
                         help="phase 26's child: profile one streamed step, print its copies")
+    parser.add_argument("--dp-rank", type=int, default=None,
+                        help="phase 27's child: this rank of --dp-world, through --dp-dir")
+    parser.add_argument("--dp-world", type=int, default=DP_WORLD)
+    parser.add_argument("--dp-dir", type=str, default=None)
+    parser.add_argument("--dp-backend", type=str, default="gloo", choices=("nccl", "gloo"))
+    parser.add_argument("--only-data-parallel", action="store_true",
+                        help="phases 1-2 (device, build), then phase 27 alone; prints no "
+                             "final line")
     args = parser.parse_args(argv)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if args.streamed_step_copies:
         print(json.dumps(streamed_step_copies(args.streamed_step_copies, args.seed)), flush=True)
         return
+    if args.dp_rank is not None:
+        dp_rank(args.dp_rank, args.dp_world, args.dp_dir, args.dp_backend, args.seed)
+        return
     t_start = time.perf_counter()
 
     dev, name, smi = phase_device()
     phase_build()
+    if args.only_data_parallel:
+        phase_data_parallel(dev, synthetic_train_batch(BATCH, args.seed), args.seed)
+        log(smi)
+        return
     wa_sass, wa_atomics = phase_window_sass()
 
     import torch
@@ -2907,6 +3464,7 @@ def main(argv=None):
     os.makedirs(build, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="pipeline_", dir=build) as tmp:
         pipe = phase_pipeline(dev, args.seed, tmp)
+    dp = phase_data_parallel(dev, train_batch, args.seed)
 
     # per-forward totals at the eval path's dtype (fp32) and launch mix
     main = [r for r in results if r["dtype"] == "float32"]
@@ -2935,6 +3493,10 @@ def main(argv=None):
         "launches_per_graph_step": graph["launches_per_step"]["window_attention"],
         # phase 26: HEM training streamed from generated samples
         "launches_pipeline": pipe["train"]["launches"]["window_attention"],
+        # phase 27: per replay inside a one-rank group, per step on each of 2 ranks
+        "launches_per_graph_step_one_rank_group": dp["one_rank"]["launches_per_replay"][
+            "window_attention"],
+        "launches_per_step_each_rank": dp["ranks"]["rank0_hem"]["launches"][0],
         # per training step: the 160 launches at B=8, bf16
         "ms_per_step": sum(r["ms"] * r["launches_per_step"] for r in step_rows),
         "bound_ms_per_step": sum(r["bound_ms"] * r["launches_per_step"] for r in step_rows),
@@ -2951,6 +3513,9 @@ def main(argv=None):
         "launches": train["bwd_launches"], "max_abs_err": bwd_worst[("bfloat16", "dqkv")],
         "launches_per_graph_step": graph["launches_per_step"]["window_attention_backward"],
         "launches_pipeline": pipe["train"]["launches"]["window_attention_backward"],
+        "launches_per_graph_step_one_rank_group": dp["one_rank"]["launches_per_replay"][
+            "window_attention_backward"],
+        "launches_per_step_each_rank": dp["ranks"]["rank0_hem"]["launches"][1],
         "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
         "bound_ms": per_step("bound_ms"),
         "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in train_rows)
@@ -3016,6 +3581,8 @@ def main(argv=None):
             # DGM training (phase 22): launches over the timed steps and per step
             "launches_train": dgm["launches"][p - 1],
             "launches_per_dgm_step": dgm["launches_per_step"],
+            # phase 27: one fp32 DGM step on each of 2 ranks, 2 microbatches
+            "launches_per_dgm_step_each_rank": dp["ranks"]["rank0_dgm"]["launches"][p - 1],
             "dgm_step_profiled_ms": dgm_prof["groups_ms"][f"linear-attention pass {p}"],
             # the output at phase 24's training shapes (both passes), relative to the plain
             "max_rel_err_output_dgm_train": {dt: la_bwd_worst[(dt, "out")]
@@ -3162,6 +3729,11 @@ def main(argv=None):
         f"loader {pt['loader_ms_per_batch'][0]:.2f} / {pt['loader_ms_per_batch'][PIPE_WORKERS]:.2f}"
         f" ms per batch with 0 / {PIPE_WORKERS} workers; phase {pipe['phase_s']:.1f} s")
     log("[pipeline-summary] " + json.dumps(pipe))
+    one, ranks = dp["one_rank"], dp["ranks"]
+    log(f"[summary] data parallel: one-rank nccl group graph step {one['step_ms']:.2f} ms (no group "
+        f"{one['no_group_step_ms']:.2f}), {one['all_reduces_captured']} all-reduces captured per "
+        f"step; {DP_WORLD} ranks ({ranks['backend']}, {ranks['cards']} card(s)) within phase 8c's "
+        f"and 25's rules of one process; phase {dp['phase_s']:.1f} s")
     log(smi)  # nvidia-smi: card name, power limit
     log(json.dumps({"kernels": [kernel, bwd_kernel] + la_kernels + [sb_kernel, sbb_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -91,6 +91,12 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
 
     from dmhomo_torch.data.shards import save_generation_shard, shard_filename
+    from dmhomo_torch.parallel.distributed import local_device, maybe_initialize_distributed
+
+    # under torchrun each process takes the card LOCAL_RANK; which
+    # conditions it generates stays --shard-index / --num-shards
+    maybe_initialize_distributed(device=args.device)
+    device = local_device(args.device)
 
     if args.conditions:
         from dmhomo_torch.data.conditions import ConditionCache
@@ -118,7 +124,7 @@ def main(argv=None):
         max_batches = min(max_batches, args.batches)
 
     gd = build_sampler(args.dim, [int(m) for m in args.dim_mults.split(",")], args.num_classes,
-                       args.image_size, args.s_step, args.cond_scale, device=args.device,
+                       args.image_size, args.s_step, args.cond_scale, device=device,
                        seed=args.seed, torch_ckpt=args.torch_ckpt)
     dev = gd.schedule.betas.device
     generator = torch.Generator(device=dev).manual_seed(args.seed + args.shard_index)

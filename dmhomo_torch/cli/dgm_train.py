@@ -15,6 +15,13 @@ Examples:
 
 Runs on ``cuda`` (raises without a card) unless ``--device cpu``.  The
 weights start random, drawn from --seed.
+
+Data-parallel over N cards: ``torchrun --nproc_per_node N -m
+dmhomo_torch.cli.dgm_train ...`` (``nccl``; ``gloo`` with ``--device
+cpu``).  --batch-size stays the global batch: every rank draws the same
+global batches as one process would and takes its rows of each microbatch
+(``accum * N`` must divide it); the diffusion noise comes from seed + 1 +
+rank.  Only rank 0 writes checkpoints.
 """
 
 from __future__ import annotations
@@ -25,14 +32,20 @@ import logging
 import numpy as np
 
 
-def cache_condition_batches(cache_dir: str, batch_size: int, seed: int = 0):
-    """Endless (conditions, classes) batches drawn from a condition cache."""
+def cache_condition_batches(cache_dir: str, batch_size: int, seed: int = 0, rank: int = 0,
+                            world: int = 1, accum: int = 1):
+    """Endless (conditions, classes) batches drawn from a condition cache:
+    of each global batch of ``batch_size``, rank ``rank``'s rows
+    (``parallel/mesh.py::shard_batch``; all of them on one process), read
+    alone."""
     from dmhomo_torch.data.conditions import ConditionCache
+    from dmhomo_torch.parallel.mesh import shard_batch
 
     cache = ConditionCache(cache_dir)
     rng = np.random.default_rng(seed)
     while True:
-        yield cache.batch(rng.integers(0, len(cache), (batch_size,)))
+        idx = rng.integers(0, len(cache), (batch_size,))
+        yield cache.batch(shard_batch(idx, rank, world, accum) if world > 1 else idx)
 
 
 def main(argv=None):
@@ -67,8 +80,18 @@ def main(argv=None):
     from dmhomo_torch.data.conditions import synthetic_condition_batches
     from dmhomo_torch.diffusion.gaussian import DiffusionConfig
     from dmhomo_torch.models.unet import UNetConfig
+    from dmhomo_torch.parallel.distributed import (
+        local_device,
+        maybe_initialize_distributed,
+        rank_and_world,
+    )
+    from dmhomo_torch.parallel.mesh import shard_batch
     from dmhomo_torch.train.config import DGMTrainConfig
     from dmhomo_torch.train.dgm_trainer import DGMTrainer
+
+    maybe_initialize_distributed(device=args.device)
+    device = local_device(args.device)
+    rank, world = rank_and_world()
 
     cfg = DGMTrainConfig(
         unet=UNetConfig(dim=args.dim, num_classes=args.num_classes,
@@ -80,15 +103,19 @@ def main(argv=None):
         train_batch_size=args.batch_size, lr=args.lr, train_num_steps=args.steps,
         gradient_accumulate_every=args.accum, save_every=args.save_every,
         results_dir=args.results, seed=args.seed, bf16=not args.no_bf16)
-    trainer = DGMTrainer(cfg, device=args.device)
+    trainer = DGMTrainer(cfg, device=device)
     trainer.init_state()
     if args.resume:
         trainer.load()
     if args.conditions:
-        batches = cache_condition_batches(args.conditions, args.batch_size, args.seed)
+        batches = cache_condition_batches(args.conditions, args.batch_size, args.seed,
+                                          rank, world, args.accum)
     else:
         batches = synthetic_condition_batches(args.synthetic, args.image_size, args.batch_size,
                                               args.num_classes, args.seed)
+        if world > 1:
+            batches = ((shard_batch(c, rank, world, args.accum),
+                        shard_batch(k, rank, world, args.accum)) for c, k in batches)
     last = trainer.train(batches, num_steps=args.steps)
     path = trainer.save()
     return {"checkpoint": path, "step": trainer.step,

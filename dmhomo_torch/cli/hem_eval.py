@@ -81,7 +81,9 @@ def main(argv=None):
     report = category_report(
         bucket_by_category(errs, names, categories=cats, seed_zero=args.seed_zero))
     print(json.dumps(report))
-    if args.out_json:
+    from dmhomo_torch.parallel.distributed import is_main_process
+
+    if args.out_json and is_main_process():  # one writer under a process group
         with open(args.out_json, "w") as f:
             json.dump(report, f, indent=2)
     return report

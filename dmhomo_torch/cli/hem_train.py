@@ -31,6 +31,15 @@ the whole step, captured at the first chunk (whose first step runs eagerly);
 on the CPU the steps run one by one.
 
 Runs on ``cuda`` (raises without a card) unless ``--device cpu``.
+
+Data-parallel over N cards: ``torchrun --nproc_per_node N -m
+dmhomo_torch.cli.hem_train ...``.  Each process takes the card LOCAL_RANK
+and joins an ``nccl`` group (``gloo`` with ``--device cpu``); the batch
+size of the config (``train_batch_size``) stays the global batch, of which
+each rank loads its 1/N (it must divide), and each rank evaluates its 1/N
+of the test set before the ranks merge their sums.  Only rank 0 writes
+checkpoints.  ``--fuse-steps`` needs ``nccl`` (the graph holds the
+collectives).
 """
 
 from __future__ import annotations
@@ -94,11 +103,17 @@ def main(argv=None):
         SyntheticHomoPairs,
     )
     from dmhomo_torch.data.loader import DataLoader, cycle
+    from dmhomo_torch.parallel.distributed import (
+        local_device,
+        maybe_initialize_distributed,
+        rank_and_world,
+    )
     from dmhomo_torch.train.config import HEMTrainConfig
     from dmhomo_torch.train.hem_trainer import HEMTrainer
-    from dmhomo_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
+    maybe_initialize_distributed(device=args.device)
+    device = local_device(args.device)
+    rank, world = rank_and_world()
     if args.tiny:
         cfg = tiny_config(args.steps, args.stage2, args.out)
     elif args.model_dir:
@@ -113,23 +128,30 @@ def main(argv=None):
 
         cfg = dataclasses.replace(cfg, attn_impl=args.attn)
 
+    if cfg.train_batch_size % world:
+        raise ValueError(f"the global batch {cfg.train_batch_size} does not split over "
+                         f"{world} ranks")
     crop, ori, rho = cfg.estimator.crop_size, cfg.estimator.ori_size, cfg.rho
     if args.samples:
+        # the crop starts: each rank draws its own (seed + rank)
         train_ds = HEMTrainDataset(args.samples, crop_size=crop, ori_size=ori, rho=rho,
-                                   rng=np.random.default_rng(args.seed),
+                                   rng=np.random.default_rng(args.seed + rank),
                                    device_pipeline=not args.host_pipeline)
     elif args.synthetic:
         train_ds = SyntheticHomoPairs(n=args.synthetic, crop_size=crop, ori_size=ori,
                                       rho=min(rho, 3), seed=args.seed)
     else:
         parser.error("need --samples or --synthetic")
-    train_dl = DataLoader(train_ds, batch_size=cfg.train_batch_size, seed=args.seed,
-                          num_workers=4, pin_memory=device.type == "cuda")
-    steps_per_epoch = max(len(train_dl), 1)
+    # each rank its rows of every global batch (the loader's shard)
+    train_dl = DataLoader(train_ds, batch_size=cfg.train_batch_size // world, seed=args.seed,
+                          shard_index=rank, num_shards=world, num_workers=4,
+                          pin_memory=device.type == "cuda")
+    steps_per_epoch = max(len(train_ds) // cfg.train_batch_size, 1)  # alike on every rank
     eval_dl = None
     if args.test_data:
         eval_dl = DataLoader(CAHomoTestDataset(args.test_data, crop_size=crop),
-                             batch_size=cfg.eval_batch_size, shuffle=False, drop_last=False)
+                             batch_size=cfg.eval_batch_size, shuffle=False, drop_last=False,
+                             shard_index=rank, num_shards=world)
 
     trainer = HEMTrainer(cfg, steps_per_epoch=steps_per_epoch, device=device)
     trainer.init_state(args.seed)

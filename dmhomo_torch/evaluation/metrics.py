@@ -73,6 +73,22 @@ def bucket_by_category(errors: Sequence[float], video_names: Sequence[str],
     return buckets
 
 
+def bucket_sums(buckets: Dict[str, list]) -> np.ndarray:
+    """(5, 2) float32 per-category [sum, count]: one rank's share of an
+    evaluation, summed over the ranks by ``HEMTrainer.evaluate``."""
+    return np.asarray([[float(np.sum(buckets.get(c, []))), float(len(buckets.get(c, [])))]
+                       for c in CATEGORY_NAMES], np.float32)
+
+
+def merge_bucket_sums(gathered) -> Dict[str, list]:
+    """Buckets from (n_ranks, 5, 2) or already summed (5, 2) [sum, count]
+    rows, summed in float64: each category holds its global mean ``count``
+    times, so that its mean and count are the unsharded evaluation's."""
+    totals = np.asarray(gathered, np.float64).reshape(-1, len(CATEGORY_NAMES), 2).sum(axis=0)
+    return {c: ([totals[i, 0] / totals[i, 1]] * int(totals[i, 1]) if totals[i, 1] else [])
+            for i, c in enumerate(CATEGORY_NAMES)}
+
+
 def category_report(buckets: Dict[str, list]) -> Dict[str, float]:
     """Per-category means + AVG (mean of the category means; empty categories
     report NaN and are left out of AVG)."""

@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from dmhomo_torch.parallel.distributed import all_reduce_, is_distributed, rank_and_world
+
 
 @dataclasses.dataclass(frozen=True)
 class LossWeights:
@@ -34,6 +36,12 @@ def nll_laplace(gt_flow: torch.Tensor, est_flow: torch.Tensor, log_var: torch.Te
 
     gt_flow / est_flow (B, H, W, 2); log_var (B, H, W, 1).  Non-finite
     entries count neither in the sum nor in the count (at least 1).
+
+    Under a process group the count is that of every rank's entries (one
+    ``all_reduce``), and the value is ``world`` times this rank's sum over
+    it: its mean over the ranks, as every other loss term's, is the global
+    batch's value, and the step's gradient all-reduce (a sum, divided by
+    ``world``) gives the gradient of the global mean.
     """
     loss = math.sqrt(2.0) * torch.exp(-0.5 * log_var) * (gt_flow - est_flow).abs()
     loss = loss + 0.5 * log_var
@@ -41,7 +49,11 @@ def nll_laplace(gt_flow: torch.Tensor, est_flow: torch.Tensor, log_var: torch.Te
     if mask is not None:
         valid = valid & mask
     total = torch.where(valid, loss, torch.zeros_like(loss)).sum()
-    return total / valid.sum().clamp(min=1)
+    count = valid.sum()
+    if is_distributed():
+        all_reduce_(count)
+        return total / count.clamp(min=1) * rank_and_world()[1]
+    return total / count.clamp(min=1)
 
 
 def mask_bce_loss(mask: torch.Tensor, weight=(1.0, 1.0), eps: float = 1e-7) -> torch.Tensor:

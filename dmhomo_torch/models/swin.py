@@ -41,6 +41,7 @@ from dmhomo_torch.ops.window_attention import (
     window_attention,
     window_attention_reference,
 )
+from dmhomo_torch.parallel.distributed import all_reduce_, is_distributed
 
 
 def relative_position_index(ws: int) -> np.ndarray:
@@ -82,16 +83,61 @@ def window_reverse(wins: torch.Tensor, ws: int, H: int, W: int) -> torch.Tensor:
     return x.reshape(B, H, W, C)
 
 
+class _CrossRankBatchNorm(torch.autograd.Function):
+    """Training-mode BatchNorm over the rows of every rank: the per-channel
+    (count, sum x, sum x^2) in fp32 summed by one ``all_reduce``, the
+    variance in Flax's one-pass form ``E[x^2] - E[x]^2`` (clipped at 0);
+    the backward sums (sum dy, sum dy*xhat) by one more.  The weight and
+    bias gradients are this rank's sums: the step's gradient all-reduce
+    adds the other ranks'.  ``nn.SyncBatchNorm`` is not used: it takes the
+    unbiased variance into the running statistics, and its backward
+    gathers, which gloo does not run on CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum, eps):
+        C = x.shape[1]
+        dims = (0, 2, 3)
+        stats = torch.cat([x.new_full((1,), x.numel() // C), x.sum(dims), (x * x).sum(dims)])
+        all_reduce_(stats)
+        count = stats[:1]
+        mean = stats[1:C + 1] / count
+        var = (stats[C + 1:] / count - mean * mean).clamp_(min=0.0)
+        running_mean.lerp_(mean, momentum)
+        running_var.lerp_(var, momentum)
+        invstd = torch.rsqrt(var + eps)
+        xhat = (x - mean[:, None, None]) * invstd[:, None, None]
+        ctx.save_for_backward(xhat, weight, invstd, count)
+        return xhat * weight[:, None, None] + bias[:, None, None]
+
+    @staticmethod
+    def backward(ctx, dy):
+        xhat, weight, invstd, count = ctx.saved_tensors
+        C = dy.shape[1]
+        dims = (0, 2, 3)
+        local = torch.cat([dy.sum(dims), (dy * xhat).sum(dims)])
+        sums = all_reduce_(local.clone())
+        mean_dy, mean_dy_xhat = sums[:C] / count, sums[C:] / count
+        dx = (dy - mean_dy[:, None, None] - xhat * mean_dy_xhat[:, None, None]) * \
+            (weight * invstd)[:, None, None]
+        return dx, local[C:], local[:C], None, None, None, None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm over NCHW, computed in fp32, with Flax's training update:
     the running statistics move by ``momentum`` 0.1 (Flax's decay 0.9)
     toward the batch mean and the *biased* batch variance (torch's own
-    update takes the unbiased one)."""
+    update takes the unbiased one).  Under a process group the statistics
+    are those of every rank's rows (:class:`_CrossRankBatchNorm`), as the
+    JAX step computes them over the global batch."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         if not self.training:
             return super().forward(x)
+        if is_distributed():
+            self.num_batches_tracked.add_(1)
+            return _CrossRankBatchNorm.apply(x, self.weight, self.bias, self.running_mean,
+                                             self.running_var, self.momentum, self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             self.running_mean.lerp_(mean, self.momentum)

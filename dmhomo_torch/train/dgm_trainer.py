@@ -16,6 +16,17 @@ version}`` at ``<results_dir>/model-<step>.pt``: ``model`` holds
 and ``initted``, ``opt`` is Adam's state dict and ``scaler`` None, so the
 file loads in ``models/convert.py::load_dgm_checkpoint`` and
 ``dgm_sample --torch-ckpt``.
+
+Under a process group (``parallel/distributed.py``) the step is
+data-parallel as the JAX step is over its mesh: each rank's batch is its
+share of the global batch, microbatch by microbatch
+(``parallel/mesh.py::shard_batch``), one ``all_reduce`` sums the gradients
+and the loss before the clip, so that the clip, Adam and the EMA see the
+global gradient and run alike on every rank; the weights start from rank
+0's, and only rank 0 writes checkpoints.  Injected draws are the global
+microbatch's, of which each rank takes its rows; draws from a generator in
+:meth:`DGMTrainer.train` come from ``seed + 1 + rank``, so that the ranks'
+noise differs (a run over N ranks draws other noise than one over one).
 """
 
 from __future__ import annotations
@@ -37,6 +48,15 @@ from dmhomo_torch.models.convert import (
     unet_state_dict_from_jax,
 )
 from dmhomo_torch.models.unet import build_unet
+from dmhomo_torch.parallel.distributed import (
+    FlatGradients,
+    broadcast_module_,
+    check_group_unchanged,
+    is_distributed,
+    is_main_process,
+    rank_and_world,
+)
+from dmhomo_torch.parallel.mesh import make_mesh, shard_batch
 from dmhomo_torch.train.config import DGMTrainConfig
 from dmhomo_torch.train.ema import ema_init, ema_update
 from dmhomo_torch.utils.checkpoint import atomic_save
@@ -49,7 +69,8 @@ _CKPT_NAME = re.compile(r"^model-(\d+)\.pt$")
 
 class DGMTrainer:
     """Trains the DGM UNet on ``device`` (default: the CUDA card; raises
-    without one)."""
+    without one), data-parallel over the process group's ranks if there is
+    one when the trainer is made."""
 
     def __init__(self, config: DGMTrainConfig = DGMTrainConfig(), device=None):
         self.config = config
@@ -59,6 +80,8 @@ class DGMTrainer:
             unet = dataclasses.replace(unet, dtype=torch.bfloat16)
         self.unet_config = unet
         self.logger = logging.getLogger("dmhomo_torch.dgm")
+        self.mesh = make_mesh()  # ('data', 'model') = (world size, 1)
+        self._grads: Optional[FlatGradients] = None  # under a process group
         self.model = None
         self.step = 0
 
@@ -74,6 +97,9 @@ class DGMTrainer:
         self.gd = GaussianDiffusion(self.model, cfg.diffusion, device=self.device)
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=cfg.lr,
                                           betas=(cfg.adam_b1, cfg.adam_b2), eps=1e-8)
+        if is_distributed():
+            self._grads = FlatGradients(self.model.parameters(), 1)
+        broadcast_module_(self.model)  # under a group, rank 0's weights on every rank
         self.ema = ema_init(self.model.parameters())
         self.step = 0
         return self.model
@@ -85,13 +111,16 @@ class DGMTrainer:
             self.init_state()
         sd = unet_state_dict_from_jax(params, self.unet_config)
         self.model.load_state_dict(sd, strict=True)
+        broadcast_module_(self.model)
         self.ema = ema_init(self.model.parameters())
 
     # -- step ---------------------------------------------------------------
 
     def _microbatches(self, batch_img, classes):
         """(conditions, classes) of each microbatch on the device; the tail
-        past ``accum * (B // accum)`` is dropped, as the JAX step drops it."""
+        past ``accum * (B // accum)`` is dropped, as the JAX step drops it.
+        Under a process group the batch is this rank's rows, which must
+        split into ``accum`` microbatches without a tail."""
         accum = self.config.gradient_accumulate_every
         dev = self.device
         batch_img = torch.as_tensor(batch_img, dtype=torch.float32).to(dev)
@@ -99,6 +128,9 @@ class DGMTrainer:
         mb = batch_img.shape[0] // accum
         if mb == 0:
             raise ValueError(f"batch of {batch_img.shape[0]} < {accum} microbatches")
+        if self._grads is not None and batch_img.shape[0] % accum:
+            raise ValueError(f"a global batch of {batch_img.shape[0] * self.mesh.data} does not "
+                             f"split into {accum} microbatches over {self.mesh.data} ranks")
         return [(batch_img[a * mb:(a + 1) * mb], classes[a * mb:(a + 1) * mb])
                 for a in range(accum)]
 
@@ -106,17 +138,29 @@ class DGMTrainer:
                        draws=None) -> torch.Tensor:
         """The step's loss (mean over the microbatches, a 0-d tensor on the
         device) with the gradients left in each parameter's ``.grad``: each
-        microbatch's summed, then divided by their count.  ``draws`` injects
-        one (t, noise, keep_mask) per microbatch; otherwise they come from
-        ``generator``."""
+        microbatch's summed, then divided by their count (under a process
+        group: summed over the ranks too, and divided by both).  ``draws``
+        injects one (t, noise, keep_mask) per microbatch (under a process
+        group the global microbatch's, of which this rank takes its rows);
+        otherwise they come from ``generator``."""
         micro = self._microbatches(batch_img, classes)
+        rank, world = rank_and_world()
+        check_group_unchanged(self._grads)
         self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
+        if self._grads is None:
+            self.optimizer.zero_grad(set_to_none=True)
+        else:
+            self._grads.zero_()
         total = torch.zeros((), device=self.device)
         for a, (b, c) in enumerate(micro):
-            loss = self.gd.loss(b, c, generator, None if draws is None else draws[a])
+            d = None if draws is None else draws[a]
+            if d is not None and self._grads is not None:
+                d = tuple(shard_batch(torch.as_tensor(x), rank, world) for x in d)
+            loss = self.gd.loss(b, c, generator, d)
             loss.backward()
             total += loss.detach()
+        if self._grads is not None:
+            return self._grads.reduce_([total], float(world * len(micro)))[0].clone()
         if len(micro) > 1:
             torch._foreach_div_([p.grad for p in self.model.parameters()], float(len(micro)))
         return total / len(micro)
@@ -149,15 +193,16 @@ class DGMTrainer:
     def train(self, batches: Iterator, num_steps: Optional[int] = None,
               save_every: Optional[int] = None, log_every: int = 50):
         """Steps until ``num_steps`` (default ``train_num_steps``) on
-        ``(conditions, classes)`` batches, the draws from a generator on the
-        device seeded with ``seed + 1``; saves every ``save_every`` steps.
-        Returns the last step's metrics."""
+        ``(conditions, classes)`` batches (this rank's rows under a process
+        group), the draws from a generator on the device seeded with
+        ``seed + 1 + rank``; saves every ``save_every`` steps.  Returns the
+        last step's metrics."""
         cfg = self.config
         num_steps = num_steps or cfg.train_num_steps
         save_every = save_every or cfg.save_every
         if self.model is None:
             self.init_state()
-        gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1 + rank_and_world()[0])
         out = None
         while self.step < num_steps:
             batch_img, classes = next(batches)
@@ -207,6 +252,7 @@ class DGMTrainer:
             self.init_state()
         sd = _unet_part(ckpt["model"], "model.", DGM_MODEL_SKIPS, "DGM checkpoint 'model'")
         self.model.load_state_dict(sd, strict=True)
+        broadcast_module_(self.model)
         self.optimizer.load_state_dict(ckpt["opt"])
         ema = _unet_part(ckpt["ema"], "ema_model.model.", DGM_EMA_SKIPS, "DGM checkpoint 'ema'")
         self.ema = ema_init(ema[n] for n, _ in self.model.named_parameters())
@@ -216,9 +262,13 @@ class DGMTrainer:
 
     def save(self, root: Optional[str] = None) -> str:
         """``<root>/model-<step>.pt`` (default root ``results_dir``), written
-        atomically; keeps the newest KEEP_CHECKPOINTS files."""
+        atomically; keeps the newest KEEP_CHECKPOINTS files.  Under a
+        process group only rank 0 writes; every rank returns the path."""
         root = root or self.config.results_dir
-        path = atomic_save(self.state_dict(), os.path.join(root, f"model-{self.step}.pt"))
+        path = os.path.join(root, f"model-{self.step}.pt")
+        if not is_main_process():
+            return path
+        atomic_save(self.state_dict(), path)
         for old in sorted(checkpoint_steps(root))[:-KEEP_CHECKPOINTS]:
             os.remove(os.path.join(root, f"model-{old}.pt"))
         self.logger.info(f"saved checkpoint at step {self.step}: {path}")

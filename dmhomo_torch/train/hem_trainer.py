@@ -16,6 +16,16 @@ trainer's scanned ``train_steps`` does: on the card each step is one replay
 of a CUDA graph of the whole step (every microbatch forward and backward,
 Adam, the BatchNorm updates), so the host enqueues a step in one call instead
 of several thousand.
+
+Under a process group (``parallel/distributed.py``; one process per card,
+``torchrun``) the trainer is data-parallel as the JAX trainer is over its
+mesh's ``data`` axis: each rank's batch is its share of the global batch
+(``parallel/mesh.py::shard_batch``, as the data loader hands it out), the
+BatchNorm statistics and the NLL count are those of the global microbatch,
+and after the last microbatch one ``all_reduce`` sums the gradients and the
+loss terms, which then divide by the world size.  The weights start from
+rank 0's; every rank runs the same Adam update.  With no group nothing of
+this runs.
 """
 
 from __future__ import annotations
@@ -30,13 +40,26 @@ import torch
 from dmhomo_torch.cli.hem_eval import eval_forward
 from dmhomo_torch.data.hem_data import device_build_patches
 from dmhomo_torch.data.loader import pad_batch
-from dmhomo_torch.evaluation.metrics import bucket_by_category, category_report
+from dmhomo_torch.evaluation.metrics import (
+    bucket_by_category,
+    bucket_sums,
+    category_report,
+    merge_bucket_sums,
+)
 from dmhomo_torch.losses.hem_losses import compute_losses
 from dmhomo_torch.models.convert import estimator_state_dict_from_jax
 from dmhomo_torch.models.estimator import HomographyEstimator, random_init_
 from dmhomo_torch.models.swin import WindowAttention
 from dmhomo_torch.ops.swin_block import swin_block, swin_block_backward
 from dmhomo_torch.ops.window_attention import window_attention, window_attention_backward
+from dmhomo_torch.parallel.distributed import (
+    FlatGradients,
+    all_reduce_,
+    broadcast_module_,
+    check_group_unchanged,
+    is_distributed,
+)
+from dmhomo_torch.parallel.mesh import accum_for, make_mesh
 from dmhomo_torch.train.config import HEMTrainConfig, estimator_for_training
 from dmhomo_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from dmhomo_torch.utils.device import resolve_device
@@ -44,6 +67,7 @@ from dmhomo_torch.utils.meters import MetricTracker
 
 RAW_KEYS = ("img12", "homo", "homo_inv", "start")
 PATCH_KEYS = ("imgs_gray_patch", "flow_gt_patch")
+LOSS_TERMS = ("unsup", "mask_reg", "nll", "supervise", "total")  # compute_losses' keys
 # the kernel wrappers a training step may launch, each counting its launches
 LAUNCH_COUNTERS = (window_attention, window_attention_backward, swin_block,
                    swin_block_backward)
@@ -65,7 +89,8 @@ class StepGraph:
 
 class HEMTrainer:
     """Trains the estimator on ``device`` (default: the CUDA card; raises
-    without one)."""
+    without one), data-parallel over the process group's ranks if there is
+    one when the trainer is made."""
 
     def __init__(self, config: HEMTrainConfig, steps_per_epoch: Optional[int] = None,
                  device=None):
@@ -74,6 +99,8 @@ class HEMTrainer:
         self.steps_per_epoch = steps_per_epoch or config.train_num_steps
         self.logger = logging.getLogger("dmhomo_torch.hem")
         self.metrics = MetricTracker(config.major_metric)
+        self.mesh = make_mesh()  # ('data', 'model') = (world size, 1)
+        self._grads: Optional[FlatGradients] = None  # under a process group
         self.model: Optional[HomographyEstimator] = None
         self.step = 0
         self.epoch = 0
@@ -107,6 +134,9 @@ class HEMTrainer:
         self.epoch = 0
         self._graphs = {}
         self.step_graph = None
+        if is_distributed():
+            self._grads = FlatGradients(self.model.parameters(), len(LOSS_TERMS))
+        broadcast_module_(self.model)  # under a group, rank 0's weights on every rank
         return self.model
 
     def load_params(self, params: dict, batch_stats: dict) -> None:
@@ -116,6 +146,7 @@ class HEMTrainer:
             self.init_state()
         sd = estimator_state_dict_from_jax(params, batch_stats, self.model.config)
         self.model.load_state_dict(sd, strict=True)
+        broadcast_module_(self.model)
 
     @property
     def lr(self) -> float:
@@ -156,20 +187,24 @@ class HEMTrainer:
 
     def _forward_backward(self, batch: dict) -> dict:
         """The step's gradients, summed over its microbatches into ``.grad``
-        (None before), and its loss terms (means over the microbatches), from
-        a batch of either schema on the device."""
+        (None before; under a process group the flat buffer, zeroed, then
+        reduced over the ranks), and its loss terms (means over the
+        microbatches and the ranks), from a batch of either schema on the
+        device."""
         cfg = self.config
         if "img12" in batch:  # raw schema: the batch is built on the device
             est = cfg.estimator
             batch = device_build_patches(batch["img12"], batch["homo"], batch["homo_inv"],
                                          batch["start"], est.crop_size, est.ori_size)
         imgs, flows = batch["imgs_gray_patch"], batch["flow_gt_patch"]
-        B = imgs.shape[0]
-        # one card: the per-device batch is the batch
-        accum = min(cfg.grad_accum, B)
-        while accum > 1 and B % accum:
-            accum -= 1
+        B = imgs.shape[0]  # this rank's rows of the global batch
+        check_group_unchanged(self._grads)
+        accum = accum_for(B, self.mesh.data, cfg.grad_accum)
         mb = B // accum
+        if self._grads is None:
+            self.optimizer.zero_grad(set_to_none=True)
+        else:
+            self._grads.zero_()
         sums: dict = {}
         for a in range(accum):
             sl = slice(a * mb, (a + 1) * mb)
@@ -181,7 +216,11 @@ class HEMTrainer:
             (losses["total"] / accum).backward()
             for k, v in losses.items():
                 sums[k] = sums.get(k, 0.0) + v.detach()
-        return {k: v / accum for k, v in sums.items()}
+        losses = {k: v / accum for k, v in sums.items()}
+        if self._grads is not None:
+            reduced = self._grads.reduce_([losses[k] for k in LOSS_TERMS], self.mesh.data)
+            losses = {k: reduced[i].clone() for i, k in enumerate(LOSS_TERMS)}
+        return losses
 
     def _set_lr(self) -> None:
         """On the card, the staircase LR of the next step into ``_lr_dev``
@@ -214,7 +253,6 @@ class HEMTrainer:
         terms (0-d tensors on the device, means over the microbatches)."""
         batch = self._device_batch(*self._stage(batch))
         self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
         losses = self._forward_backward(batch)
         self._set_lr()
         self._adam_step()
@@ -239,7 +277,18 @@ class HEMTrainer:
         wait for the device.  A capture or replay that fails raises; no step
         falls back to the eager path.  On the CPU (no graphs there), K
         :meth:`train_step` calls.
+
+        Under a process group the graph holds the step's collectives (the
+        BatchNorm moments, the NLL counts, the gradient all-reduce), which
+        only ``nccl`` can capture: under ``gloo`` on the card this raises
+        (:meth:`train_step` runs there).
         """
+        if self.device.type == "cuda" and self._grads is not None and \
+                torch.distributed.get_backend() != "nccl":
+            raise RuntimeError(
+                "train_steps captures the step's collectives in a CUDA graph, which needs the "
+                f"'nccl' backend (this group: {torch.distributed.get_backend()!r}); "
+                "use train_step")
         if self.device.type == "cuda":
             outs = self._graph_steps(batches)
         else:
@@ -277,9 +326,9 @@ class HEMTrainer:
         """A CUDA graph of one optimizer step (forward and backward of every
         microbatch, Adam, the BatchNorm updates) reading static copies of
         ``batch``'s tensors.  The ``.grad`` tensors are made inside the graph,
-        from its memory pool."""
+        from its memory pool (under a process group they are the flat
+        buffer's views, zeroed and all-reduced inside the graph)."""
         inputs = {k: v.clone() for k, v in batch.items()}
-        self.optimizer.zero_grad(set_to_none=True)
         before = {fn.__name__: (fn.launches, collections.Counter(fn.launches_by_shape))
                   for fn in LAUNCH_COUNTERS}
         graph = torch.cuda.CUDAGraph()
@@ -303,7 +352,8 @@ class HEMTrainer:
     # -- eval ---------------------------------------------------------------
 
     def evaluate(self, eval_batches: Iterator, split: str = "val") -> dict:
-        """Point-matching error per category over CAHomo-format batches."""
+        """Point-matching error per category over CAHomo-format batches
+        (under a process group: over every rank's batches)."""
         cfg = self.config
         self.model.eval()
         self.metrics.reset(split)
@@ -318,7 +368,13 @@ class HEMTrainer:
                                  cfg.estimator.ori_size)
             errs.extend(e.float().cpu().numpy()[:n_valid].tolist())
             names.extend(batch["video_names"][:n_valid])
-        report = category_report(bucket_by_category(errs, names))
+        buckets = bucket_by_category(errs, names)
+        if is_distributed():
+            # each rank evaluated its own rows: sum the per-category (sum,
+            # count) over the ranks, as the JAX trainer merges its hosts'
+            sums = torch.as_tensor(bucket_sums(buckets), dtype=torch.float64, device=self.device)
+            buckets = merge_bucket_sums(all_reduce_(sums).cpu().numpy())
+        report = category_report(buckets)
         self.metrics.update(split, report)
         self.logger.info(f"[{split}] " + " ".join(f"{k}:{v:.4f}" for k, v in report.items()))
         return report
@@ -396,6 +452,8 @@ class HEMTrainer:
     # -- checkpoints --------------------------------------------------------
 
     def save(self, root: Optional[str] = None, tag: str = "latest") -> str:
+        """Write ``<root>/model_<tag>.pth`` (on rank 0 only under a process
+        group); returns its path on every rank."""
         return save_checkpoint(root or self.config.model_dir, tag, {
             "state_dict": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
@@ -414,6 +472,7 @@ class HEMTrainer:
             self.init_state()
         ckpt = load_checkpoint(root or self.config.model_dir, tag)
         self.model.load_state_dict(ckpt["state_dict"], strict=True)
+        broadcast_module_(self.model)
         if not weights_only:
             self.optimizer.load_state_dict(ckpt["optimizer"])
             # the file may come from the other device: this trainer's Adam form

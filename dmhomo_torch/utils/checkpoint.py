@@ -29,8 +29,13 @@ def atomic_save(state: dict, path: str) -> str:
 
 
 def save_checkpoint(root: str, tag: str, state: dict) -> str:
-    """Write ``state`` atomically at ``<root>/model_<tag>.pth``."""
-    return atomic_save(state, checkpoint_path(root, tag))
+    """Write ``state`` atomically at ``<root>/model_<tag>.pth``; returns the
+    path.  Under a process group only rank 0 writes (every rank holds the
+    same state); the others return the path and touch no file."""
+    from dmhomo_torch.parallel.distributed import is_main_process
+
+    path = checkpoint_path(root, tag)
+    return atomic_save(state, path) if is_main_process() else path
 
 
 def resolve_checkpoint(path: str) -> str:

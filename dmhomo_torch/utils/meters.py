@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+import json
+import os
 from collections import defaultdict
 from typing import Dict, Optional
 
@@ -52,3 +54,14 @@ class MetricTracker:
             self.best[split] = score
             return True
         return False
+
+    def dump(self, path: str, split: str) -> None:
+        """The split's current averages as JSON at ``path``, written by
+        rank 0 only under a process group."""
+        from dmhomo_torch.parallel.distributed import is_main_process
+
+        if not is_main_process():
+            return
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(self.current(split), f, indent=2)

@@ -219,10 +219,39 @@ Phases, each printing its results; any failure exits non-zero:
     step (B=32) and DGM step (128, microbatches of 32 per rank) over both
     against card 0 alone, the idle share per rank; on one card it says it
     did not run.
+28. the HEM kernels at every window and width (the generic variants,
+    ``csrc/window_attention_any.cu`` and ``csrc/swin_block_any.cu``, built
+    in phase 2): (a) their registers and spills, no atomic instruction in
+    their machine code; the window attention forward and backward against
+    the plain versions at N = 1, 4, 16, 49, 144 and hd = 4, 6, 8, 12, 64,
+    fp32 and bf16, +-mask (ATTN_TOL, BWD_TOL), the whole block forward and
+    backward at windows 1, 2, 4, 7, 12, C = 8, 24, 96, 384 and MLPs of 2-4 C
+    (SWIN_TOL, dx SWIN_DX_TOL in fp32; an fp32 gradient within SWIN_TOL or
+    phase 9's rule, STEP_NOISE_FACTOR times the plain version's own change
+    for its input nudged by STEP_INPUT_NOISE: at a 1x1 window dbias is a sum
+    that cancels to 0), each plan the library's, a second
+    run bit-identical, and the generic variant forced at a shipped shape
+    against the tuned kernels; (b) ``hem_train --tiny --synthetic 64 --steps
+    10`` in a child process under ``--attn auto`` and ``fused_block``, eager
+    and ``--fuse-steps 5`` (the plain versions made to raise): exit 0,
+    finite losses, a held batch's loss lower after than before, only generic
+    launches (per replay too), a profiled step's kernels; (c) the shipped
+    config with window 4 under both: ``eval_forward`` on phase 4's pairs (40
+    generic launches a forward), its idle share, flows card vs CPU; the
+    bf16 training step eager and as a graph (step ms, idle share, peak
+    memory, launches per step and per replay); one fp32 step card vs CPU
+    (phase 9's rule); (d) each generic kernel at every shape (c)'s paths
+    gave it (the counters' keys), forward and backward, fp32 and bf16,
+    against its plain version at (a)'s tolerances, reruns bit-identical;
+    then the median of 5 bursts, its plain version, its yardstick (SDPA at
+    N = 16; the unfused SwinBlock) and bound, per eval forward and per
+    training step.  (b)'s children run beside (a).  ``--only-generic`` runs
+    phases 1-2 and 28 alone.
 
 The line before the last is a JSON object with the six kernels' numbers
 (kernels 3 and 4 with their launches per DGM training step, the HEM
-kernels with their launches per replayed step); the last is
+kernels with their launches per replayed step, and under ``generic`` the
+generic variants' at window 4); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -285,6 +314,7 @@ FIT_CPU_TOL_PX = 1e-3
 # statistics and cuBLAS order) within SWIN_UNFUSED_TOL
 SWIN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SWIN_UNFUSED_TOL = 1e-4
+SWIN_DX_TOL = 1e-4  # the whole-block backward's fp32 dx, absolute
 FUSED_FLOW_TOL_PX = 2e-3  # the fused_block estimator's flows vs phase 4's model
 TIMING_BURSTS = 5  # per-site kernel times: the median of this many bursts of calls
 # DGM training at DGMTrainConfig's shipped batch of 128: microbatches tried in
@@ -526,8 +556,9 @@ def phase_build():
     from dmhomo_torch.ops import window_attention as wa
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        libs = list(pool.map(lambda m: m.build(), (wa, la, sb)))
+    builds = (wa.build, la.build, sb.build, wa.build_generic, sb.build_generic)
+    with ThreadPoolExecutor(len(builds)) as pool:
+        libs = list(pool.map(lambda build: build(), builds))
     for lib in libs:
         log(f"[build] {os.path.relpath(lib)}: all built in {time.perf_counter() - t0:.1f} s")
     entry = None
@@ -996,7 +1027,7 @@ def count_step_launches(rows, by_shape: dict, want: int, tag: str):
 
 
 def phase_train_card_vs_cpu(dev, seed: int, attn_impl: str = "auto",
-                            tag: str = "train-card-vs-cpu"):
+                            tag: str = "train-card-vs-cpu", config=None):
     import copy
     import dataclasses
 
@@ -1006,7 +1037,7 @@ def phase_train_card_vs_cpu(dev, seed: int, attn_impl: str = "auto",
     from dmhomo_torch.train.config import HEMTrainConfig
     from dmhomo_torch.train.hem_trainer import HEMTrainer
 
-    cfg = dataclasses.replace(HEMTrainConfig(), bf16=False, grad_accum=1, remat=False,
+    cfg = dataclasses.replace(config or HEMTrainConfig(), bf16=False, grad_accum=1, remat=False,
                               attn_impl=attn_impl)
     trainer = HEMTrainer(cfg, device=dev)
     trainer.init_state(seed + 1)
@@ -1417,13 +1448,13 @@ def block_bound(x, params, mask):
     """(ms, 'bytes' | 'operations') of one whole Swin block on x (B, H, W,
     C): x read and y written once, every parameter and the mask read once;
     per token 2*C*(4C + 2*hidden) flops of projections and 4*64*C of
-    attention (two 64 x 64 x hd products per head)."""
+    attention (two N x N x hd products per head, N = 64 at 8x8 windows)."""
     B, H, W, C = x.shape
-    hidden = params[10].shape[0]
+    hidden, N = params[10].shape[0], params[4].shape[-1]
     el = x.element_size()
     nbytes = (2 * x.numel() * el + sum(p.numel() * 4 for p in params)
               + (mask.numel() * 4 if mask is not None else 0))
-    flops = 2.0 * B * H * W * C * (4 * C + 2 * hidden + 2 * 64)
+    flops = 2.0 * B * H * W * C * (4 * C + 2 * hidden + 2 * N)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[str(x.dtype).split(".")[-1]]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1633,13 +1664,14 @@ def block_bwd_bound(x, params, mask):
     fp32 parameter gradient written once; per token the forward recompute
     without its last product (2*C*(4C + hidden) flops of projections, two
     64 x 64 x hd attention products per head), two products per projection
-    (2*2*C*(4C + 2*hidden)) and six 64 x 64 x hd products per head."""
+    (2*2*C*(4C + 2*hidden)) and six N x N x hd products per head (N = 64 at
+    8x8 windows)."""
     B, H, W, C = x.shape
-    hidden = params[10].shape[0]
+    hidden, N = params[10].shape[0], params[4].shape[-1]
     el = x.element_size()
     nbytes = (3 * x.numel() * el + 2 * sum(p.numel() * 4 for p in params)
               + (mask.numel() * 4 if mask is not None else 0))
-    flops = 2.0 * B * H * W * C * (12 * C + 5 * hidden + 8 * 64)
+    flops = 2.0 * B * H * W * C * (12 * C + 5 * hidden + 8 * N)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[str(x.dtype).split(".")[-1]]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -3336,6 +3368,869 @@ def phase_data_parallel(dev, batch, seed: int):
 
 
 
+# ---------------------------------------------------------------------------
+# the HEM kernels at every window and width: the generic variants (phase 28)
+# ---------------------------------------------------------------------------
+
+GENERIC_N = (1, 4, 16, 49, 144)  # window tokens: windows 1, 2, 4, 7, 12
+GENERIC_HD = (4, 6, 8, 12, 64)
+# (C, heads) of the whole-block cases: head dims 4, 6, 12, 64
+GENERIC_WIDTHS = ((8, 2), (24, 4), (96, 8), (384, 6))
+GENERIC_WINDOWS = (1, 2, 4, 7, 12)
+WINDOW4 = 4  # the shipped config's window in phase 28's params.json
+TINY_STEPS = 10
+
+
+def _plain_raises():
+    """Makes the plain window-attention and whole-block versions raise: on
+    the card the main path runs the kernels or nothing."""
+    from dmhomo_torch.ops import swin_block as sb
+    from dmhomo_torch.ops import window_attention as wa
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("a plain window-attention or whole-block version ran on the card")
+
+    for mod, names in ((wa, ("window_attention_reference", "window_attention_backward_reference")),
+                       (sb, ("swin_block_reference", "swin_block_backward_reference"))):
+        for n in names:
+            setattr(mod, n, refuse)
+
+
+def json_keys(obj):
+    """``obj`` with every dict key a string (the counters key by shape tuples)."""
+    if isinstance(obj, dict):
+        return {k if isinstance(k, str) else str(k): json_keys(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [json_keys(v) for v in obj]
+    return obj
+
+
+def _rel(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def _block_params(C, heads, hidden, N, dev, gen):
+    """Trained-looking whole-block parameters in the port's layout."""
+    import torch
+
+    shapes = {"g1": (C,), "b1": (C,), "wq": (3 * C, C), "bq": (3 * C,), "bias": (heads, N, N),
+              "wp": (C, C), "bp": (C,), "g2": (C,), "b2": (C,), "w1": (hidden, C),
+              "c1": (hidden,), "w2": (C, hidden), "c2": (C,)}
+    out = []
+    for name, shape in shapes.items():
+        v = torch.randn(shape, generator=gen, device=dev)
+        if name in ("wq", "wp", "w1", "w2"):
+            v = v / shape[1]**0.5
+        elif name in ("g1", "g2"):
+            v = 1 + 0.1 * v
+        else:
+            v = (0.5 if name == "bias" else 0.1) * v
+        out.append(v.contiguous())
+    return tuple(out)
+
+
+class _GenericChecks:
+    """Phase 28's comparisons of the generic kernels with their plain
+    versions.  Each case runs forward and backward twice (the two runs
+    bit-identical), and the first run is held to the plain version at the
+    tuned kernels' tolerances; an fp32 gradient within its tolerance or
+    phase 9's rule (STEP_NOISE_FACTOR times the plain version's own change
+    for its input nudged by STEP_INPUT_NOISE).  ``worst`` keeps the largest
+    error by (check, dtype), ``fails`` every miss, ``noisy`` the fp32
+    gradients that took phase 9's rule."""
+
+    def __init__(self, dev, gen):
+        self.dev, self.gen = dev, gen
+        self.fails, self.worst, self.noisy = [], {}, []
+
+    def note(self, key, err, tol, what):
+        self.worst[key] = max(self.worst.get(key, 0.0), err)
+        if not err <= tol:
+            self.fails.append(f"{what}: {err:.3g} > {tol:g}")
+
+    def nudged(self, t):
+        """t moved by STEP_INPUT_NOISE relative, as phase 9 moves its input."""
+        import torch
+
+        return t + STEP_INPUT_NOISE * t.abs() * torch.randn(t.shape, generator=self.gen,
+                                                            device=self.dev).to(t.dtype)
+
+    def _reruns(self, runs, what):
+        import torch
+
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            self.fails.append(f"{what}: two runs differ")
+        return runs[0]
+
+    def window_attention(self, qkv, bias, mask, gout, h, what):
+        from dmhomo_torch.ops import window_attention as wa
+
+        runs = [(wa.window_attention(qkv, bias, mask, num_heads=h),
+                 *wa.window_attention_backward(qkv, bias, mask, gout, num_heads=h))
+                for _ in range(2)]
+        out, dqkv, dbias = self._reruns(runs, what)
+        del runs
+        dtype = str(qkv.dtype).split(".")[-1]
+        want = wa.window_attention_reference(qkv, bias, mask, num_heads=h)
+        w_dqkv, w_dbias = wa.window_attention_backward_reference(qkv, bias, mask, gout,
+                                                                 num_heads=h)
+        tols = [BWD_TOL[dtype]] * 2
+        if dtype == "float32":  # the plain version's own change for qkv nudged
+            n_dqkv, n_dbias = wa.window_attention_backward_reference(
+                self.nudged(qkv), bias, mask, gout, num_heads=h)
+            tols = [max(t, STEP_NOISE_FACTOR * _rel(a, b))
+                    for t, a, b in zip(tols, (n_dqkv, n_dbias), (w_dqkv, w_dbias))]
+        self.note(("wa_fwd", dtype), float((out.float() - want.float()).abs().max()),
+                  ATTN_TOL[dtype], what + " out")
+        self.note(("wa_bwd", dtype), _rel(dqkv, w_dqkv), tols[0], what + " dqkv")
+        self.note(("wa_dbias", dtype), _rel(dbias, w_dbias), tols[1], what + " dbias")
+
+    def block(self, x, params, mask, dy, kw, what):
+        from dmhomo_torch.ops import swin_block as sb
+
+        runs = []
+        for _ in range(2):
+            y = sb.swin_block(x, params, mask, **kw)
+            dx, grads = sb.swin_block_backward(x, params, mask, dy, **kw)
+            runs.append((y, dx) + tuple(grads))
+        y, dx, *grads = self._reruns(runs, what)
+        del runs
+        dtype = str(x.dtype).split(".")[-1]
+        want = sb.swin_block_reference(x, params, mask, **kw)
+        w_dx, w_grads = sb.swin_block_backward_reference(x, params, mask, dy, **kw)
+        tols = [SWIN_TOL[dtype]] * len(w_grads)
+        if dtype == "float32":  # the plain version's own change for x nudged
+            _, n_grads = sb.swin_block_backward_reference(self.nudged(x), params, mask, dy, **kw)
+            tols = [max(t, STEP_NOISE_FACTOR * _rel(a, b))
+                    for t, a, b in zip(tols, n_grads, w_grads)]
+        self.note(("sb_fwd", dtype), _rel(y, want), SWIN_TOL[dtype], what + " y")
+        if dtype == "float32":
+            self.note(("sb_dx", dtype), float((dx - w_dx).abs().max()), SWIN_DX_TOL, what + " dx")
+        else:
+            self.note(("sb_dx", dtype), _rel(dx, w_dx), SWIN_TOL[dtype], what + " dx")
+        for n, g, w, t in zip(sb.PARAM_NAMES, grads, w_grads, tols):
+            self.note(("sb_grads", dtype), _rel(g, w), t, f"{what} d{n}")
+            if t > SWIN_TOL[dtype]:
+                self.noisy.append(f"{what} d{n} {_rel(g, w):.3g} (tol {t:.3g})")
+
+    def worst_text(self, prefix: str) -> str:
+        return ", ".join(f"{k[0]} {k[1]} {v:.3g}" for k, v in sorted(self.worst.items())
+                         if k[0].startswith(prefix))
+
+    def raise_on_fails(self, tag: str) -> None:
+        if self.fails:
+            for f in self.fails[:40]:
+                log(f"[{tag}] FAIL {f}")
+            raise SystemExit(f"{len(self.fails)} generic-kernel checks failed")
+
+
+def phase_generic(dev, pairs, batch, seed: int) -> dict:
+    """Phase 28: the generic window-attention and whole-block kernels (a)
+    against their plain versions, (b) in ``hem_train --tiny``, (c) at the
+    shipped config with window 4, (d) timed per site."""
+    t0 = time.perf_counter()
+    # (b)'s children take tens of seconds: they run beside (a), which times
+    # nothing
+    children = start_tiny_children(seed)
+    try:
+        worst = generic_kernel_checks(dev, seed)
+    finally:
+        tiny = generic_tiny_train(*children)
+    w4 = generic_window4(dev, pairs, batch, seed)
+    main_worst = generic_main_path_checks(dev, seed, w4)
+    times = generic_site_times(dev, seed, w4)
+    phase_s = time.perf_counter() - t0
+    log(f"[generic] phase 28 in {phase_s:.1f} s")
+    return {"worst": worst, "tiny": tiny, "w4": w4, "main_path_worst": main_worst,
+            "times": times, "phase_s": phase_s}
+
+
+def generic_kernel_checks(dev, seed: int) -> dict:
+    """Phase 28 (a): the generic libraries' registers and spills, no atomic
+    instruction in their machine code; every generic kernel against its plain
+    version at the envelope's shapes (forward and backward, fp32 and bf16,
+    +-mask), its plan against the library's, a second run bit-identical; the
+    generic variant forced at a shipped shape against the tuned kernels."""
+    import torch
+
+    from dmhomo_torch.models.swin import shifted_window_mask
+    from dmhomo_torch.ops import swin_block as sb
+    from dmhomo_torch.ops import window_attention as wa
+
+    t0 = time.perf_counter()
+    for name, log_text in (("window attention", wa.build_log(generic=True)),
+                           ("whole block", sb.build_generic().with_suffix(".log").read_text())):
+        entry = None
+        for line in log_text.splitlines():
+            m = re.search(r"Function properties for \S*?((?:window_attention|swin_block)_any_"
+                          r"[a-z_]+_kernel)(?:I(f|13__nv_bfloat16)E)?", line)
+            if m:
+                entry = m.group(1) + {"f": "<float>", "13__nv_bfloat16": "<bf16>"}.get(
+                    m.group(2), "")
+            elif entry and ("registers" in line or "spill" in line):
+                log(f"[generic-build] {name} {entry}: {line.split(':', 1)[-1].strip()}")
+    atomics = {**wa.atomic_instructions_by_kernel(generic=True), **sb.generic_atomic_instructions()}
+    if any(atomics.values()):
+        raise SystemExit(f"atomic instructions in the generic kernels: {atomics}")
+    log(f"[generic-sass] atomic instructions in {len(atomics)} generic kernels' machine code: "
+        f"{sum(atomics.values())}")
+
+    chk = _GenericChecks(dev, torch.Generator(device=dev).manual_seed(seed))
+    gen, note = chk.gen, chk.note
+    for N in GENERIC_N:
+        for hd in GENERIC_HD:
+            for dtype in ("float32", "bfloat16"):
+                for masked in (False, True):
+                    h, nW = 2, 3
+                    dt = getattr(torch, dtype)
+                    qkv = torch.randn(2 * nW, N, 3 * h * hd, generator=gen, device=dev).to(dt)
+                    bias = 0.5 * torch.randn(h, N, N, generator=gen, device=dev)
+                    gout = torch.randn(2 * nW, N, h * hd, generator=gen, device=dev).to(dt)
+                    mask = None
+                    if masked:
+                        mask = torch.where(torch.rand(nW, N, N, generator=gen, device=dev) < 0.3,
+                                           -100.0, 0.0)
+                    what = f"window attention N={N} hd={hd} {dtype} mask={int(masked)}"
+                    for bwd in (False, True):
+                        if wa.launch_plan(qkv, h, bwd, mask) != wa.library_plan(qkv, h, bwd, mask):
+                            chk.fails.append(f"{what}: plan is not the library's")
+                    chk.window_attention(qkv, bias, mask, gout, h, what)
+    # forced at a shipped shape (level 1 of a training microbatch, masked)
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        qkv = torch.randn(8 * 720, 64, 72, generator=gen, device=dev).to(dt)
+        bias = 0.5 * torch.randn(3, 64, 64, generator=gen, device=dev)
+        mask = torch.from_numpy(shifted_window_mask(160, 288, 8, 4)).to(dev)
+        gout = torch.randn(8 * 720, 64, 24, generator=gen, device=dev).to(dt)
+        tuned = (wa.window_attention(qkv, bias, mask, num_heads=3),
+                 *wa.window_attention_backward(qkv, bias, mask, gout, num_heads=3))
+        forced = (wa.window_attention(qkv, bias, mask, num_heads=3, _generic=True),
+                  *wa.window_attention_backward(qkv, bias, mask, gout, num_heads=3,
+                                                _generic=True))
+        torch.cuda.synchronize()
+        what = f"window attention forced generic vs tuned, 160x288 C=24 {dtype}"
+        note(("wa_forced", dtype), float((forced[0].float() - tuned[0].float()).abs().max()),
+             ATTN_TOL[dtype], what + " out")
+        for name, a, b in zip(("dqkv", "dbias"), forced[1:], tuned[1:]):
+            note(("wa_forced_bwd", dtype), _rel(a, b), BWD_TOL[dtype], f"{what} {name}")
+    log(f"[generic-wa] {len(GENERIC_N) * len(GENERIC_HD) * 4} shapes x dtypes x masks, "
+        f"forward and backward, against the plain versions; worst {chk.worst_text('wa')}")
+
+    n_blocks = 0
+    for ws in GENERIC_WINDOWS:
+        for C, heads in GENERIC_WIDTHS:
+            for k in (2, 3, 4):
+                for dtype in ("float32", "bfloat16"):
+                    B, H, W, shift, N = 2, 2 * ws, 3 * ws, ws // 2, ws * ws
+                    dt = getattr(torch, dtype)
+                    params = _block_params(C, heads, k * C, N, dev, gen)
+                    x = torch.randn(B, H, W, C, generator=gen, device=dev).to(dt)
+                    dy = torch.randn(B, H, W, C, generator=gen, device=dev).to(dt)
+                    mask = (torch.from_numpy(shifted_window_mask(H, W, ws, shift)).to(dev)
+                            if shift else None)
+                    kw = dict(num_heads=heads, window_size=ws, shift=shift)
+                    what = f"whole block ws={ws} C={C} hidden={k}C {dtype}"
+                    if sb.variant(ws, C, heads, k * C) != "generic":
+                        chk.fails.append(f"{what}: not the generic variant")
+                    for bwd in (False, True):
+                        plan = (sb.generic_backward_plan if bwd else sb.generic_forward_plan)(
+                            x, heads, k * C, ws)
+                        lib = sb.generic_library_plan(x, heads, k * C, ws, bwd)
+                        if any((v["grid"], v["threads"], v["smem"]) != (
+                                plan["launches"][n]["grid"], plan["launches"][n]["threads"],
+                                plan["launches"][n]["smem"]) for n, v in lib["launches"].items()) \
+                                or lib["scratch"]["bytes"] != plan["scratch_bytes"]:
+                            chk.fails.append(f"{what}: plan is not the library's")
+                    chk.block(x, params, mask, dy, kw, what)
+                    n_blocks += 1
+    for dtype in ("float32", "bfloat16"):  # forced at a shipped shape
+        dt = getattr(torch, dtype)
+        params = _block_params(96, 24, 288, 64, dev, gen)
+        x = torch.randn(1, 40, 72, 96, generator=gen, device=dev).to(dt)
+        dy = torch.randn(1, 40, 72, 96, generator=gen, device=dev).to(dt)
+        mask = torch.from_numpy(shifted_window_mask(40, 72, 8, 4)).to(dev)
+        kw = dict(num_heads=24, shift=4)
+        tuned = (sb.swin_block(x, params, mask, **kw),
+                 *sb.swin_block_backward(x, params, mask, dy, **kw)[:1])
+        forced = (sb.swin_block(x, params, mask, _generic=True, **kw),
+                  *sb.swin_block_backward(x, params, mask, dy, _generic=True, **kw)[:1])
+        torch.cuda.synchronize()
+        want = sb.swin_block_reference(x, params, mask, **kw)
+        what = f"whole block forced generic, 40x72 C=96 {dtype}"
+        note(("sb_forced", dtype), _rel(forced[0], want), SWIN_TOL[dtype], what + " y vs plain")
+        note(("sb_forced", dtype), _rel(forced[0], tuned[0]), SWIN_TOL[dtype],
+             what + " y vs tuned")
+        note(("sb_forced", dtype), _rel(forced[1], tuned[1]),
+             SWIN_DX_TOL if dtype == "float32" else SWIN_TOL[dtype], what + " dx vs tuned")
+    if chk.noisy:
+        log("[generic-sb] fp32 gradients whose tolerance is phase 9's rule (STEP_NOISE_FACTOR "
+            "times the plain version's own change for x nudged by STEP_INPUT_NOISE; at a 1x1 "
+            "window dbias is a sum that cancels to 0): " + "; ".join(chk.noisy))
+    log(f"[generic-sb] {n_blocks} block shapes x dtypes (windows {GENERIC_WINDOWS}, C "
+        f"{[c for c, _ in GENERIC_WIDTHS]}, MLPs 2-4 C), forward and backward, against the "
+        f"plain versions; worst {chk.worst_text('sb')}")
+    chk.raise_on_fails("generic")
+    log(f"[generic] (a) done in {time.perf_counter() - t0:.1f} s")
+    return {f"{k[0]} {k[1]}": v for k, v in chk.worst.items()}
+
+
+def _tiny_held_batch(cfg, seed: int) -> dict:
+    """16 synthetic pairs at the tiny config's sizes, none of the training
+    set's: the batch phase 28 (b) reads the loss on before and after."""
+    from dmhomo_torch.data.hem_data import SyntheticHomoPairs
+    from dmhomo_torch.data.loader import collate
+
+    ds = SyntheticHomoPairs(n=16, crop_size=cfg.estimator.crop_size,
+                            ori_size=cfg.estimator.ori_size, rho=min(cfg.rho, 3), seed=seed + 1)
+    items = [ds[i] for i in range(16)]
+    return {k: collate([it[k] for it in items]) for k in ("imgs_gray_patch", "flow_gt_patch")}
+
+
+def _held_loss(trainer, batch) -> float:
+    """The training loss of ``trainer``'s model on ``batch``, without a step."""
+    import torch
+
+    from dmhomo_torch.losses.hem_losses import compute_losses
+
+    d = trainer.device
+    with torch.no_grad(), torch.autocast(d.type, dtype=torch.bfloat16,
+                                         enabled=trainer.config.bf16):
+        out = trainer.model(torch.from_numpy(batch["imgs_gray_patch"]).to(d))
+        loss = compute_losses({"flow_gt_patch": torch.from_numpy(batch["flow_gt_patch"]).to(d)},
+                              out, trainer.config.loss)["total"]
+    return float(loss)
+
+
+def tiny_train_child(attn: str, fuse: int, seed: int) -> dict:
+    """Phase 28 (b)'s child: ``hem_train --tiny --synthetic 64 --steps 10`` on
+    the card (through ``hem_train.main``, the plain versions made to raise),
+    each step's loss recorded, and the loss on a held batch before the first
+    step and after the last; with fuse 1, one more step profiled."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmhomo_torch.cli import hem_train
+    from dmhomo_torch.ops import swin_block as sb
+    from dmhomo_torch.ops import window_attention as wa
+    from dmhomo_torch.train.hem_trainer import HEMTrainer
+
+    _plain_raises()
+    losses, inside, held = [], [], {}
+    step, steps = HEMTrainer.train_step, HEMTrainer.train_steps
+
+    def before(trainer):
+        if "batch" not in held:
+            held["batch"] = _tiny_held_batch(trainer.config, seed)
+            held["before"] = _held_loss(trainer, held["batch"])
+
+    def one(self, batch):
+        before(self)
+        out = step(self, batch)
+        if not inside:
+            losses.append(out["total"].detach().clone())
+        return out
+
+    def many(self, batches):
+        before(self)
+        inside.append(1)
+        try:
+            out = steps(self, batches)
+        finally:
+            inside.pop()
+        losses.extend(out["total"].detach().clone().unbind())
+        return out
+
+    HEMTrainer.train_step, HEMTrainer.train_steps = one, many
+    counters = (wa.window_attention, wa.window_attention_backward, sb.swin_block,
+                sb.swin_block_backward)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="tiny_", dir=build) as out:
+        trainer = hem_train.main(["--synthetic", "64", "--tiny", "--steps", str(TINY_STEPS),
+                                  "--attn", attn, "--fuse-steps", str(fuse), "--out", out,
+                                  "--seed", str(seed)])
+    result = {"losses": [float(v) for v in losses],
+              "held": [held["before"], _held_loss(trainer, held["batch"])],
+              "launches": {fn.__name__: dict(fn.launches_by_variant) for fn in counters}}
+    if fuse > 1:
+        result["per_replay"] = {k: dict(v) for k, v in
+                                trainer.step_graph.launches_by_variant.items()}
+        return result
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        HEMTrainer.train_step = step  # this step's loss is not one of the run's
+        trainer.train_step(held["batch"])
+        torch.cuda.synchronize()
+    kernels = sorted({e.key for e in kernel_events(prof.key_averages())})
+    N = WINDOW4 * WINDOW4
+    # the plain window attention's products take (windows x heads, N, N) logits
+    plain_ops = sorted({f"{e.key} {e.input_shapes}"
+                        for e in prof.key_averages(group_by_input_shape=True)
+                        if e.key in ("aten::bmm", "aten::baddbmm", "aten::_softmax",
+                                     "aten::softmax")
+                        and any(len(sh) >= 2 and sh[-1] == N and sh[-2] == N
+                                for sh in e.input_shapes)})
+    result["profile"] = {
+        "generic": [k for k in kernels if "_any_" in k],
+        "tuned": [k for k in kernels
+                  if re.search(r"window_attention_(fwd|bwd|dbias)|swin_block_(fwd|bwd)_", k)],
+        "bmm_softmax": sorted({k for k in kernels
+                               if "bmm" in k.lower() or "softmax" in k.lower()}),
+        "plain_window_ops": plain_ops}
+    return result
+
+
+TINY_RUNS = tuple((attn, fuse) for attn in ("auto", "fused_block") for fuse in (1, 5))
+
+
+def start_tiny_children(seed: int) -> tuple:
+    """Phase 28 (b)'s four children, started at once (each is a few seconds
+    of card work after its start): (the processes, their start time)."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tiny-train-child",
+                               f"{attn},{fuse}", "--seed", str(seed)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for attn, fuse in TINY_RUNS]
+    return procs, time.perf_counter()
+
+
+def generic_tiny_train(procs, t0: float) -> dict:
+    """Phase 28 (b): ``hem_train --tiny --synthetic 64 --steps 10`` on the card
+    in a child process under ``--attn auto`` and ``fused_block``, eagerly and
+    with ``--fuse-steps 5`` (``start_tiny_children``; this waits for them):
+    exit 0, finite losses, the loss on a held batch lower after the 10 steps
+    than before, only generic kernels launched; a profiled eager step shows
+    the generic kernels by name and no plain-path product of window logits.
+    The step losses' first 3 and last 3 are logged beside it: each is the
+    loss of another batch, and at 10 steps their spread exceeds what the
+    steps move (the plain path on the CPU gives 8.00 then 8.63)."""
+    out = {}
+    try:
+        outputs = [proc.communicate(timeout=600) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for (attn, fuse), proc, (stdout, stderr) in zip(TINY_RUNS, procs, outputs):
+        tag = f"{attn} fuse={fuse}"
+        if proc.returncode != 0:
+            log(stdout[-3000:] + stderr[-6000:])
+            raise SystemExit(f"hem_train --tiny --attn {tag} exited {proc.returncode}")
+        r = json.loads(stdout.strip().splitlines()[-1])
+        losses = r["losses"]
+        if len(losses) != TINY_STEPS or not np.isfinite(losses).all():
+            raise SystemExit(f"hem_train --tiny {tag}: losses {losses}")
+        first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+        if not r["held"][1] < r["held"][0]:
+            raise SystemExit(f"hem_train --tiny {tag}: the held batch's loss did not fall: "
+                             f"{r['held']}")
+        tuned = {n: v.get("tuned", 0) for n, v in r["launches"].items()}
+        generic = {n: v.get("generic", 0) for n, v in r["launches"].items()}
+        want = ("window_attention", "window_attention_backward") if attn == "auto" else \
+            ("swin_block", "swin_block_backward")
+        if any(tuned.values()) or not all(generic[n] > 0 for n in want):
+            raise SystemExit(f"hem_train --tiny {tag}: launches by variant {r['launches']}")
+        msg = (f"[generic-tiny] hem_train --tiny --attn {attn} --fuse-steps {fuse}: exit 0, "
+               f"step losses {' '.join(f'{v:.4f}' for v in losses)} (first 3 {first:.4f}, "
+               f"last 3 {last:.4f}); held batch {r['held'][0]:.4f} -> {r['held'][1]:.4f}; "
+               f"eager-step launches by variant {generic}")
+        if "per_replay" in r:
+            per = r["per_replay"]
+            if any(v.get("tuned", 0) for v in per.values()) or \
+                    not all(per[n].get("generic", 0) > 0 for n in want):
+                raise SystemExit(f"hem_train --tiny {tag}: launches per replay {per}")
+            msg += f"; per replay {per}"
+        if "profile" in r:
+            p = r["profile"]
+            if p["tuned"] or p["plain_window_ops"] or not p["generic"]:
+                raise SystemExit(f"hem_train --tiny {tag}: profiled kernels {p}")
+            msg += (f"; profiled step: generic kernels {p['generic']}, none of the tuned, no "
+                    f"bmm/softmax on window logits (those by name: {p['bmm_softmax']}, the "
+                    "class attention's)")
+        log(msg)
+        out[tag] = r
+    log(f"[generic] (b) done {time.perf_counter() - t0:.1f} s after its children started "
+        f"(they ran beside (a))")
+    return out
+
+
+def window4_train_config(attn: str, **kw):
+    """The shipped HEM training config with the params.json window 4."""
+    import dataclasses
+
+    from dmhomo_torch.train.config import HEMTrainConfig
+
+    base = HEMTrainConfig()
+    est = dataclasses.replace(base.estimator, swin=dataclasses.replace(
+        base.estimator.swin, window_size=WINDOW4))
+    return dataclasses.replace(base, estimator=est, attn_impl=attn, **kw)
+
+
+def _reset_counters(fns) -> None:
+    for fn in fns:
+        fn.launches = 0
+        fn.launches_by_shape.clear()
+        fn.launches_by_variant.clear()
+
+
+def window4_train(dev, batch, seed: int, attn: str) -> dict:
+    """Phase 28 (c)'s training: the shipped config (bf16, B=32, grad_accum 4)
+    at window 4: eager steps (1 warm-up, 3 timed) with their launches per
+    step by variant and by shape, a profiled eager step, then ``train_steps``
+    (the capture, 1 warm-up, 3 timed replays) with the launches per replay
+    counted at capture and a profiled replay."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmhomo_torch.train.hem_trainer import LAUNCH_COUNTERS, HEMTrainer
+
+    trainer = HEMTrainer(window4_train_config(attn), steps_per_epoch=1000, device=dev)
+    trainer.init_state(seed)
+    tag = f"w4-{attn}-train"
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(1 + 3):
+        if step == 1:
+            _reset_counters(LAUNCH_COUNTERS)
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(batch)["total"]))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {fn.__name__: fn.launches / 3 for fn in LAUNCH_COUNTERS}
+    by_variant = {fn.__name__: dict(fn.launches_by_variant) for fn in LAUNCH_COUNTERS}
+    by_shape = {fn.__name__: {k: v / 3 for k, v in fn.launches_by_shape.items()}
+                for fn in LAUNCH_COUNTERS}
+    if not np.isfinite(losses).all() or any(v.get("tuned") for v in by_variant.values()):
+        raise SystemExit(f"[{tag}] losses {losses}, launches by variant {by_variant}")
+    step_ms = float(np.median(times[1:]))
+
+    def profiled(fn):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = kernel_events(prof.key_averages())
+        dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+        if dev_ms <= 0:
+            raise SystemExit(f"[{tag}] the profiler saw no device time")
+        generic = {k: sum(e.self_device_time_total for e in events if k in e.key) / 1e3
+                   for k in ("window_attention_any_fwd", "window_attention_any_bwd",
+                             "window_attention_any_reduce", "swin_block_any_")}
+        return dev_ms, events, generic
+
+    dev_ms, events, generic_ms = profiled(lambda: trainer.train_step(batch))
+    idle = max(0.0, 1.0 - dev_ms / step_ms)
+    log(f"[{tag}] eager: steps {', '.join(f'{t:.1f}' for t in times)} ms (median of the timed "
+        f"{step_ms:.2f}), {1e3 * BATCH / step_ms:.2f} pairs/s, peak {peak / 2**30:.2f} GiB, "
+        f"losses {', '.join(f'{v:.5f}' for v in losses)}; launches per step {per_step}, all "
+        f"generic {by_variant}; profiled step: device busy {dev_ms:.2f} ms, idle "
+        f"{100 * idle:.1f}%, generic kernels {json.dumps(generic_ms)}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[{tag}-profile] {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+            f"{e.key[:90]}")
+
+    gtimes = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1 + 1 + 3):
+        t0 = time.perf_counter()
+        out = trainer.train_steps([batch])
+        losses.append(float(out["total"][0]))
+        torch.cuda.synchronize()
+        gtimes.append(1e3 * (time.perf_counter() - t0))
+    sg = trainer.step_graph
+    gpeak = torch.cuda.max_memory_allocated()
+    g_ms = float(np.median(gtimes[2:]))
+    if sg.launches != {k: round(v) for k, v in per_step.items()} or any(
+            v.get("tuned") for v in sg.launches_by_variant.values()):
+        raise SystemExit(f"[{tag}] launches per replay {sg.launches} "
+                         f"{sg.launches_by_variant}, eager {per_step}")
+    g_dev_ms, _, g_generic_ms = profiled(lambda: trainer.train_steps([batch]))
+    g_idle = max(0.0, 1.0 - g_dev_ms / g_ms)
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"[{tag}] graph losses {losses}")
+    log(f"[{tag}] graph: first call (eager step + capture) {gtimes[0]:.1f} ms, replays "
+        f"{', '.join(f'{t:.1f}' for t in gtimes[1:])} ms (median of the timed {g_ms:.2f}), "
+        f"{1e3 * BATCH / g_ms:.2f} pairs/s, peak {gpeak / 2**30:.2f} GiB; launches per replay "
+        f"{sg.launches} {json.dumps({k: dict(v) for k, v in sg.launches_by_variant.items()})}; "
+        f"profiled replay: device busy {g_dev_ms:.2f} ms, idle {100 * g_idle:.1f}%")
+    per_replay = dict(sg.launches)
+    del trainer, sg
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "idle": idle, "peak_bytes": peak, "launches_per_step": per_step,
+            "by_shape": by_shape, "dev_ms": dev_ms, "generic_ms": generic_ms,
+            "graph_step_ms": g_ms, "graph_idle": g_idle, "graph_peak_bytes": gpeak,
+            "graph_dev_ms": g_dev_ms, "graph_generic_ms": g_generic_ms,
+            "launches_per_replay": per_replay, "losses": losses}
+
+
+def generic_window4(dev, pairs, batch, seed: int) -> dict:
+    """Phase 28 (c): the shipped estimator with the params.json window 4 (full
+    width, every level's window 4x4) under ``--attn auto`` (the window
+    kernels) and ``fused_block``: ``eval_forward`` on phase 4's 32 pairs
+    (fp32; 40 generic launches a forward, none tuned), its profile, its flows
+    against the CPU; the shipped training step at window 4 (``window4_train``);
+    one fp32 training step card vs CPU (phase 9's rule)."""
+    import torch
+
+    from dmhomo_torch.config import EstimatorConfig, SwinConfig
+    from dmhomo_torch.models.estimator import build_estimator
+    from dmhomo_torch.ops import swin_block as sb
+    from dmhomo_torch.ops import window_attention as wa
+
+    t0 = time.perf_counter()
+    out = {}
+    counters = {"window_attention": wa.window_attention, "swin_block": sb.swin_block}
+    for attn in ("auto", "fused_block"):
+        impl = "xla" if attn == "auto" else attn  # 'auto' on the card: the window kernels
+        cfg = EstimatorConfig(swin=SwinConfig(window_size=WINDOW4, attn_impl=impl))
+        model = build_estimator(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+        _reset_counters(counters.values())
+        launches, forwards, _, batch_ms, peak = phase_slice(model, pairs, counters,
+                                                            tag=f"w4-{attn}-slice", reps=2)
+        per_fwd = {n: v / forwards for n, v in launches.items()}
+        variants = {n: dict(fn.launches_by_variant) for n, fn in counters.items()}
+        want = {"window_attention": 40.0, "swin_block": 0.0} if attn == "auto" else \
+            {"window_attention": 0.0, "swin_block": 40.0}
+        if per_fwd != want or any(v.get("tuned") for v in variants.values()):
+            raise SystemExit(f"[w4-{attn}-slice] launches per forward {per_fwd} by variant "
+                             f"{variants}, expected {want}, all generic")
+        eval_shapes = {n: {k: v / forwards for k, v in fn.launches_by_shape.items()}
+                       for n, fn in counters.items()}
+        dev_ms, idle = phase_profile(model, pairs, batch_ms, tag=f"w4-{attn}-profile")
+        diffs = phase_card_vs_cpu(model, seed, tag=f"w4-{attn}-card-vs-cpu")
+        del model
+        torch.cuda.empty_cache()
+        train = window4_train(dev, batch, seed, attn)
+        step_diffs = phase_train_card_vs_cpu(dev, seed, attn_impl=attn,
+                                             tag=f"w4-{attn}-train-card-vs-cpu",
+                                             config=window4_train_config(attn))
+        torch.cuda.empty_cache()
+        out[attn] = {"batch_ms": batch_ms, "pairs_per_s": 1e3 * BATCH / batch_ms,
+                     "eval_peak_bytes": peak, "eval_idle": idle, "eval_dev_ms": dev_ms,
+                     "launches_per_forward": per_fwd, "eval_shapes": eval_shapes,
+                     "card_vs_cpu": diffs, "train": train, "step_card_vs_cpu": step_diffs}
+    log(f"[generic] (c) done in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def generic_main_path_checks(dev, seed: int, w4: dict) -> dict:
+    """Phase 28 (d), first: each generic kernel against its plain version at
+    every shape phase 28 (c)'s paths gave it (the counters' keys of the eval
+    forward and of the training step: B=32 and the microbatch of 8, every
+    level, W-MSA and SW-MSA), forward and backward, in fp32 and in bf16,
+    with the levels' own shifted-window masks and trained-looking block
+    weights, at (a)'s tolerances (``_GenericChecks``); a miss fails the
+    phase."""
+    import torch
+
+    from dmhomo_torch.models.swin import shifted_window_mask
+
+    t0 = time.perf_counter()
+    chk = _GenericChecks(dev, torch.Generator(device=dev).manual_seed(seed + 27))
+    gen, N, shift = chk.gen, WINDOW4 * WINDOW4, WINDOW4 // 2
+    a, f = w4["auto"], w4["fused_block"]
+    wa_keys = [a["eval_shapes"]["window_attention"], a["train"]["by_shape"]["window_attention"],
+               a["train"]["by_shape"]["window_attention_backward"]]
+    sb_keys = [f["eval_shapes"]["swin_block"], f["train"]["by_shape"]["swin_block"],
+               f["train"]["by_shape"]["swin_block_backward"]]
+    wa_shapes = sorted({k[:4] for d in wa_keys for k in d})  # (Bn, C, heads, nW)
+    sb_shapes = sorted({k[:5] + k[6:] for d in sb_keys for k in d})  # (B, H, W, C, heads, masked)
+    levels = {(H // WINDOW4) * (W // WINDOW4): (H, W) for _, H, W, *_ in sb_shapes}
+    for Bn, C, h, nW in wa_shapes:
+        mask = (torch.from_numpy(shifted_window_mask(*levels[nW], WINDOW4, shift)).to(dev)
+                if nW else None)
+        bias = 0.5 * torch.randn(h, N, N, generator=gen, device=dev)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            qkv = torch.randn(Bn, N, 3 * C, generator=gen, device=dev).to(dt)
+            gout = torch.randn(Bn, N, C, generator=gen, device=dev).to(dt)
+            chk.window_attention(qkv, bias, mask, gout, h,
+                                 f"window attention at Bn={Bn} C={C} heads={h} nW={nW} {dtype}")
+            del qkv, gout
+    for B, H, W, C, heads, masked in sb_shapes:
+        s = {"C": C, "H": H, "W": W, "heads": heads, "ws": WINDOW4, "shift": shift}
+        block = seeded_swin_blocks(s, dev, gen)[int(masked)]
+        params = tuple(p.detach().contiguous() for p in block.fused_params())
+        kw = dict(num_heads=heads, window_size=WINDOW4, shift=shift if masked else 0)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            x = torch.randn(B, H, W, C, generator=gen, device=dev).to(dt)
+            dy = torch.randn(B, H, W, C, generator=gen, device=dev).to(dt)
+            chk.block(x, params, block.attn_mask, dy, kw,
+                      f"whole block at {B}x{H}x{W}x{C} heads={heads} shift={kw['shift']} {dtype}")
+            del x, dy
+        del block, params
+    torch.cuda.empty_cache()
+    if chk.noisy:
+        log("[generic-main] fp32 gradients whose tolerance is phase 9's rule: "
+            + "; ".join(chk.noisy))
+    log(f"[generic-main] {len(wa_shapes)} window-attention and {len(sb_shapes)} whole-block "
+        f"shapes of (c)'s paths, each in fp32 and bf16, forward and backward, against the "
+        f"plain versions, reruns bit-identical; worst {chk.worst_text('')}")
+    chk.raise_on_fails("generic-main")
+    log(f"[generic] (d) checks done in {time.perf_counter() - t0:.1f} s")
+    return {f"{k[0]} {k[1]}": v for k, v in chk.worst.items()}
+
+
+def _wa_inputs(key, dev, gen):
+    """qkv, bias, mask, gout at a window-attention counter key."""
+    import torch
+
+    Bn, C, heads, nW, dtype = key
+    N = WINDOW4 * WINDOW4
+    dt = getattr(torch, dtype)
+    qkv = torch.randn(Bn, N, 3 * C, generator=gen, device=dev).to(dt)
+    bias = 0.5 * torch.randn(heads, N, N, generator=gen, device=dev)
+    gout = torch.randn(Bn, N, C, generator=gen, device=dev).to(dt)
+    mask = None
+    if nW:
+        mask = torch.where(torch.rand(nW, N, N, generator=gen, device=dev) < 0.3, -100.0, 0.0)
+    return qkv, bias, mask, gout
+
+
+def generic_site_times(dev, seed: int, w4: dict) -> dict:
+    """Phase 28 (d): each generic kernel at every shape phase 28 (c)'s paths
+    gave it (their counters' keys): the median of 5 bursts of CUDA-event
+    timed calls, its plain version, its yardstick (SDPA at N = 16 for the
+    window attention, forward or forward + backward; the port's unfused
+    SwinBlock for the whole block) and its bound; per eval forward and per
+    training step, each shape weighted by its launches there."""
+    import torch
+    import torch.nn.functional as F
+
+    from dmhomo_torch.models.swin import shifted_window_mask
+    from dmhomo_torch.ops import swin_block as sb
+    from dmhomo_torch.ops import window_attention as wa
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 28)
+    N = WINDOW4 * WINDOW4
+    rows = []
+
+    def wa_row(key, per, where, backward):
+        qkv, bias, mask, gout = _wa_inputs(key, dev, gen)
+        Bn, C, h, nW, dtype = key
+        hd = C // h
+        q, k, v = (t.detach().clone().requires_grad_(backward) for t in
+                   qkv.view(Bn, N, 3, h, hd).permute(2, 0, 3, 1, 4).unbind(0))
+        am = bias[None].expand(Bn, h, N, N)
+        if mask is not None:
+            am = (am.reshape(Bn // nW, nW, h, N, N) + mask[None, :, None]).reshape(Bn, h, N, N)
+        am = am.to(qkv.dtype).contiguous().requires_grad_(backward)
+        if backward:
+            g4 = gout.view(Bn, N, h, hd).transpose(1, 2)
+            fn = lambda: wa.window_attention_backward(qkv, bias, mask, gout, num_heads=h)  # noqa
+            plain = lambda: wa.window_attention_backward_reference(  # noqa: E731
+                qkv, bias, mask, gout, num_heads=h)
+
+            def lib():
+                o = F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=hd**-0.5)
+                return torch.autograd.grad(o, (q, k, v, am), g4)
+        else:
+            fn = lambda: wa.window_attention(qkv, bias, mask, num_heads=h)  # noqa: E731
+            plain = lambda: wa.window_attention_reference(qkv, bias, mask, num_heads=h)  # noqa
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=am, scale=hd**-0.5)
+        ms, times = burst_ms(fn, 5)
+        plain_ms = burst_ms(plain, 2)[0]
+        lib_ms = burst_ms(lib, 3)[0]
+        b_ms, b_by = bound(qkv, bias, mask, backward)
+        rows.append({"kernel": "window_attention_" + ("bwd" if backward else "fwd"),
+                     "where": where, "Bn": Bn, "C": C, "heads": h, "nW": nW, "dtype": dtype,
+                     "per": per, "ms": ms, "spread": spread(times), "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
+
+    def sb_row(key, per, where, backward):
+        B, H, W, C, heads, dtype, masked = key
+        dt = getattr(torch, dtype)
+        s = {"C": C, "H": H, "W": W, "heads": heads, "ws": WINDOW4, "shift": WINDOW4 // 2}
+        blocks = seeded_swin_blocks(s, dev, gen)
+        block = blocks[1 if masked else 0]
+        params = tuple(p.detach().contiguous() for p in block.fused_params())
+        mask = block.attn_mask
+        x = torch.randn(B, H, W, C, generator=gen, device=dev).to(dt)
+        dy = torch.randn(B, H, W, C, generator=gen, device=dev).to(dt)
+        kw = dict(num_heads=heads, window_size=WINDOW4, shift=WINDOW4 // 2 if masked else 0)
+        xt = x.reshape(B, H * W, C)
+        if backward:
+            fn = lambda: sb.swin_block_backward(x, params, mask, dy, **kw)  # noqa: E731
+            plain = lambda: sb.swin_block_backward_reference(x, params, mask, dy, **kw)  # noqa
+            xg = xt.detach().clone().requires_grad_()
+            ps = [p for p in block.parameters() if p.requires_grad]
+
+            def lib():
+                with torch.autocast("cuda", dtype=dt, enabled=dt == torch.bfloat16):
+                    y = block(xg)
+                return torch.autograd.grad(y, [xg] + ps, dy.reshape(B, H * W, C).to(y.dtype))
+            b_ms, b_by = block_bwd_bound(x, params, mask)
+        else:
+            fn = lambda: sb.swin_block(x, params, mask, **kw)  # noqa: E731
+            plain = lambda: sb.swin_block_reference(x, params, mask, **kw)  # noqa: E731
+
+            def lib():
+                with torch.no_grad(), torch.autocast("cuda", dtype=dt,
+                                                     enabled=dt == torch.bfloat16):
+                    return block(xt)
+            b_ms, b_by = block_bound(x, params, mask)
+        ms, times = burst_ms(fn, 3)
+        plain_ms = burst_ms(plain, 1)[0]
+        lib_ms = burst_ms(lib, 2)[0]
+        rows.append({"kernel": "swin_block_" + ("bwd" if backward else "fwd"), "where": where,
+                     "B": B, "H": H, "W": W, "C": C, "heads": heads, "dtype": dtype,
+                     "masked": masked, "per": per, "ms": ms, "spread": spread(times),
+                     "plain_ms": plain_ms, "unfused_ms": lib_ms, "bound_ms": b_ms,
+                     "bound_by": b_by})
+
+    ev, tr = w4["auto"]["eval_shapes"], w4["auto"]["train"]["by_shape"]
+    for key, per in ev["window_attention"].items():
+        wa_row(key, per, "eval", False)
+    for key, per in tr["window_attention"].items():
+        wa_row(key, per, "step", False)
+    for key, per in tr["window_attention_backward"].items():
+        wa_row(key, per, "step", True)
+    ev, tr = w4["fused_block"]["eval_shapes"], w4["fused_block"]["train"]["by_shape"]
+    for key, per in ev["swin_block"].items():
+        sb_row(key, per, "eval", False)
+    for key, per in tr["swin_block"].items():
+        sb_row(key, per, "step", False)
+    for key, per in tr["swin_block_backward"].items():
+        sb_row(key, per, "step", True)
+    torch.cuda.empty_cache()
+    totals = {}
+    for r in rows:
+        t = totals.setdefault((r["kernel"], r["where"]), {
+            "launches": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+            "bound_by": set()})
+        t["launches"] += r["per"]
+        for k in ("ms", "plain_ms", "bound_ms"):
+            t[k] += r[k] * r["per"]
+        t["library_ms"] += r.get("library_ms", r.get("unfused_ms")) * r["per"]
+        t["bound_by"].add(r["bound_by"])
+        log(f"[generic-time] {r['kernel']} {r['where']} "
+            + " ".join(f"{k}={r[k]}" for k in ("Bn", "B", "H", "W", "C", "heads", "nW",
+                                               "dtype", "masked") if k in r)
+            + f" x{r['per']:g}: {r['ms']:.4f} ms (bursts {r['spread']}), plain "
+            f"{r['plain_ms']:.4f}, {'SDPA' if 'library_ms' in r else 'unfused'} "
+            f"{r.get('library_ms', r.get('unfused_ms')):.4f}, bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']})")
+    out = {}
+    for (kernel, where), t in totals.items():
+        t["bound_by"] = "bytes" if t["bound_by"] == {"bytes"} else "operations"
+        out[f"{kernel} per {'forward' if where == 'eval' else 'step'}"] = t
+        per = ("eval forward (B=32, fp32)" if where == "eval"
+               else "training step (B=32 in 4 microbatches, the step's dtypes)")
+        log(f"[generic-time] {kernel} per {per}: "
+            f"{t['launches']:g} launches, {t['ms']:.3f} ms, plain {t['plain_ms']:.3f}, yardstick "
+            f"{t['library_ms']:.3f}, bound {t['bound_ms']:.3f} ({t['bound_by']})")
+    log(f"[generic] (d) done in {time.perf_counter() - t0:.1f} s")
+    return {"totals": out, "rows": rows}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -3350,6 +4245,11 @@ def main(argv=None):
     parser.add_argument("--only-data-parallel", action="store_true",
                         help="phases 1-2 (device, build), then phase 27 alone; prints no "
                              "final line")
+    parser.add_argument("--tiny-train-child", metavar="ATTN,FUSE", default=None,
+                        help="phase 28's child: hem_train --tiny on the card, its losses")
+    parser.add_argument("--only-generic", action="store_true",
+                        help="phases 1-2 (device, build), then phase 28 alone; prints no "
+                             "final line")
     args = parser.parse_args(argv)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if args.streamed_step_copies:
@@ -3358,12 +4258,23 @@ def main(argv=None):
     if args.dp_rank is not None:
         dp_rank(args.dp_rank, args.dp_world, args.dp_dir, args.dp_backend, args.seed)
         return
+    if args.tiny_train_child:
+        attn, fuse = args.tiny_train_child.split(",")
+        print(json.dumps(tiny_train_child(attn, int(fuse), args.seed)), flush=True)
+        return
     t_start = time.perf_counter()
 
     dev, name, smi = phase_device()
     phase_build()
     if args.only_data_parallel:
         phase_data_parallel(dev, synthetic_train_batch(BATCH, args.seed), args.seed)
+        log(smi)
+        return
+    if args.only_generic:
+        from dmhomo_torch.config import EstimatorConfig
+
+        phase_generic(dev, eval_pairs(EstimatorConfig(), dev, BATCH, args.seed),
+                      synthetic_train_batch(BATCH, args.seed), args.seed)
         log(smi)
         return
     wa_sass, wa_atomics = phase_window_sass()
@@ -3465,6 +4376,7 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="pipeline_", dir=build) as tmp:
         pipe = phase_pipeline(dev, args.seed, tmp)
     dp = phase_data_parallel(dev, train_batch, args.seed)
+    generic = phase_generic(dev, pairs, train_batch, args.seed)
 
     # per-forward totals at the eval path's dtype (fp32) and launch mix
     main = [r for r in results if r["dtype"] == "float32"]
@@ -3734,6 +4646,39 @@ def main(argv=None):
         f"{one['no_group_step_ms']:.2f}), {one['all_reduces_captured']} all-reduces captured per "
         f"step; {DP_WORLD} ranks ({ranks['backend']}, {ranks['cards']} card(s)) within phase 8c's "
         f"and 25's rules of one process; phase {dp['phase_s']:.1f} s")
+    # the generic variants (phase 28): at the shipped config with window 4
+    gt, gw, gm = generic["times"]["totals"], generic["worst"], generic["main_path_worst"]
+    units = {"forward": f"per estimator forward at window 4, B={BATCH}, fp32",
+             "step": (f"per training step at window 4, B={BATCH} in microbatches of "
+                      f"{MICROBATCH}, the step's dtypes")}
+    for entry, kname, errs in ((kernel, "window_attention_fwd", ("wa_fwd",)),
+                               (bwd_kernel, "window_attention_bwd", ("wa_bwd", "wa_dbias")),
+                               (sb_kernel, "swin_block_fwd", ("sb_fwd",)),
+                               (sbb_kernel, "swin_block_bwd", ("sb_dx", "sb_grads"))):
+        window = kname.startswith("window")
+        g = {"source": ("dmhomo_torch/csrc/window_attention_any.cuh" if window
+                        else "dmhomo_torch/csrc/swin_block_any.cu"),
+             "max_abs_err": {dt: max(gw[f"{e} {dt}"] for e in errs)
+                             for dt in ("float32", "bfloat16")},
+             "max_abs_err_main_path": {dt: max(gm[f"{e} {dt}"] for e in errs)
+                                       for dt in ("float32", "bfloat16")},
+             "library": "SDPA at N = 16" if window else "the port's unfused SwinBlock on the card"}
+        for where in ("forward", "step"):
+            t = gt.get(f"{kname} per {where}")
+            if t is not None:
+                g[where] = {"launches": t["launches"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                            "library_ms": t["library_ms"], "unit": units[where]}
+        entry["generic"] = g
+    w4a, w4f = generic["w4"]["auto"], generic["w4"]["fused_block"]
+    log(f"[summary] window 4 (phase 28): eval {w4a['pairs_per_s']:.2f} / {w4f['pairs_per_s']:.2f} "
+        f"pairs/s (window kernels / fused_block; idle {100 * w4a['eval_idle']:.1f}% / "
+        f"{100 * w4f['eval_idle']:.1f}%); training step {w4a['train']['step_ms']:.2f} / "
+        f"{w4f['train']['step_ms']:.2f} ms eager, {w4a['train']['graph_step_ms']:.2f} / "
+        f"{w4f['train']['graph_step_ms']:.2f} ms as a graph; phase {generic['phase_s']:.1f} s")
+    log("[generic-summary] " + json.dumps(json_keys({
+        "worst": gw, "main_path_worst": gm, "tiny": generic["tiny"], "window4": generic["w4"], "totals": gt}),
+        default=str))
     log(smi)  # nvidia-smi: card name, power limit
     log(json.dumps({"kernels": [kernel, bwd_kernel] + la_kernels + [sb_kernel, sbb_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

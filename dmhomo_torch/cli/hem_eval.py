@@ -8,6 +8,16 @@ Examples:
 port's own trainer (``hem_train --out DIR`` writes ``DIR/model_latest.pth``
 and ``DIR/model_best.pth``): ``DIR/best``, ``DIR/latest`` or the file.
 
+``--model-dir`` reads a reference ``params.json``; on the card any
+configuration inside the kernels' envelope runs through hand-written
+kernels: windows up to 12x12 that divide each level's resolution (a level
+smaller than its window takes one window over the whole map, as the
+reference does), widths C = heads x hd up to 384 with head dims up to 64,
+MLPs up to 4 C.  The shipped 8x8 windows take the tuned kernels, every
+other shape the generic ones (``ops/window_attention.py::variant``,
+``ops/swin_block.py::variant``); a configuration outside the envelope
+raises before any launch.
+
 Runs on ``cuda`` (raises without a card) unless ``--device cpu``.
 """
 

@@ -19,10 +19,11 @@ Example (CPU, tiny config):
 --attn picks the attention implementation as the JAX CLI's does ('auto':
 the window-attention kernel on the card, the plain path on the CPU;
 'fused_block': each Swin block as one whole-block kernel, forward and
-backward).  The kernels take the shipped windows only: 8x8 (64 tokens) for
-the window attention, 8x8 and C in 24/48/96 for the whole block.  --tiny's
-window 4 (16 tokens) therefore raises on the card under every --attn; it
-trains on --device cpu through the plain versions.
+backward).  The shipped 8x8 windows take the tuned kernels; every other
+window up to 12x12 and width up to C = 384 (head dims up to 64) takes the
+generic ones, so --tiny (window 4, C 8-32) and a params.json with another
+window train on the card under every --attn (``chip_smoke.py`` phase 28
+runs ``--tiny`` both ways); --device cpu runs the plain versions.
 
 --fuse-steps K (default 1) runs up to K optimizer steps per host call
 (HEMTrainer.train_steps), each chunk ending at the eval boundaries, as the

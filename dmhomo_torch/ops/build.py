@@ -27,10 +27,30 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def local_headers(source: Path) -> list:
+    """The headers ``source`` includes by ``#include "..."`` from beside it,
+    and theirs in turn, in the order first met."""
+    found, todo = [], [source]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop(0).read_bytes()):
+            header = source.parent / name.decode()
+            if header.exists() and header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
 def build_library(source: Path, stem: str) -> Path:
-    """Compile ``source`` for sm_90a (once per source content) and return the
-    library's path.  nvcc's ``-Xptxas -v`` report goes to a ``.log`` beside it."""
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    """Compile ``source`` for sm_90a (once per content of the source and the
+    headers it includes from beside it) and return the library's path.
+    nvcc's ``-Xptxas -v`` report goes to a ``.log`` beside it."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in local_headers(source):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     lib = BUILD_DIR / f"lib{stem}_{digest}.so"
     if lib.exists():
         return lib

@@ -35,9 +35,20 @@ instead read and write each window's tokens at their coordinates shifted
 mod (H, W), which is the same function without the copies.  The mask row of
 a window is its index within its image.
 
+Two variants, chosen by shape alone (:func:`variant`): the tuned library
+above at the shipped shapes (8x8 windows, C in 24, 48, 96, head dims 4-32,
+an MLP of 1-4 C); the generic one (``csrc/swin_block_any.cu``) at every other
+shape of the envelope: any window ws <= 12 dividing H and W, C = heads x hd
+with hd <= 64 and C <= 384, any MLP width 1..4 C, any shift < ws.  It runs
+the same function as a fixed sequence of launches (the forward five, the
+backward thirteen: :func:`generic_forward_plan`,
+:func:`generic_backward_plan`), every intermediate in device memory at the
+plain version's precision, still without atomics.  A shape outside the
+envelope raises before any launch.
+
 Parameters come in the port's layout: LayerNorm gains and biases (C,), the
-``nn.Linear`` weights (out, in) and biases, all fp32, and the (heads, 64,
-64) fp32 relative-position bias.  The CUDA library is built with ``nvcc``
+``nn.Linear`` weights (out, in) and biases, all fp32, and the (heads, N, N)
+fp32 relative-position bias.  The CUDA library is built with ``nvcc``
 at first use into ``build/kernels/`` of the checkout and called through a
 plain C interface with ``ctypes``.  :func:`swin_block` runs the plain
 versions for CPU tensors only (both directions: the explicit backward, not
@@ -61,8 +72,11 @@ from dmhomo_torch.ops.build import (CSRC, atomic_instructions, build_library,
                                     tensor_core_instructions)
 from dmhomo_torch.ops.window_attention import (
     HEAD_DIMS,
+    MAX_HEAD_DIM,
+    SMS,
     WINDOW_TOKENS,
     _scale_io,
+    generic_launch_plan,
     window_attention_backward_reference,
     window_attention_reference,
 )
@@ -72,8 +86,12 @@ CHANNELS = (24, 48, 96)  # the widths of the shipped estimator's Swin levels
 MAX_MLP_RATIO = 4  # hidden = mlp_ratio * C with mlp_ratio in 1..4
 LN_EPS = 1e-5
 PARAM_NAMES = ("g1", "b1", "wq", "bq", "bias", "wp", "bp", "g2", "b2", "w1", "c1", "w2", "c2")
+# the envelope of the generic variant
+MAX_WINDOW = 12  # the largest published Swin window
+MAX_CHANNELS = 384
 
 _SOURCE = CSRC / "swin_block.cu"
+_SOURCE_ANY = CSRC / "swin_block_any.cu"
 
 # The backward's five kernels, in launch order (csrc/swin_block.cu): the
 # forward recomputed with the MLP's, LN2's and the projection's backward
@@ -418,7 +436,7 @@ def _backward_plan(B: int, H: int, W: int, C: int, heads: int, hidden: int, item
 
 
 def backward_plan(x: torch.Tensor, num_heads: int, hidden: int,
-                  mask: "torch.Tensor | None" = None) -> dict:
+                  mask: "torch.Tensor | None" = None, window_size: int = WINDOW) -> dict:
     """How :func:`swin_block_backward` launches its kernels on the card for x
     (B, H, W, C): per kernel (``BACKWARD_KERNELS``) the grid, threads,
     windows (or tokens) per block, dynamic shared memory and blocks per SM
@@ -428,8 +446,11 @@ def backward_plan(x: torch.Tensor, num_heads: int, hidden: int,
     kernel this design replaced (``atomics_old``).  Computed from the shapes
     alone; the library carves the scratch itself
     (:func:`backward_scratch_layout`, which a ``gpu`` test holds this plan's
-    ``scratch`` against)."""
+    ``scratch`` against).  At a generic shape (:func:`variant`),
+    :func:`generic_backward_plan`."""
     B, H, W, C = x.shape
+    if variant(window_size, C, num_heads, hidden) == "generic":
+        return generic_backward_plan(x, num_heads, hidden, window_size)
     return _backward_plan(B, H, W, C, num_heads, hidden, x.element_size(), mask is not None)
 
 
@@ -451,7 +472,8 @@ def _forward_plan(B: int, H: int, W: int, C: int, itemsize: int) -> dict:
     }
 
 
-def forward_plan(x: torch.Tensor, num_heads: int, hidden: int) -> dict:
+def forward_plan(x: torch.Tensor, num_heads: int, hidden: int,
+                 window_size: int = WINDOW) -> dict:
     """How :func:`swin_block` launches its forward kernel on the card for x
     (B, H, W, C): one block of 256 threads per window (``grid``); its dynamic
     shared memory in bytes (two window buffers, rows ``row_stride`` elements
@@ -461,15 +483,141 @@ def forward_plan(x: torch.Tensor, num_heads: int, hidden: int) -> dict:
     (the registers may allow fewer: :func:`forward_blocks_per_sm` asks the
     card); the head groups (three at C = 96, one below).  Computed from the
     shapes alone (the heads and the MLP width change none of it); a ``gpu``
-    test holds ``smem`` to the library's."""
+    test holds ``smem`` to the library's.  At a generic shape
+    (:func:`variant`), :func:`generic_forward_plan`."""
     B, H, W, C = x.shape
+    if variant(window_size, C, num_heads, hidden) == "generic":
+        return generic_forward_plan(x, num_heads, hidden, window_size)
     return _forward_plan(B, H, W, C, x.element_size())
+
+
+def variant(window_size: int, C: int, heads: int, hidden: int) -> str:
+    """The kernels a block shape takes: ``"tuned"`` at 8x8 windows, C in
+    ``CHANNELS``, a head dim in ``HEAD_DIMS`` and an MLP of 1-4 C;
+    ``"generic"`` at every other shape."""
+    tuned = (window_size == WINDOW and C in CHANNELS and C % heads == 0
+             and C // heads in HEAD_DIMS and hidden % C == 0
+             and 1 <= hidden // C <= MAX_MLP_RATIO)
+    return "tuned" if tuned else "generic"
+
+
+# the generic variant's launches, in order (csrc/swin_block_any.cu)
+GENERIC_FORWARD = ("qkv", "attention", "proj", "fc1", "fc2")
+GENERIC_BACKWARD = ("qkv", "attention", "proj", "fc1", "dm1", "dn2", "ln2", "dao",
+                    "attention_bwd", "dn1", "ln1", "weights", "reduce")
+# its scratch buffers, in the order the library lays them out in one allocation
+GENERIC_FORWARD_SCRATCH = ("qkv", "ao", "h", "gm")
+GENERIC_SCRATCH = ("n1", "qkv", "ao", "h", "n2", "m1", "gm", "dy", "dn", "dh", "dao", "dqkv",
+                   "wpart", "lnpart", "bpart")
+GEMM_TILE = 64  # rows and columns of a product's output tile
+ANY_THREADS = 256
+LN_MAX_BLOCKS = SMS * 8  # the LayerNorm rows' blocks at most
+ANY_WEIGHT_BLOCKS_PER_SM = 4  # the weight products' splits aim at
+
+
+def _align(nbytes: int) -> int:
+    return -(-nbytes // 256) * 256
+
+
+def _offsets(names, sizes) -> tuple:
+    scratch, offset = {}, 0
+    for name, nbytes in zip(names, sizes):
+        scratch[name] = (offset, nbytes)
+        offset += _align(nbytes)
+    return scratch, offset
+
+
+@functools.lru_cache(maxsize=None)
+def _generic_plan(B: int, H: int, W: int, C: int, heads: int, hidden: int, ws: int,
+                  itemsize: int, backward: bool) -> dict:
+    M = B * H * W
+    N = ws * ws
+    Bn = M // N
+    hd = C // heads
+    att_f = generic_launch_plan(Bn, N, hd, heads, False)
+    att_b = generic_launch_plan(Bn, N, hd, heads, True)
+    blocks = min(-(-M // 64), LN_MAX_BLOCKS)
+    ln_rows = -(-M // blocks)
+    ln_blocks = -(-M // ln_rows)
+    # the weight products: w2 (C x hidden), w1 (hidden x C), wp (C x C), wq (3C x C),
+    # each with a ones column for its bias vector
+    jobs = ((C, hidden), (hidden, C), (C, C), (3 * C, C))
+    tiles = [-(-n // GEMM_TILE) * -(-(k + 1) // GEMM_TILE) for n, k in jobs]
+    splits = max(1, min(SMS * ANY_WEIGHT_BLOCKS_PER_SM // sum(tiles), -(-M // 256)))
+    tokens_per_split = -(-M // splits)
+    splits = -(-M // tokens_per_split)
+    elems = [n * (k + 1) for n, k in jobs] + [2 * C, 2 * C, heads * N * N]
+    reduce_blocks = -(-sum(elems) // (ANY_THREADS // 32))
+
+    def gemm(nout):
+        return {"grid": (-(-M // GEMM_TILE), -(-nout // GEMM_TILE), 1), "threads": ANY_THREADS,
+                "smem": 0}
+
+    def att(p):
+        return {"grid": p["grid"] + (1,), "threads": p["threads"], "smem": p["smem"],
+                "windows_per_block": p["windows_per_block"]}
+
+    it = itemsize
+    launches = {"qkv": gemm(3 * C), "attention": att(att_f), "proj": gemm(C),
+                "fc1": gemm(hidden)}
+    if not backward:
+        launches["fc2"] = gemm(C)
+        scratch, total = _offsets(GENERIC_FORWARD_SCRATCH, (it * M * 3 * C, it * M * C,
+                                                           it * M * C, it * M * hidden))
+    else:
+        ln = {"grid": (ln_blocks, 1, 1), "threads": ANY_THREADS, "smem": 0,
+              "rows_per_block": ln_rows}
+        launches.update({
+            "dm1": gemm(hidden), "dn2": gemm(C), "ln2": ln, "dao": gemm(C),
+            "attention_bwd": dict(att(att_b), partials=att_b["partials"]), "dn1": gemm(C),
+            "ln1": ln,
+            "weights": {"grid": (max(tiles), splits, 4), "threads": ANY_THREADS, "smem": 0,
+                        "tokens_per_split": tokens_per_split},
+            "reduce": {"grid": (reduce_blocks, 1, 1), "threads": ANY_THREADS, "smem": 0},
+        })
+        f = 4
+        sizes = (it * M * C, it * M * 3 * C, it * M * C, it * M * C, it * M * C,
+                 f * M * hidden, it * M * hidden, it * M * C, f * M * C, f * M * C,
+                 it * M * C, it * M * 3 * C, f * splits * sum(n * (k + 1) for n, k in jobs),
+                 f * 2 * 2 * ln_blocks * C, f * att_b["partials"] * heads * N * N)
+        scratch, total = _offsets(GENERIC_SCRATCH, sizes)
+    return {"variant": "generic", "windows": Bn, "window_tokens": N, "tokens": M,
+            "launches": launches, "scratch": scratch, "scratch_bytes": total, "atomics": 0}
+
+
+def generic_forward_plan(x: torch.Tensor, num_heads: int, hidden: int,
+                         window_size: int) -> dict:
+    """How the generic forward launches for x (B, H, W, C), from the shapes
+    alone, as ``csrc/swin_block_any.cu`` computes it: per launch
+    (``GENERIC_FORWARD``, in order) its grid (x, y, z), threads and dynamic
+    shared memory (the attention's windows per block too), the scratch (name
+    -> (byte offset, bytes) in one buffer, ``GENERIC_FORWARD_SCRATCH``) and
+    its size; ``variant`` ``"generic"``."""
+    B, H, W, C = x.shape
+    return _generic_plan(B, H, W, C, num_heads, hidden, window_size, x.element_size(), False)
+
+
+def generic_backward_plan(x: torch.Tensor, num_heads: int, hidden: int,
+                          window_size: int) -> dict:
+    """The generic backward's thirteen launches (``GENERIC_BACKWARD``) as
+    :func:`generic_forward_plan` gives the forward's, with the LayerNorm
+    rows' rows per block, the weight products' tokens per split, the
+    attention's dbias slabs (``partials``) and the scratch
+    (``GENERIC_SCRATCH``); ``atomics`` 0: the library holds none."""
+    B, H, W, C = x.shape
+    return _generic_plan(B, H, W, C, num_heads, hidden, window_size, x.element_size(), True)
 
 
 def build() -> Path:
     """Compile the kernel library for sm_90a (once per source content) and
     return its path."""
     return build_library(_SOURCE, "dmh_swin_block")
+
+
+def build_generic() -> Path:
+    """Compile the generic variant's library (``csrc/swin_block_any.cu`` and the
+    window-attention header it includes) and return its path."""
+    return build_library(_SOURCE_ANY, "dmh_swin_block_any")
 
 
 def build_log() -> str:
@@ -507,6 +655,72 @@ def forward_tensor_core_instructions() -> dict:
     if not out:
         raise RuntimeError("swin_block_fwd_kernel is not in the library's machine code")
     return out
+
+
+def generic_atomic_instructions() -> dict:
+    """Atomic instructions in the generic library's machine code, per kernel
+    (the products, the LayerNorm rows, the weight products, the window
+    attention's forward and backward, the reduction): any one fails
+    ``chip_smoke.py``."""
+    found = atomic_instructions(build_generic(), "_any_")
+    for part in ("gemm", "ln_bwd", "weights", "attention_any_fwd", "attention_any_bwd",
+                 "reduce"):
+        if not any(part in n for n in found):
+            raise RuntimeError(f"the generic {part} kernel is not in the library's machine code")
+    return found
+
+
+@functools.lru_cache(maxsize=None)
+def _library_any() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_generic()))
+    fn = lib.dmh_swin_block_any_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.dmh_swin_block_any_bwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.dmh_swin_block_any_scratch_layout
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    fn = lib.dmh_swin_block_any_plan
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def generic_library_plan(x: torch.Tensor, num_heads: int, hidden: int, window_size: int,
+                         backward: bool = False) -> dict:
+    """Each generic launch as the library makes it (name -> grid (x, y, z),
+    threads, dynamic shared memory) and its scratch layout (name -> byte
+    offset, and ``"bytes"``): what a ``gpu`` test and ``chip_smoke.py`` hold
+    :func:`generic_forward_plan` / :func:`generic_backward_plan` to.  Only
+    the shape and dtype of x are read."""
+    B, H, W, C = x.shape
+    names = GENERIC_BACKWARD if backward else GENERIC_FORWARD
+    bf16 = int(x.dtype == torch.bfloat16)
+    raw = (ctypes.c_int * (5 * len(names)))()
+    lib = _library_any()
+    err = lib.dmh_swin_block_any_plan(B, H, W, C, num_heads, hidden, window_size, bf16,
+                                      int(backward), raw)
+    if err != 0:
+        raise ValueError(f"the generic library refuses this shape: cudaError {err}")
+    launches = {n: {"grid": tuple(raw[5 * i:5 * i + 3]), "threads": raw[5 * i + 3],
+                    "smem": raw[5 * i + 4]} for i, n in enumerate(names)}
+    return {"launches": launches, "scratch": _generic_layout(B, H, W, C, num_heads, hidden,
+                                                             window_size, bf16, backward)}
+
+
+@functools.lru_cache(maxsize=None)
+def _generic_layout(B, H, W, C, heads, hidden, ws, bf16, backward) -> dict:
+    names = GENERIC_SCRATCH if backward else GENERIC_FORWARD_SCRATCH
+    off = (ctypes.c_longlong * (len(names) + 1))()
+    err = _library_any().dmh_swin_block_any_scratch_layout(B, H, W, C, heads, hidden, ws, bf16,
+                                                           int(backward), off)
+    if err != 0:
+        raise ValueError(f"the generic library refuses this shape: cudaError {err}")
+    return dict(zip(names + ("bytes",), off))
 
 
 @functools.lru_cache(maxsize=None)
@@ -570,11 +784,16 @@ def _scratch_layout(B, H, W, C, heads, hidden, per_block, split_tokens, bf16) ->
 
 
 def backward_scratch_layout(x: torch.Tensor, num_heads: int, hidden: int,
-                            mask: "torch.Tensor | None" = None) -> dict:
+                            mask: "torch.Tensor | None" = None,
+                            window_size: int = WINDOW) -> dict:
     """The backward's scratch as the library carves it for x (B, H, W, C)
-    under :func:`backward_plan`'s grids: name (``SCRATCH``) -> byte offset,
-    and ``"bytes"``, the size :func:`swin_block_backward` allocates."""
+    under :func:`backward_plan`'s grids: name (``SCRATCH``, or
+    ``GENERIC_SCRATCH`` at a generic shape) -> byte offset, and ``"bytes"``,
+    the size :func:`swin_block_backward` allocates."""
     B, H, W, C = x.shape
+    if variant(window_size, C, num_heads, hidden) == "generic":
+        return _generic_layout(B, H, W, C, num_heads, hidden, window_size,
+                               int(x.dtype == torch.bfloat16), True)
     k = backward_plan(x, num_heads, hidden, mask)["kernels"]
     off = _scratch_layout(B, H, W, C, num_heads, hidden, k["attention"]["windows_per_block"],
                           k["weights"]["tokens_per_block"], x.dtype == torch.bfloat16)
@@ -582,34 +801,41 @@ def backward_scratch_layout(x: torch.Tensor, num_heads: int, hidden: int,
 
 
 def _check_cuda_args(x, params, mask, num_heads, window_size, shift):
-    if window_size * window_size != WINDOW_TOKENS:
-        raise ValueError(f"the kernel takes {WINDOW}x{WINDOW} windows ({WINDOW_TOKENS} "
-                         f"tokens); got window_size={window_size}")
+    """Raises on what no kernel takes.  The envelope: windows ws = 1..12
+    dividing H and W, C = heads x hd with hd <= 64 and C <= 384, an MLP width
+    1..4 C, 0 <= shift < ws, fp32 or bf16 x, fp32 contiguous 16-byte aligned
+    parameters of the block's shapes, a mask (nW, ws^2, ws^2)."""
+    ws = window_size
+    if not 1 <= ws <= MAX_WINDOW:
+        raise ValueError(f"the kernels take windows of 1..{MAX_WINDOW} tokens a side; got "
+                         f"window_size={ws}")
     if x.dim() != 4:
         raise ValueError(f"x must be (B, H, W, C); got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16; got {x.dtype}")
     B, H, W, C = x.shape
-    if B == 0 or H % WINDOW or W % WINDOW:
-        raise ValueError(f"H={H} and W={W} must be multiples of {WINDOW}, B={B} positive")
-    if C not in CHANNELS:
-        raise ValueError(f"the kernel takes C in {CHANNELS}; got {C}")
-    if C % num_heads or C // num_heads not in HEAD_DIMS:
-        raise ValueError(f"head dim C/num_heads = {C}/{num_heads} not in {HEAD_DIMS}")
-    if not 0 <= shift < WINDOW:
-        raise ValueError(f"shift must be in [0, {WINDOW}); got {shift}")
+    if B == 0 or H == 0 or W == 0 or H % ws or W % ws:
+        raise ValueError(f"H={H} and W={W} must be multiples of {ws} (the window), B={B} "
+                         "positive")
+    if not 1 <= C <= MAX_CHANNELS:
+        raise ValueError(f"the kernels take C <= {MAX_CHANNELS}; got {C}")
+    if num_heads < 1 or C % num_heads or C // num_heads > MAX_HEAD_DIM:
+        raise ValueError(f"head dim C/num_heads = {C}/{num_heads} must be a whole number "
+                         f"1..{MAX_HEAD_DIM}")
+    if not 0 <= shift < ws:
+        raise ValueError(f"shift must be in [0, {ws}); got {shift}")
     if len(params) != len(PARAM_NAMES):
         raise ValueError(f"params must be {PARAM_NAMES}")
     hidden = params[PARAM_NAMES.index("c1")].shape[0]
-    if hidden % C or not 1 <= hidden // C <= MAX_MLP_RATIO:
-        raise ValueError(f"the MLP width {hidden} must be C={C} times 1..{MAX_MLP_RATIO}")
-    N = WINDOW_TOKENS
+    if not 1 <= hidden <= MAX_MLP_RATIO * C:
+        raise ValueError(f"the MLP width {hidden} must be 1..{MAX_MLP_RATIO} x C={C}")
+    N = ws * ws
     shapes = {"g1": (C,), "b1": (C,), "wq": (3 * C, C), "bq": (3 * C,),
               "bias": (num_heads, N, N), "wp": (C, C), "bp": (C,), "g2": (C,), "b2": (C,),
               "w1": (hidden, C), "c1": (hidden,), "w2": (C, hidden), "c2": (C,)}
     named = [("x", x, None)] + [(n, t, shapes[n]) for n, t in zip(PARAM_NAMES, params)]
     if mask is not None:
-        named.append(("mask", mask, ((H // WINDOW) * (W // WINDOW), N, N)))
+        named.append(("mask", mask, ((H // ws) * (W // ws), N, N)))
     for name, t, shape in named:
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -627,38 +853,68 @@ def _check_dy(x, dy):
         raise ValueError("dy must be contiguous and 16-byte aligned")
 
 
-def _forward(x, params, mask, num_heads, window_size, shift):
+def _takes_generic(x, params, num_heads, window_size, generic: bool) -> bool:
+    """Whether a checked launch goes to the generic library: by shape
+    (:func:`variant`), or forced by the private ``_generic`` argument."""
+    hidden = params[PARAM_NAMES.index("c1")].shape[0]
+    return generic or variant(window_size, x.shape[3], num_heads, hidden) == "generic"
+
+
+def _count(fn, x, num_heads, mask, generic: bool) -> None:
+    fn.launches += 1
+    fn.launches_by_shape[_shape_key(x, num_heads, mask)] += 1
+    fn.launches_by_variant["generic" if generic else "tuned"] += 1
+
+
+def _pointers(tensors) -> "ctypes.Array":
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _forward(x, params, mask, num_heads, window_size, shift, generic=False):
     if x.device.type == "cpu":
         return swin_block_reference(x, params, mask, num_heads=num_heads,
                                     window_size=window_size, shift=shift)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check_cuda_args(x, params, mask, num_heads, window_size, shift)
+    generic = _takes_generic(x, params, num_heads, window_size, generic)
     B, H, W, C = x.shape
     hidden = params[PARAM_NAMES.index("c1")].shape[0]
     y = torch.empty_like(x)
+    scale = _scale_io(C // num_heads, x.dtype)
+    bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
-        err = _library().dmh_swin_block_fwd(
-            x.data_ptr(), y.data_ptr(), *(t.data_ptr() for t in params[:5]),
-            mask.data_ptr() if mask is not None else None,
-            *(t.data_ptr() for t in params[5:]), B, H, W, C, num_heads, hidden, shift,
-            _scale_io(C // num_heads, x.dtype), int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if generic:
+            nbytes = generic_forward_plan(x, num_heads, hidden, window_size)["scratch_bytes"]
+            scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+            err = _library_any().dmh_swin_block_any_fwd(
+                x.data_ptr(), y.data_ptr(), _pointers(params),
+                mask.data_ptr() if mask is not None else None, scratch.data_ptr(), nbytes,
+                B, H, W, C, num_heads, hidden, window_size, shift, scale, bf16, stream)
+        else:
+            err = _library().dmh_swin_block_fwd(
+                x.data_ptr(), y.data_ptr(), *(t.data_ptr() for t in params[:5]),
+                mask.data_ptr() if mask is not None else None,
+                *(t.data_ptr() for t in params[5:]), B, H, W, C, num_heads, hidden, shift,
+                scale, bf16, stream)
     if err != 0:
         raise RuntimeError(f"swin block kernel launch failed: cudaError {err}")
-    swin_block.launches += 1
-    swin_block.launches_by_shape[_shape_key(x, num_heads, mask)] += 1
+    _count(swin_block, x, num_heads, mask, generic)
     return y
 
 
 def swin_block_backward(x: torch.Tensor, params, mask: "torch.Tensor | None", dy: torch.Tensor,
-                        *, num_heads: int, window_size: int = WINDOW, shift: int = 0):
+                        *, num_heads: int, window_size: int = WINDOW, shift: int = 0,
+                        _generic: bool = False):
     """Whole Swin block backward: ``(dx, grads)`` as
     :func:`swin_block_backward_reference` gives them.
 
-    CUDA tensors go through the hand-written kernels, five launches planned
-    by :func:`backward_plan` (``launches`` counts each backward); CPU tensors
-    through :func:`swin_block_backward_reference`.
+    CUDA tensors go through the hand-written kernels of the shape's variant
+    (``_generic`` forces the generic one): five launches planned by
+    :func:`backward_plan` at the tuned shapes, thirteen elsewhere
+    (``launches`` counts each backward, ``launches_by_variant`` by
+    variant); CPU tensors through :func:`swin_block_backward_reference`.
     """
     if x.device.type == "cpu":
         return swin_block_backward_reference(x, params, mask, dy, num_heads=num_heads,
@@ -667,27 +923,37 @@ def swin_block_backward(x: torch.Tensor, params, mask: "torch.Tensor | None", dy
         raise ValueError(f"unsupported device {x.device}")
     _check_cuda_args(x, params, mask, num_heads, window_size, shift)
     _check_dy(x, dy)
+    generic = _takes_generic(x, params, num_heads, window_size, _generic)
     B, H, W, C = x.shape
     hidden = params[PARAM_NAMES.index("c1")].shape[0]
-    kernels = backward_plan(x, num_heads, hidden, mask)["kernels"]
-    nbytes = backward_scratch_layout(x, num_heads, hidden, mask)["bytes"]
     dx = torch.empty_like(x)
     grads = tuple(torch.empty_like(p) for p in params)  # the kernels write every element
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     hd = C // num_heads
+    bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
-        err = _library().dmh_swin_block_bwd(
-            x.data_ptr(), dy.data_ptr(), dx.data_ptr(), *(t.data_ptr() for t in params[:5]),
-            mask.data_ptr() if mask is not None else None,
-            *(t.data_ptr() for t in params[5:]), *(g.data_ptr() for g in grads),
-            scratch.data_ptr(), nbytes, B, H, W, C, num_heads, hidden, shift,
-            _scale_io(hd, x.dtype), hd**-0.5, kernels["attention"]["windows_per_block"],
-            kernels["weights"]["tokens_per_block"], int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if generic:
+            nbytes = generic_backward_plan(x, num_heads, hidden, window_size)["scratch_bytes"]
+            scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+            err = _library_any().dmh_swin_block_any_bwd(
+                x.data_ptr(), dy.data_ptr(), dx.data_ptr(), _pointers(params),
+                mask.data_ptr() if mask is not None else None, _pointers(grads),
+                scratch.data_ptr(), nbytes, B, H, W, C, num_heads, hidden, window_size, shift,
+                _scale_io(hd, x.dtype), hd**-0.5, bf16, stream)
+        else:
+            kernels = backward_plan(x, num_heads, hidden, mask)["kernels"]
+            nbytes = backward_scratch_layout(x, num_heads, hidden, mask)["bytes"]
+            scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+            err = _library().dmh_swin_block_bwd(
+                x.data_ptr(), dy.data_ptr(), dx.data_ptr(), *(t.data_ptr() for t in params[:5]),
+                mask.data_ptr() if mask is not None else None,
+                *(t.data_ptr() for t in params[5:]), *(g.data_ptr() for g in grads),
+                scratch.data_ptr(), nbytes, B, H, W, C, num_heads, hidden, shift,
+                _scale_io(hd, x.dtype), hd**-0.5, kernels["attention"]["windows_per_block"],
+                kernels["weights"]["tokens_per_block"], bf16, stream)
     if err != 0:
         raise RuntimeError(f"swin block backward kernel launch failed: cudaError {err}")
-    swin_block_backward.launches += 1
-    swin_block_backward.launches_by_shape[_shape_key(x, num_heads, mask)] += 1
+    _count(swin_block_backward, x, num_heads, mask, generic)
     return dx, grads
 
 
@@ -698,6 +964,7 @@ def _shape_key(x, num_heads, mask) -> tuple:
 
 swin_block_backward.launches = 0
 swin_block_backward.launches_by_shape = collections.Counter()
+swin_block_backward.launches_by_variant = collections.Counter()
 
 
 class SwinBlockFunction(torch.autograd.Function):
@@ -707,34 +974,40 @@ class SwinBlockFunction(torch.autograd.Function):
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
-    def forward(ctx, x, mask, num_heads, window_size, shift, *params):
+    def forward(ctx, x, mask, num_heads, window_size, shift, generic, *params):
         ctx.save_for_backward(x, mask, *params)
-        ctx.config = (num_heads, window_size, shift)
-        return _forward(x, params, mask, num_heads, window_size, shift)
+        ctx.config = (num_heads, window_size, shift, generic)
+        return _forward(x, params, mask, num_heads, window_size, shift, generic)
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, gout):
         x, mask, *params = ctx.saved_tensors
-        num_heads, window_size, shift = ctx.config
+        num_heads, window_size, shift, generic = ctx.config
         dx, grads = swin_block_backward(x, params, mask, gout.contiguous(), num_heads=num_heads,
-                                        window_size=window_size, shift=shift)
-        return (dx, None, None, None, None, *grads)
+                                        window_size=window_size, shift=shift, _generic=generic)
+        return (dx, None, None, None, None, None, *grads)
 
 
 def swin_block(x: torch.Tensor, params, mask: "torch.Tensor | None" = None, *,
-               num_heads: int, window_size: int = WINDOW, shift: int = 0) -> torch.Tensor:
+               num_heads: int, window_size: int = WINDOW, shift: int = 0,
+               _generic: bool = False) -> torch.Tensor:
     """One whole Swin block on x (B, H, W, C) fp32 or bf16 -> (B, H, W, C),
     differentiable in x and the parameters.
 
     CPU tensors go through the plain versions; CUDA tensors through the
-    hand-written kernels (``launches`` counts each forward launch,
-    ``swin_block_backward.launches`` each backward one, and each has the
-    same counts by shape in ``launches_by_shape``), which take 8x8
-    windows, C in 24, 48, 96, head dims 4-32 and an MLP of 1-4 times C.
+    hand-written kernels of the shape's variant (:func:`variant`: the tuned
+    ones at 8x8 windows, C in 24, 48, 96, head dims 4-32 and an MLP of 1-4
+    times C; the generic ones at every other shape with windows up to 12x12,
+    C = heads x hd up to 384 with hd <= 64 and an MLP of 1..4 C; the private
+    ``_generic`` forces the generic one at a tuned shape).  ``launches``
+    counts each forward call, ``swin_block_backward.launches`` each backward
+    one, and each has the same counts by shape in ``launches_by_shape`` and
+    by variant in ``launches_by_variant``.
     """
-    return SwinBlockFunction.apply(x, mask, num_heads, window_size, shift, *params)
+    return SwinBlockFunction.apply(x, mask, num_heads, window_size, shift, _generic, *params)
 
 
 swin_block.launches = 0
 swin_block.launches_by_shape = collections.Counter()
+swin_block.launches_by_variant = collections.Counter()

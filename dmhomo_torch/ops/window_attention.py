@@ -19,12 +19,18 @@ launch adds the slabs in a fixed order (:func:`window_attention_backward_split_r
 is that split as plain PyTorch); :func:`launch_plan` gives both kernels'
 grids, shared memory and partials from the shapes alone.
 
-The CUDA library is built from the sources in ``dmhomo_torch/csrc/`` with
-``nvcc`` at first use into ``build/kernels/`` of the checkout, and called
-through a plain C interface with ``ctypes``.  :func:`window_attention` runs
-the plain versions for CPU tensors only (both directions: the explicit
-backward, not autograd of the plain forward); for a CUDA tensor it launches
-the kernels or raises.
+Two variants, chosen by shape alone (:func:`variant`): the tuned library
+(``csrc/window_attention.cu``) at the shipped 8x8 windows (N = 64) and head
+dims 4, 8, 16, 32; the generic one (``csrc/window_attention_any.cu``) at every
+other shape of the envelope the Pallas kernels take here: any N up to 144
+(windows up to 12x12) and any head dim up to 64 (its plan:
+:func:`generic_launch_plan`).  A shape outside the envelope raises before
+any launch.  Each CUDA library is built from its source in
+``dmhomo_torch/csrc/`` with ``nvcc`` at first use into ``build/kernels/`` of
+the checkout, and called through a plain C interface with ``ctypes``.
+:func:`window_attention` runs the plain versions for CPU tensors only (both
+directions: the explicit backward, not autograd of the plain forward); for a
+CUDA tensor it launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -43,8 +49,13 @@ from dmhomo_torch.ops.build import tensor_core_instructions as tensor_core_instr
 CLIP = 60.0
 WINDOW_TOKENS = 64  # 8x8 windows
 HEAD_DIMS = (4, 8, 16, 32)
+# the envelope of the generic variant: windows up to 12x12 (the largest
+# published Swin window), head dims up to 64
+MAX_WINDOW_TOKENS = 144
+MAX_HEAD_DIM = 64
 
 _SOURCE = CSRC / "window_attention.cu"
+_SOURCE_ANY = CSRC / "window_attention_any.cu"
 
 # the launch plan's constants, as csrc/window_attention.cu has them
 SMS = 132  # streaming multiprocessors of an H100 SXM
@@ -238,7 +249,8 @@ def _launch_plan(Bn: int, C: int, heads: int, nW: int, itemsize: int, backward: 
         per = -(-Bn // chunks)
         chunks = -(-Bn // per)
         return {"grid": (heads, chunks), "threads": TEAM, "smem": smem, "heads_per_block": 1,
-                "windows_per_block": per, "blocks_per_sm": per_sm, "partials": chunks}
+                "windows_per_block": per, "blocks_per_sm": per_sm, "partials": chunks,
+                "variant": "tuned"}
     hg = _fwd_heads(hd, itemsize)
     groups = -(-heads // hg)
     rows = _fwd_rows(hd, itemsize)
@@ -262,23 +274,68 @@ def _launch_plan(Bn: int, C: int, heads: int, nW: int, itemsize: int, backward: 
     chunks = -(-n_per // per)
     return {"grid": (n_mask * chunks, groups), "threads": threads, "smem": smem,
             "heads_per_block": hg, "windows_per_block": per, "blocks_per_sm": per_sm,
-            "partials": 0}
+            "partials": 0, "variant": "tuned"}
+
+
+def variant(N: int, hd: int) -> str:
+    """The kernels a shape takes: ``"tuned"`` at N = 64 tokens and a head dim
+    in ``HEAD_DIMS``, ``"generic"`` at every other shape."""
+    return "tuned" if N == WINDOW_TOKENS and hd in HEAD_DIMS else "generic"
+
+
+# the generic variant's plan constants, as csrc/window_attention_any.cuh has them
+ANY_THREADS = 256
+ANY_MAX_ROUND = 16  # windows a block stages per round at most
+ANY_ROUND_ELEMS = 1024  # a round's logits the rule of windows per round aims at
+
+
+@functools.lru_cache(maxsize=None)
+def generic_launch_plan(Bn: int, N: int, hd: int, heads: int, backward: bool) -> dict:
+    """How a generic launch goes for Bn windows of N tokens and ``heads`` heads
+    of ``hd``, from the shapes alone, as ``csrc/window_attention_any.cuh``
+    computes it: ``grid`` (chunks of windows, heads), ``threads``, dynamic
+    shared memory ``smem`` (bytes: G windows' e tile and q, k, v (and gout)
+    slices in fp32), ``windows_per_round`` (G), ``windows_per_block``,
+    ``blocks_per_sm`` by shared memory and threads, the backward's dbias
+    ``partials`` (one slab per chunk; 0 for the forward) and ``ld``, the
+    slices' row stride in floats.  Any dtype: the tiles are fp32."""
+    G = max(1, min(ANY_MAX_ROUND, ANY_ROUND_ELEMS // (N * N)))
+    ld = hd + 1 if hd < MAX_HEAD_DIM else hd
+    if backward:
+        smem = 4 * G * (N * N + 4 * N * ld + 2 * N)
+    else:
+        smem = 4 * G * (N * N + 3 * N * ld + N)
+    per_sm = min(_smem_blocks(smem), 2048 // ANY_THREADS)
+    rounds = -(-Bn // G)
+    chunks = SMS * per_sm * (1 if backward else FWD_WAVES) // heads
+    chunks = max(1, min(chunks, rounds))
+    per = -(-Bn // chunks)
+    per = -(-per // G) * G
+    chunks = -(-Bn // per)
+    return {"grid": (chunks, heads), "threads": ANY_THREADS, "smem": smem, "heads_per_block": 1,
+            "windows_per_round": G, "windows_per_block": per, "blocks_per_sm": per_sm,
+            "partials": chunks if backward else 0, "ld": ld, "variant": "generic"}
 
 
 def launch_plan(qkv: torch.Tensor, num_heads: int, backward: bool = False,
                 mask: "torch.Tensor | None" = None) -> dict:
-    """How the forward (or backward) kernel launches for qkv (Bn, 64, 3C) on
-    the card, from the shapes alone, as ``csrc/window_attention.cu``
-    computes it: ``grid``, ``threads``, dynamic shared memory ``smem``
-    (bytes), ``heads_per_block``, ``windows_per_block``, ``blocks_per_sm``
-    by shared memory and the launch bounds (the registers may allow fewer),
-    and the backward's dbias ``partials`` (slabs, one per chunk of windows,
-    added by a second launch where there are more than one; 0 for the
-    forward).  The library computes its launches itself; a ``gpu`` test and
+    """How the forward (or backward) kernel launches for qkv (Bn, N, 3C) on
+    the card, from the shapes alone.  At the tuned shapes (:func:`variant`),
+    as ``csrc/window_attention.cu`` computes it: ``grid``, ``threads``,
+    dynamic shared memory ``smem`` (bytes), ``heads_per_block``,
+    ``windows_per_block``, ``blocks_per_sm`` by shared memory and the launch
+    bounds (the registers may allow fewer), and the backward's dbias
+    ``partials`` (slabs, one per chunk of windows, added by a second launch
+    where there are more than one; 0 for the forward); elsewhere
+    :func:`generic_launch_plan`.  ``variant`` says which.  The
+    libraries compute their launches themselves; a ``gpu`` test and
     ``chip_smoke.py`` hold this plan to the library's (:func:`library_plan`)
     key for key."""
-    Bn, _, C3 = qkv.shape
-    return _launch_plan(Bn, C3 // 3, num_heads, 0 if mask is None else mask.shape[0],
+    Bn, N, C3 = qkv.shape
+    C = C3 // 3
+    if variant(N, C // num_heads) == "generic":
+        return generic_launch_plan(Bn, N, C // num_heads, num_heads, backward)
+    return _launch_plan(Bn, C, num_heads, 0 if mask is None else mask.shape[0],
                         qkv.element_size(), backward)
 
 
@@ -288,9 +345,32 @@ def build() -> Path:
     return build_library(_SOURCE, "dmh_window_attention")
 
 
-def build_log() -> str:
+def build_generic() -> Path:
+    """Compile the generic variant's library (``csrc/window_attention_any.cu``
+    and its header) for sm_90a and return its path."""
+    return build_library(_SOURCE_ANY, "dmh_window_attention_any")
+
+
+def build_log(generic: bool = False) -> str:
     """nvcc's ptxas report (registers, shared memory, spills) of the build."""
-    return build().with_suffix(".log").read_text()
+    return (build_generic() if generic else build()).with_suffix(".log").read_text()
+
+
+@functools.lru_cache(maxsize=None)
+def _library_any() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_generic()))
+    fn = lib.dmh_window_attention_any_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.dmh_window_attention_any_bwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.dmh_window_attention_any_plan
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -312,6 +392,8 @@ def _library() -> ctypes.CDLL:
 
 _PLAN_KEYS = ("grid_x", "grid_y", "threads", "smem", "heads_per_block", "windows_per_block",
               "blocks_per_sm", "partials")
+_ANY_PLAN_KEYS = ("grid_x", "grid_y", "threads", "smem", "windows_per_round",
+                  "windows_per_block", "blocks_per_sm", "partials", "ld")
 
 
 @functools.lru_cache(maxsize=None)
@@ -322,27 +404,46 @@ def _library_plan(Bn: int, C: int, heads: int, nW: int, bf16: bool, backward: bo
         raise RuntimeError(f"window attention plan refused: cudaError {err}")
     plan = dict(zip(_PLAN_KEYS, out))
     plan["grid"] = (plan.pop("grid_x"), plan.pop("grid_y"))
+    plan["variant"] = "tuned"
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _library_plan_any(Bn: int, N: int, C: int, heads: int, backward: bool) -> dict:
+    out = (ctypes.c_int * len(_ANY_PLAN_KEYS))()
+    err = _library_any().dmh_window_attention_any_plan(Bn, N, C, heads, int(backward), out)
+    if err != 0:
+        raise RuntimeError(f"window attention plan refused: cudaError {err}")
+    plan = dict(zip(_ANY_PLAN_KEYS, out))
+    plan["grid"] = (plan.pop("grid_x"), plan.pop("grid_y"))
+    plan.update(heads_per_block=1, variant="generic")
     return plan
 
 
 def library_plan(qkv: torch.Tensor, num_heads: int, backward: bool = False,
-                 mask: "torch.Tensor | None" = None) -> dict:
-    """The plan the library launches with at these shapes, with the keys of
-    :func:`launch_plan`; only the shapes and dtype of ``qkv`` and ``mask``
-    are read, so they may lie on the CPU."""
-    Bn, _, C3 = qkv.shape
-    return _library_plan(Bn, C3 // 3, num_heads, 0 if mask is None else mask.shape[0],
+                 mask: "torch.Tensor | None" = None, _generic: bool = False) -> dict:
+    """The plan the library of the shape's variant launches with, with the
+    keys of :func:`launch_plan`; only the shapes and dtype of ``qkv`` and
+    ``mask`` are read, so they may lie on the CPU."""
+    Bn, N, C3 = qkv.shape
+    C = C3 // 3
+    if _generic or variant(N, C // num_heads) == "generic":
+        return _library_plan_any(Bn, N, C, num_heads, backward)
+    return _library_plan(Bn, C, num_heads, 0 if mask is None else mask.shape[0],
                          qkv.dtype == torch.bfloat16, backward)
 
 
-def tensor_core_instructions() -> dict:
+def tensor_core_instructions(generic: bool = False) -> dict:
     """Tensor-core instructions (HMMA, HGMMA) in the built library's machine
     code of each kernel instantiation: ``(direction, dtype, hd, mask)`` ->
     count (``mask`` None for the backward, whose mask is a runtime
     argument).  The bf16 kernels run their products on tensor cores, the
-    fp32 ones on CUDA cores (TF32 off)."""
+    fp32 ones on CUDA cores (TF32 off).  With ``generic``, the generic
+    library's kernels, keyed ``(direction, dtype, "generic", None)`` (none
+    uses tensor cores)."""
     out = {}
-    for name, n in tensor_core_instructions_in(build(), "window_attention_").items():
+    lib = build_generic() if generic else build()
+    for name, n in tensor_core_instructions_in(lib, "window_attention_").items():
         key = kernel_key(name)
         if key is not None:
             out[key] = n
@@ -351,12 +452,18 @@ def tensor_core_instructions() -> dict:
     return out
 
 
-def atomic_instructions_by_kernel() -> dict:
+def atomic_instructions_by_kernel(generic: bool = False) -> dict:
     """Atomic instructions in the built library's machine code of every
     window-attention kernel (the forward's, the backward and its dbias
-    reduction): kernel name -> count."""
-    found = atomic_instructions(build(), "window_attention_")
-    if not all(any(part in n for n in found) for part in ("_fwd_", "_bwd_", "_dbias_")):
+    reduction): kernel name -> count.  With ``generic``, the generic
+    library's (forward, backward, the slabs' reduction)."""
+    if generic:
+        found = atomic_instructions(build_generic(), "window_attention_any_")
+        parts = ("_fwd_", "_bwd_", "_reduce_")
+    else:
+        found = atomic_instructions(build(), "window_attention_")
+        parts = ("_fwd_", "_bwd_", "_dbias_")
+    if not all(any(part in n for n in found) for part in parts):
         raise RuntimeError("the window-attention kernels are not in the library's machine code")
     return found
 
@@ -365,11 +472,18 @@ def atomic_instructions_by_kernel() -> dict:
 # MASK> (fp32), window_attention_bwd_kernel<T, HD>
 _KERNEL_NAME = re.compile(
     r"window_attention_(fwd|bwd)(?:_rows)?_kernelI(f|13__nv_bfloat16)?Li(\d+)E(?:Lb([01])E)?")
+# the generic wa_any::window_attention_any_{fwd,bwd}_kernel<T>
+_ANY_KERNEL_NAME = re.compile(r"window_attention_any_(fwd|bwd)_kernelI(f|13__nv_bfloat16)E")
 
 
 def kernel_key(name: str):
-    """(direction, dtype, hd, mask or None) of a kernel's mangled name, or
-    None for the dbias reduction."""
+    """(direction, dtype, hd, mask or None) of a kernel's mangled name (hd
+    ``"generic"`` for the generic variant's), or None for the dbias
+    reductions."""
+    m = _ANY_KERNEL_NAME.search(name)
+    if m is not None:
+        return (m.group(1), "bfloat16" if m.group(2) == "13__nv_bfloat16" else "float32",
+                "generic", None)
     m = _KERNEL_NAME.search(name)
     if m is None:
         return None
@@ -378,14 +492,20 @@ def kernel_key(name: str):
 
 
 def _check_cuda_args(qkv, bias, mask, num_heads):
-    if qkv.dim() != 3 or qkv.shape[1] != WINDOW_TOKENS or qkv.shape[2] % 3:
-        raise ValueError(f"qkv must be (Bn, {WINDOW_TOKENS}, 3C); got {tuple(qkv.shape)}")
+    """Raises on what no kernel takes: N = 1..144 tokens, head dims 1..64,
+    fp32 or bf16, contiguous 16-byte aligned tensors, bias (heads, N, N) and
+    mask (nW, N, N) fp32, Bn a multiple of nW."""
+    if (qkv.dim() != 3 or not 1 <= qkv.shape[1] <= MAX_WINDOW_TOKENS or qkv.shape[2] % 3
+            or qkv.shape[0] == 0):
+        raise ValueError(f"qkv must be (Bn, N, 3C) with 1 <= N <= {MAX_WINDOW_TOKENS} "
+                         f"(windows up to 12x12); got {tuple(qkv.shape)}")
     if qkv.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"qkv must be float32 or bfloat16; got {qkv.dtype}")
     Bn, N, C3 = qkv.shape
     C = C3 // 3
-    if C % num_heads or C // num_heads not in HEAD_DIMS:
-        raise ValueError(f"head dim C/num_heads = {C}/{num_heads} not in {HEAD_DIMS}")
+    if num_heads < 1 or C % num_heads or not 1 <= C // num_heads <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim C/num_heads = {C}/{num_heads} must be a whole number "
+                         f"1..{MAX_HEAD_DIM}")
     tensors = [("qkv", qkv), ("bias", bias)] + ([("mask", mask)] if mask is not None else [])
     for name, t in tensors:
         if t.device != qkv.device:
@@ -413,25 +533,42 @@ def _check_gout(qkv, gout):
         raise ValueError("gout must be contiguous and 16-byte aligned")
 
 
-def _forward(qkv, bias, mask, num_heads):
+def _takes_generic(qkv, num_heads, generic: bool) -> bool:
+    """Whether a checked launch goes to the generic library: by shape
+    (:func:`variant`), or forced by the private ``_generic`` argument."""
+    N, C = qkv.shape[1], qkv.shape[2] // 3
+    return generic or variant(N, C // num_heads) == "generic"
+
+
+def _count(fn, qkv, num_heads, mask, generic: bool) -> None:
+    fn.launches += 1
+    fn.launches_by_shape[_shape_key(qkv, num_heads, mask)] += 1
+    fn.launches_by_variant["generic" if generic else "tuned"] += 1
+
+
+def _forward(qkv, bias, mask, num_heads, generic=False):
     if qkv.device.type == "cpu":
         return window_attention_reference(qkv, bias, mask, num_heads=num_heads)
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     _check_cuda_args(qkv, bias, mask, num_heads)
+    generic = _takes_generic(qkv, num_heads, generic)
     Bn, N, C3 = qkv.shape
     C = C3 // 3
     out = torch.empty((Bn, N, C), dtype=qkv.dtype, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        err = _library().dmh_window_attention_fwd(
-            qkv.data_ptr(), bias.data_ptr(), mask.data_ptr() if mask is not None else None,
-            out.data_ptr(), Bn, C, num_heads, mask.shape[0] if mask is not None else 0,
-            _scale_io(C // num_heads, qkv.dtype), int(qkv.dtype == torch.bfloat16),
+    nW = mask.shape[0] if mask is not None else 0
+    args = (qkv.data_ptr(), bias.data_ptr(), mask.data_ptr() if mask is not None else None,
+            out.data_ptr(), Bn)
+    tail = (_scale_io(C // num_heads, qkv.dtype), int(qkv.dtype == torch.bfloat16),
             torch.cuda.current_stream(qkv.device).cuda_stream)
+    with torch.cuda.device(qkv.device):
+        if generic:
+            err = _library_any().dmh_window_attention_any_fwd(*args, N, C, num_heads, nW, *tail)
+        else:
+            err = _library().dmh_window_attention_fwd(*args, C, num_heads, nW, *tail)
     if err != 0:
         raise RuntimeError(f"window attention kernel launch failed: cudaError {err}")
-    window_attention.launches += 1
-    window_attention.launches_by_shape[_shape_key(qkv, num_heads, mask)] += 1
+    _count(window_attention, qkv, num_heads, mask, generic)
     return out
 
 
@@ -449,12 +586,14 @@ def _scale_io(hd: int, dtype: torch.dtype) -> float:
 
 def window_attention_backward(qkv: torch.Tensor, bias: torch.Tensor,
                               mask: "torch.Tensor | None", gout: torch.Tensor, *,
-                              num_heads: int):
-    """Window attention backward: (dqkv (Bn, 64, 3C), dbias (h, 64, 64) fp32).
+                              num_heads: int, _generic: bool = False):
+    """Window attention backward: (dqkv (Bn, N, 3C), dbias (h, N, N) fp32).
 
-    CUDA tensors go through the hand-written kernels (``launches`` counts
-    each call, ``launches_by_shape`` the same by :func:`_shape_key`); CPU
-    tensors through :func:`window_attention_backward_reference`.
+    CUDA tensors go through the hand-written kernels of the shape's variant
+    (``_generic`` forces the generic one; ``launches`` counts each call,
+    ``launches_by_shape`` the same by :func:`_shape_key`,
+    ``launches_by_variant`` by variant); CPU tensors through
+    :func:`window_attention_backward_reference`.
     """
     if qkv.device.type == "cpu":
         return window_attention_backward_reference(qkv, bias, mask, gout, num_heads=num_heads)
@@ -462,29 +601,34 @@ def window_attention_backward(qkv: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"unsupported device {qkv.device}")
     _check_cuda_args(qkv, bias, mask, num_heads)
     _check_gout(qkv, gout)
+    generic = _takes_generic(qkv, num_heads, _generic)
     Bn, N, C3 = qkv.shape
     C = C3 // 3
     dqkv = torch.empty_like(qkv)
     hd = C // num_heads
+    nW = mask.shape[0] if mask is not None else 0
     with torch.cuda.device(qkv.device):
         # the blocks' dbias slabs, summed in a fixed order into slab 0 by the
         # library's second launch
-        slabs = library_plan(qkv, num_heads, True, mask)["partials"]
+        slabs = library_plan(qkv, num_heads, True, mask, generic)["partials"]
         dbias = torch.empty((slabs, num_heads, N, N), dtype=torch.float32, device=qkv.device)
-        err = _library().dmh_window_attention_bwd(
-            qkv.data_ptr(), bias.data_ptr(), mask.data_ptr() if mask is not None else None,
-            gout.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(), Bn, C, num_heads,
-            mask.shape[0] if mask is not None else 0, _scale_io(hd, qkv.dtype), hd**-0.5,
-            int(qkv.dtype == torch.bfloat16), torch.cuda.current_stream(qkv.device).cuda_stream)
+        args = (qkv.data_ptr(), bias.data_ptr(), mask.data_ptr() if mask is not None else None,
+                gout.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(), Bn)
+        tail = (_scale_io(hd, qkv.dtype), hd**-0.5, int(qkv.dtype == torch.bfloat16),
+                torch.cuda.current_stream(qkv.device).cuda_stream)
+        if generic:
+            err = _library_any().dmh_window_attention_any_bwd(*args, N, C, num_heads, nW, *tail)
+        else:
+            err = _library().dmh_window_attention_bwd(*args, C, num_heads, nW, *tail)
     if err != 0:
         raise RuntimeError(f"window attention backward kernel launch failed: cudaError {err}")
-    window_attention_backward.launches += 1
-    window_attention_backward.launches_by_shape[_shape_key(qkv, num_heads, mask)] += 1
+    _count(window_attention_backward, qkv, num_heads, mask, generic)
     return dqkv, dbias[0]  # the slabs' sum; autograd frees the buffer once it is taken
 
 
 window_attention_backward.launches = 0
 window_attention_backward.launches_by_shape = collections.Counter()
+window_attention_backward.launches_by_variant = collections.Counter()
 
 
 class WindowAttentionFunction(torch.autograd.Function):
@@ -494,34 +638,39 @@ class WindowAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
-    def forward(ctx, qkv, bias, mask, num_heads):
+    def forward(ctx, qkv, bias, mask, num_heads, generic):
         ctx.save_for_backward(qkv, bias, mask)
-        ctx.num_heads = num_heads
-        return _forward(qkv, bias, mask, num_heads)
+        ctx.config = (num_heads, generic)
+        return _forward(qkv, bias, mask, num_heads, generic)
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, gout):
         qkv, bias, mask = ctx.saved_tensors
+        num_heads, generic = ctx.config
         # the gradient out of the output projection may be a strided view
         dqkv, dbias = window_attention_backward(qkv, bias, mask, gout.contiguous(),
-                                                num_heads=ctx.num_heads)
-        return dqkv, dbias, None, None
+                                                num_heads=num_heads, _generic=generic)
+        return dqkv, dbias, None, None, None
 
 
 def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
                      mask: "torch.Tensor | None" = None, *,
-                     num_heads: int) -> torch.Tensor:
-    """Window attention, (Bn, 64, 3C) -> (Bn, 64, C), differentiable in qkv
+                     num_heads: int, _generic: bool = False) -> torch.Tensor:
+    """Window attention, (Bn, N, 3C) -> (Bn, N, C), differentiable in qkv
     and bias.
 
-    CUDA tensors go through the hand-written kernels (``launches`` counts
+    CUDA tensors go through the hand-written kernels of the shape's variant
+    (:func:`variant`; the private ``_generic`` forces the generic one at a
+    tuned shape, to hold the two against each other): ``launches`` counts
     each forward call, ``window_attention_backward.launches`` each backward
-    one, and each has the same counts by shape in ``launches_by_shape``);
-    CPU tensors through the plain versions.
+    one, and each has the same counts by shape in ``launches_by_shape`` and
+    by variant in ``launches_by_variant``.  CPU tensors go through the plain
+    versions.
     """
-    return WindowAttentionFunction.apply(qkv, bias, mask, num_heads)
+    return WindowAttentionFunction.apply(qkv, bias, mask, num_heads, _generic)
 
 
 window_attention.launches = 0
 window_attention.launches_by_shape = collections.Counter()
+window_attention.launches_by_variant = collections.Counter()

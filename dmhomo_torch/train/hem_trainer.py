@@ -85,6 +85,7 @@ class StepGraph:
     losses: dict
     launches: dict
     launches_by_shape: dict
+    launches_by_variant: dict  # wrapper name -> {"tuned": n, "generic": n}
 
 
 class HEMTrainer:
@@ -329,7 +330,8 @@ class HEMTrainer:
         from its memory pool (under a process group they are the flat
         buffer's views, zeroed and all-reduced inside the graph)."""
         inputs = {k: v.clone() for k, v in batch.items()}
-        before = {fn.__name__: (fn.launches, collections.Counter(fn.launches_by_shape))
+        before = {fn.__name__: (fn.launches, collections.Counter(fn.launches_by_shape),
+                                collections.Counter(fn.launches_by_variant))
                   for fn in LAUNCH_COUNTERS}
         graph = torch.cuda.CUDAGraph()
         try:
@@ -337,17 +339,20 @@ class HEMTrainer:
                 losses = self._forward_backward(inputs)
                 self._adam_step()
         finally:
-            launches, by_shape = {}, {}
+            launches, by_shape, by_variant = {}, {}, {}
             for fn in LAUNCH_COUNTERS:
-                n, shapes = before[fn.__name__]
+                n, shapes, variants = before[fn.__name__]
                 launches[fn.__name__] = fn.launches - n
                 by_shape[fn.__name__] = fn.launches_by_shape - shapes
+                by_variant[fn.__name__] = fn.launches_by_variant - variants
                 # nothing ran while the step was captured: the counters count
                 # launches that run, so they go back to where they were
                 fn.launches = n
-                fn.launches_by_shape.clear()
-                fn.launches_by_shape.update(shapes)
-        return StepGraph(graph, inputs, losses, launches, by_shape)
+                for counter, old in ((fn.launches_by_shape, shapes),
+                                     (fn.launches_by_variant, variants)):
+                    counter.clear()
+                    counter.update(old)
+        return StepGraph(graph, inputs, losses, launches, by_shape, by_variant)
 
     # -- eval ---------------------------------------------------------------
 

@@ -291,13 +291,13 @@ def _check_case(case):
 
 @pytest.mark.parametrize("case, match", [
     (dict(), None),
-    (dict(C=32, heads=4), "C in"),
+    (dict(C=392, heads=4), "C <= 384"),
     (dict(heads=5), "head dim"),
     (dict(H=44), "multiples of 8"),
-    (dict(window_size=4), "8x8 windows"),
+    (dict(window_size=13), "window"),
     (dict(shift=8), "shift must be"),
     (dict(mask_rows=44), "mask must be"),
-    (dict(hidden=480), "MLP width"),
+    (dict(hidden=385), "MLP width"),
     (dict(dtype=torch.float16), "float32 or bfloat16"),
     (dict(param_dtype=torch.float64), "g1 must be float32"),
     (dict(strided=True), "wq must be contiguous"),
@@ -396,7 +396,7 @@ def test_cuda_refuses_without_falling_back(cuda_device, monkeypatch, what):
     """A grad-requiring input runs the backward kernel; an unsupported shape
     or a failed build raises; nothing runs the plain or the unfused path
     instead."""
-    C = 32 if what == "shape" else 48
+    C = 392 if what == "shape" else 48  # 392: above the envelope's 384
     x, params, _ = _inputs(3, 1, 16, 16, C, 4 if what == "shape" else 3, 3 * C, 0)
     xt = torch.from_numpy(x).to(cuda_device).requires_grad_(what != "build")
     if what == "grad":

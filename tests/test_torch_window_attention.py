@@ -127,7 +127,7 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 @pytest.mark.parametrize("case, match", [
-    (dict(qkv=(4, 49, 72)), "qkv must be"),
+    (dict(qkv=(4, 169, 72)), "qkv must be"),
     (dict(heads=5), "head dim"),
     (dict(bias=(2, 64, 64)), "bias must be"),
     (dict(mask=(3, 64, 64)), "not a multiple"),

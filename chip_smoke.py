@@ -247,11 +247,39 @@ Phases, each printing its results; any failure exits non-zero:
     N = 16; the unfused SwinBlock) and bound, per eval forward and per
     training step.  (b)'s children run beside (a).  ``--only-generic`` runs
     phases 1-2 and 28 alone.
+29. kernels 3 and 4 at any heads / dim_head (the generic variant,
+    ``csrc/linear_attention_any.cu``, built in phase 2) and the unconditional
+    twin (``models/unet_uncond.py``, ``diffusion/uncond.py``): (a) the
+    library's registers and spills, no atomic instruction in its machine
+    code; the generic kernels against their plain versions over heads
+    {1, 2, 3, 8, 16} x dim_head {8, 12, 24, 64, 128} (heads * dim_head <=
+    1024), each twice (fp32 and bf16) with N in {256, 1024, 16384}, C in
+    {64, 256, 512}, the three prenorm modes and both layouts cycling (LA_TOL),
+    a rerun bit-identical, the backward through ``LinearAttentionFunction``
+    against autograd of the plain version (LA_BWD_TOL); the generic variant
+    forced at (4, 32) against the tuned kernels; (b) the twin as shipped
+    (``UncondUNetConfig()``, ``UncondDiffusionConfig()``: dim 64, 128x128,
+    fp32, 250 DDIM steps; seeded random weights, the final conv at
+    UNCOND_OUT_SCALE): UNCOND_BS samples (finite, in [0, 1]; samples/s, ms
+    per DDIM step, peak memory, the idle share of a profiled step), 8 + 8
+    tuned launches per UNet forward and none of the plain version; 13 steps
+    of loss + backward + Adam (step ms, peak; the loss on a held batch with
+    fixed (t, noise) falls); one self-conditioned step; card vs CPU at
+    64x64, full width: one fp32 forward and one loss with its gradients
+    (phase 9's rule); (c) the same twin at attn (8, 64) with every launch
+    generic, its forward card vs CPU; the conditional DGM UNet at (8, 64):
+    one generation batch at ``dgm_sample``'s defaults (bf16) and 3
+    ``DGMTrainer`` steps of the shipped config, every launch generic, one
+    fp32 forward card vs CPU; (d) each generic kernel at the sites of (c)'s
+    sampling paths (the twin B=16 fp32, the conditional B=50 bf16): errors,
+    the median of 5 bursts, the plain version's time and the bound.
+    ``--only-uncond`` runs phases 1-2 and 29 alone.
 
 The line before the last is a JSON object with the six kernels' numbers
 (kernels 3 and 4 with their launches per DGM training step, the HEM
 kernels with their launches per replayed step, and under ``generic`` the
-generic variants' at window 4); the last is
+generic variants': the HEM kernels' at window 4, kernels 3 and 4 at the
+twin's (8, 64) sites); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -556,7 +584,7 @@ def phase_build():
     from dmhomo_torch.ops import window_attention as wa
 
     t0 = time.perf_counter()
-    builds = (wa.build, la.build, sb.build, wa.build_generic, sb.build_generic)
+    builds = (wa.build, la.build, sb.build, wa.build_generic, sb.build_generic, la.build_generic)
     with ThreadPoolExecutor(len(builds)) as pool:
         libs = list(pool.map(lambda build: build(), builds))
     for lib in libs:
@@ -1132,22 +1160,23 @@ def linear_attention_sites(cfg, image_size: int):
             + [(f"up_{i}", image_size >> (n - 1 - i), dims[n - i]) for i in range(n)])
 
 
-def linear_bound(x, pass_: int):
+def linear_bound(x, pass_: int, heads: int = 4, dim_head: int = 32):
     """(ms, 'bytes' | 'operations') of one pass at x (B, N, C): pass 1 reads
     x, the k and v columns of W and g and writes the (E, s) sums and the
     LayerNorm statistics; pass 2 reads x, the q columns, g, the statistics
-    and the sums and writes the (B, N, 128) output.  Operations: the
-    projection (2*C flops per token and column), and 2*4096 per token for
-    E (pass 1) or for eq . context (pass 2)."""
-    from dmhomo_torch.ops.linear_attention import HIDDEN, SUMS
+    and the sums and writes the (B, N, heads*dim_head) output.  Operations:
+    the projection (2*C flops per token and column), and 2*heads*dim_head^2
+    per token for E (pass 1) or for eq . context (pass 2)."""
+    from dmhomo_torch.ops.linear_attention import sums_width
 
     B, N, C = x.shape
     el = x.element_size()
-    cols = 2 * HIDDEN if pass_ == 1 else HIDDEN
-    nbytes = B * N * C * el + C * cols * 4 + C * 4 + B * SUMS * 4 + B * N * 8
+    hd = heads * dim_head
+    cols = 2 * hd if pass_ == 1 else hd
+    nbytes = B * N * C * el + C * cols * 4 + C * 4 + B * sums_width(heads, dim_head) * 4 + B * N * 8
     if pass_ == 2:
-        nbytes += B * N * HIDDEN * el
-    flops = 2.0 * B * N * (C * cols + 4096)
+        nbytes += B * N * hd * el
+    flops = 2.0 * B * N * (C * cols + heads * dim_head * dim_head)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[str(x.dtype).split(".")[-1]]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -4231,6 +4260,751 @@ def generic_site_times(dev, seed: int, w4: dict) -> dict:
     return {"totals": out, "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 29: kernels 3-4 at any heads / dim_head, and the unconditional twin
+# ---------------------------------------------------------------------------
+
+LA_ANY_HEADS = (1, 2, 3, 8, 16)
+LA_ANY_DIM_HEAD = (8, 12, 24, 64, 128)
+LA_ANY_N = (256, 1024, 16384)
+LA_ANY_C = (64, 256, 512)
+LA_ANY_B = 2
+# the twin at its shipped width (UncondUNetConfig(), UncondDiffusionConfig():
+# dim 64, mults (1, 2, 4, 8), 128x128, fp32, 1000 steps, 250 DDIM steps)
+UNCOND_BS = 16
+UNCOND_TRAIN_STEPS = 13
+UNCOND_LR = 1e-4
+UNCOND_GENERIC = (8, 64)  # (attn_heads, attn_dim_head) of the generic paths
+# the sampled twin's final_conv is drawn at this share of the LeCun scale:
+# with the full scale the untrained noise prediction carries the image with a
+# gain near 2 (the skip from init_conv through final_res_block's res_conv),
+# so the 250-step DDIM chain grows about 1.5x a step and overflows, the plain
+# version on the CPU as well (|img| 4.4 -> 2e19 in 80 steps, NaN at step 86);
+# at 0.1 it stays near 1.2 through all 250 steps at both (4, 32) and (8, 64)
+UNCOND_OUT_SCALE = 0.1
+UNCOND_CPU_SIZE, UNCOND_CPU_BATCH = 64, 2  # card vs CPU, full width
+GENERIC_DGM_STEPS = 3  # DGMTrainer steps of the conditional UNet at (8, 64)
+
+
+def la_any_cases():
+    """(heads, dim_head, N, C, dtype, prenorm, channel_major) of phase 29 (a):
+    every (heads, dim_head) of the grid inside the envelope twice, once per
+    dtype, with N, C, the prenorm mode and the layout cycling so that each
+    value meets each other."""
+    cases = []
+    grid = [(h, d) for h in LA_ANY_HEADS for d in LA_ANY_DIM_HEAD if h * d <= 1024]
+    for i, (h, d) in enumerate(grid):
+        for j, dtype in enumerate(("float32", "bfloat16")):
+            k = 2 * i + j
+            cases.append((h, d, LA_ANY_N[k % 3], LA_ANY_C[(k // 3) % 3], dtype,
+                          ("none", "gain", "stats")[(k // 2) % 3], k % 4 < 2))
+    return cases
+
+
+def _la_inputs(B, N, C, hd, dtype, channel_major, dev, gen):
+    import torch
+
+    x = 1.5 * torch.randn(B, C, N, generator=gen, device=dev) + 0.3
+    x = (x.transpose(1, 2) if channel_major else x.transpose(1, 2).contiguous())
+    w = torch.randn(C, 3 * hd, generator=gen, device=dev) / C**0.5
+    g = 0.5 + torch.rand(C, generator=gen, device=dev)
+    return x.to(getattr(torch, dtype)), w, g
+
+
+def phase_la_any_kernels(dev, seed: int) -> dict:
+    """(a): the generic kernels against their plain versions over the grid,
+    forward (both passes, reruns bit-identical) and the backward through
+    LinearAttentionFunction against autograd of the plain version; the
+    generic variant forced at (4, 32) against the tuned kernels; the
+    registers and spills of the library and the atomics in its machine
+    code."""
+    import torch
+
+    from dmhomo_torch.ops import linear_attention as la
+
+    t0 = time.perf_counter()
+    entry = None
+    for line in la.build_log(generic=True).splitlines():
+        m = re.search(r"linear_attention_any_(pass1|pass2|reduce)_kernel(?:I(f|13__nv_bfloat16)"
+                      r"Lb([01])E(?:Lb([01])E)?)?", line)
+        if m:
+            entry = m.group(1) + ("" if m.group(2) is None else
+                                  f" {'fp32' if m.group(2) == 'f' else 'bf16'} prenorm={m.group(3)}"
+                                  + ("" if m.group(4) is None else f" stats={m.group(4)}"))
+        elif entry and ("registers" in line or "spill" in line):
+            log(f"[la-any-build] {entry}: {line.split(':', 1)[-1].strip()}")
+    atomics = la.atomic_instructions_any()
+    for name, n in atomics.items():
+        log(f"[la-any-sass] {name[:90]}: {n} atomic instructions")
+    if any(atomics.values()):
+        raise SystemExit(f"atomic instructions in the generic linear-attention kernels: {atomics}")
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 29)
+    worst, rows = {}, []
+
+    def note(key, value):
+        worst[key] = max(worst.get(key, 0.0), value)
+
+    for heads, dh, N, C, dtype, prenorm, cm in la_any_cases():
+        hd = heads * dh
+        x, w, g = _la_inputs(LA_ANY_B, N, C, hd, dtype, cm, dev, gen)
+        pn = {"none": None, "gain": (g,), "stats": (*la.layer_norm_stats(x), g)}[prenorm]
+        c0 = (la.linear_attention_pass1.generic, la.linear_attention_pass2.generic)
+        got = la.linear_attention(x, w, heads, dh, prenorm=pn)
+        again = la.linear_attention(x, w, heads, dh, prenorm=pn)
+        launched = (la.linear_attention_pass1.generic - c0[0],
+                    la.linear_attention_pass2.generic - c0[1])
+        want = la.linear_attention_reference(x, w, heads, dh, prenorm=pn)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        same = torch.equal(got, again)
+        layout_ok = (got.stride(1) == 1) == cm
+        note(f"fwd {dtype}", err)
+        r = {"heads": heads, "dim_head": dh, "N": N, "C": C, "dtype": dtype, "prenorm": prenorm,
+             "channel_major": cm, "rel_err": err, "rerun_identical": same}
+        ok = (bool(torch.isfinite(got).all()) and err <= LA_TOL[dtype] and same and layout_ok
+              and launched == (2, 2))
+        bwd = ""
+        if prenorm != "stats":  # the Function takes no prenorm or (g,)
+            dout = torch.randn(got.shape, generator=gen, device=dev).to(x.dtype)
+            grads = []
+            for fn in (la.linear_attention, la.linear_attention_reference):
+                leaves = [x.detach().clone().requires_grad_(), w.clone().requires_grad_()]
+                if prenorm == "gain":
+                    leaves.append(g.clone().requires_grad_())
+                out = fn(leaves[0], leaves[1], heads, dh,
+                         prenorm=(leaves[2],) if prenorm == "gain" else None)
+                grads.append(torch.autograd.grad(out, leaves, dout))
+            berr = max(rel_err(a, b) for a, b in zip(*grads))
+            note(f"bwd {dtype}", berr)
+            r["bwd_rel_err"] = berr
+            ok = ok and berr <= LA_BWD_TOL[dtype]
+            bwd = f", backward {berr:.3g} (tol {LA_BWD_TOL[dtype]:g})"
+            del grads, dout
+        rows.append(r)
+        log(f"[la-any] heads={heads} dim_head={dh} N={N} C={C} {dtype} prenorm={prenorm} "
+            f"{'channel' if cm else 'token'}-major: rel err {err:.3g} (tol {LA_TOL[dtype]:g}){bwd}; "
+            f"rerun identical {same}; generic launches {launched} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"generic linear attention disagrees with its plain version: {r}")
+        del x, w, g, pn, got, again, want
+    # forced generic at the tuned shape, the UNet's call, against the tuned kernels
+    for N, C in ((16384, 64), (1024, 512)):
+        for dtype in ("float32", "bfloat16"):
+            x, w, g = _la_inputs(8, N, C, 128, dtype, True, dev, gen)
+            tuned = la.linear_attention(x, w, prenorm=(g,))
+            forced = la.linear_attention(x, w, prenorm=(g,), _generic=True)
+            want = la.linear_attention_reference(x, w, prenorm=(g,))
+            torch.cuda.synchronize()
+            e_f, e_t, e_ft = rel_err(forced, want), rel_err(tuned, want), rel_err(forced, tuned)
+            note(f"forced {dtype}", e_f)
+            log(f"[la-any] forced generic at (4, 32) N={N} C={C} B=8 {dtype}: rel err "
+                f"{e_f:.3g} against the plain version, the tuned kernels {e_t:.3g}; forced vs "
+                f"tuned {e_ft:.3g} (tol {LA_TOL[dtype]:g} each against the plain version)")
+            if not (e_f <= LA_TOL[dtype] and e_t <= LA_TOL[dtype]):
+                raise SystemExit("the forced generic or the tuned kernels miss the plain version")
+    log(f"[la-any] {len(rows)} grid cases, worst {json.dumps(worst)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"worst": worst, "rows": rows, "atomics": atomics}
+
+
+def la_sites(model) -> int:
+    """LinearAttention modules of a UNet: each runs both passes once a forward."""
+    from dmhomo_torch.models.unet import LinearAttention
+
+    return sum(isinstance(m, LinearAttention) for m in model.modules())
+
+
+def _reset_la_counters():
+    from dmhomo_torch.ops import linear_attention as la
+
+    for fn in (la.linear_attention_pass1, la.linear_attention_pass2):
+        fn.launches = fn.generic = fn.elementwise = 0
+
+
+def _la_read_counters():
+    from dmhomo_torch.ops import linear_attention as la
+
+    return {"pass1": la.linear_attention_pass1.launches,
+            "pass2": la.linear_attention_pass2.launches,
+            "generic1": la.linear_attention_pass1.generic,
+            "generic2": la.linear_attention_pass2.generic}
+
+
+def _check_la_counts(counts, want: int, generic: bool, what: str):
+    want_generic = want if generic else 0
+    if (counts["pass1"], counts["pass2"]) != (want, want) or \
+            (counts["generic1"], counts["generic2"]) != (want_generic, want_generic):
+        raise SystemExit(f"{what}: linear-attention launches {counts}, expected {want} of each "
+                         f"pass, {want_generic} of them generic")
+
+
+def _synthetic_images(n: int, size: int, seed: int, dev):
+    """n smooth (B, size, size, 3) images in [0, 1] made on the card from
+    ``seed``: bilinear-upsampled 8x8 noise through a sigmoid."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    low = torch.randn(n, 3, 8, 8, generator=gen, device=dev) * 1.5
+    img = torch.sigmoid(F.interpolate(low, size=(size, size), mode="bilinear",
+                                      align_corners=False))
+    return img.permute(0, 2, 3, 1).contiguous()
+
+
+def uncond_twin(dev, seed: int, heads: int, dim_head: int, tag: str) -> dict:
+    """(b) or (c): the twin at its shipped width with (heads, dim_head) (its
+    final_conv at UNCOND_OUT_SCALE of the random scale):
+    UNCOND_BS samples through the 250 DDIM steps (counts from zero just
+    before, read just after: 8 + 8 launches per UNet forward, generic
+    exactly where (heads, dim_head) != (4, 32), the plain version made to
+    raise), one profiled DDIM step for the idle share; UNCOND_TRAIN_STEPS
+    steps of loss + backward + Adam at UNCOND_BS, the loss on a held batch
+    with fixed (t, noise) before and after."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmhomo_torch.diffusion.schedules import ddim_time_pairs
+    from dmhomo_torch.diffusion.uncond import UncondDiffusionConfig, UnconditionalGaussianDiffusion
+    from dmhomo_torch.models.unet_uncond import UncondUNetConfig, build_uncond_unet
+    from dmhomo_torch.ops import linear_attention as la
+
+    generic = la.variant(heads, dim_head) == "generic"
+    cfg = dataclasses.replace(UncondUNetConfig(), attn_heads=heads, attn_dim_head=dim_head)
+    dcfg = UncondDiffusionConfig()
+    S, steps = dcfg.image_size, dcfg.sampling_timesteps
+    model = build_uncond_unet(cfg, device=dev, generator=torch.Generator().manual_seed(seed + 29))
+    with torch.no_grad():
+        model.final_conv.weight.mul_(UNCOND_OUT_SCALE)
+    gd = UnconditionalGaussianDiffusion(model, dcfg)
+    n_sites = la_sites(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    forwards = [0]
+    model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    shape = (UNCOND_BS, S, S, dcfg.channels)
+    # warm-up: two DDIM steps (cuDNN's algorithm choice, the kernels' first launches)
+    pairs = ddim_time_pairs(dcfg.timesteps, steps)
+    wgen = torch.Generator(device=dev).manual_seed(seed)
+    img, x_sc = torch.randn(shape, device=dev, generator=wgen), torch.zeros(shape, device=dev)
+    noise = torch.randn(shape, device=dev, generator=wgen)
+    with torch.inference_mode(), PlainLinearAttentionRefused():
+        for time_, time_next in pairs[:2]:
+            img, x_sc = gd.ddim_step(img, x_sc, int(time_), int(time_next), noise)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    # the main path: counts from zero just before it, read just after
+    _reset_la_counters()
+    forwards[0] = 0
+    t0 = time.perf_counter()
+    with PlainLinearAttentionRefused():
+        imgs = gd.sample(UNCOND_BS, generator=gen)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    counts = _la_read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    if forwards[0] != steps:
+        raise SystemExit(f"{tag}: {forwards[0]} UNet forwards in {steps} DDIM steps")
+    _check_la_counts(counts, n_sites * steps, generic, f"{tag} sampling")
+    if imgs.shape != shape or not bool(torch.isfinite(imgs).all()):
+        raise SystemExit(f"{tag}: samples not finite of shape {tuple(imgs.shape)}")
+    lo, hi = float(imgs.min()), float(imgs.max())
+    if lo < 0.0 or hi > 1.0:
+        raise SystemExit(f"{tag}: samples outside [0, 1]: {lo} .. {hi}")
+    inside = float(((imgs > 0) & (imgs < 1)).float().mean())  # not clipped by x0's [-1, 1]
+    step_ms = 1e3 * sample_s / steps
+    time_, time_next = (int(t) for t in pairs[1])
+    with torch.inference_mode():
+        gd.ddim_step(img, x_sc, time_, time_next, noise)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            gd.ddim_step(img, x_sc, time_, time_next, noise)
+            torch.cuda.synchronize()
+    events = kernel_events(prof.key_averages())
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if dev_ms <= 0:
+        raise SystemExit("the profiler saw no device time")
+    idle = max(0.0, 1.0 - dev_ms / step_ms)
+    la_ms = sum(e.self_device_time_total for e in events
+                if "linear_attention" in e.key) / 1e3
+    log(f"[{tag}] UncondUNet {n_params:,} parameters (seeded random), attn {heads} x "
+        f"{dim_head} ({'generic' if generic else 'tuned'} kernels), fp32, {S}x{S}: "
+        f"{UNCOND_BS} samples in {steps} DDIM steps: {1e3 * sample_s:.1f} ms, "
+        f"{UNCOND_BS / sample_s:.3f} samples/s, {step_ms:.2f} ms per DDIM step, peak "
+        f"{peak / 2**30:.2f} GiB; a profiled step: device busy {dev_ms:.2f} ms, idle "
+        f"{100 * idle:.1f}%, linear attention {la_ms:.2f} ms; samples in [{lo:.3f}, {hi:.3f}], "
+        f"{100 * inside:.1f}% strictly inside; "
+        f"launches {counts} = {n_sites} + {n_sites} per UNet forward")
+    del imgs, img, x_sc, noise
+    # training: Adam at lr UNCOND_LR on UNCOND_BS images, fresh draws a step
+    model.train()
+    opt = torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=UNCOND_LR)
+    train_img = _synthetic_images(UNCOND_BS, S, seed + 2, dev)
+    held_img = _synthetic_images(UNCOND_BS, S, seed + 3, dev)
+    held_draws = gd.draw(held_img.shape, torch.Generator(device=dev).manual_seed(seed + 4), dev)
+    tgen = torch.Generator(device=dev).manual_seed(seed + 5)
+
+    def held_loss():
+        with torch.no_grad():
+            return float(gd.loss(held_img, draws=held_draws))
+
+    before = held_loss()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_la_counters()
+    times, losses = [], []
+    with PlainLinearAttentionRefused():
+        for _ in range(UNCOND_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = gd.loss(train_img, generator=tgen)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+    counts_train = _la_read_counters()
+    train_peak = torch.cuda.max_memory_allocated()
+    after = held_loss()
+    _check_la_counts(counts_train, n_sites * UNCOND_TRAIN_STEPS, generic, f"{tag} training")
+    train_ms = float(np.median(times[1:]))
+    if not np.isfinite(losses).all() or not after < before:
+        raise SystemExit(f"{tag}: training losses {losses}; held batch {before} -> {after}")
+    log(f"[{tag}] training, batch {UNCOND_BS}, Adam lr {UNCOND_LR:g}: {UNCOND_TRAIN_STEPS} steps, "
+        f"{train_ms:.2f} ms per step (median after the first, {times[0]:.1f} ms), peak "
+        f"{train_peak / 2**30:.2f} GiB; losses {', '.join(f'{l:.4f}' for l in losses)}; held "
+        f"batch (fixed t, noise) {before:.5f} -> {after:.5f}; launches {counts_train}")
+    out = {"heads": heads, "dim_head": dim_head, "variant": "generic" if generic else "tuned",
+           "sample_ms": 1e3 * sample_s, "samples_per_s": UNCOND_BS / sample_s,
+           "ms_per_ddim_step": step_ms, "peak_bytes": peak, "idle": idle,
+           "profiled_step_device_ms": dev_ms, "profiled_step_la_ms": la_ms,
+           "inside_share": inside, "launches": counts, "launches_per_forward": n_sites,
+           "train_step_ms": train_ms,
+           "train_times_ms": times, "train_peak_bytes": train_peak, "train_losses": losses,
+           "held_loss": [before, after], "train_launches": counts_train, "sites": n_sites}
+    del opt, model, gd, train_img, held_img
+    torch.cuda.empty_cache()
+    return out
+
+
+def uncond_self_condition_step(dev, seed: int) -> dict:
+    """(b): one training step of the twin with ``self_condition``, the coin
+    set: the stop-gradient estimate and the step's forward (8 + 8 launches
+    each)."""
+    import dataclasses
+
+    import torch
+
+    from dmhomo_torch.diffusion.uncond import UncondDiffusionConfig, UnconditionalGaussianDiffusion
+    from dmhomo_torch.models.unet_uncond import UncondUNetConfig, build_uncond_unet
+
+    cfg = dataclasses.replace(UncondUNetConfig(), self_condition=True)
+    dcfg = dataclasses.replace(UncondDiffusionConfig(), self_condition=True)
+    model = build_uncond_unet(cfg, device=dev, generator=torch.Generator().manual_seed(seed + 30))
+    model.train()
+    gd = UnconditionalGaussianDiffusion(model, dcfg)
+    opt = torch.optim.Adam(model.parameters(), lr=UNCOND_LR)
+    img = _synthetic_images(UNCOND_BS, dcfg.image_size, seed + 6, dev)
+    t, noise, _ = gd.draw(img.shape, torch.Generator(device=dev).manual_seed(seed + 7), dev)
+    coin = torch.ones((), dtype=torch.bool, device=dev)
+    _reset_la_counters()
+    t0 = time.perf_counter()
+    with PlainLinearAttentionRefused():
+        loss = gd.loss(img, draws=(t, noise, coin))
+        loss.backward()
+        opt.step()
+    value = float(loss.detach())
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = _la_read_counters()
+    finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    log(f"[uncond-selfcond] one self-conditioned step (coin set), batch {UNCOND_BS}: loss "
+        f"{value:.5f}, {ms:.1f} ms, weights finite {finite}, launches {counts}")
+    n_sites = la_sites(model)
+    _check_la_counts(counts, 2 * n_sites, False, "self-conditioned step")
+    if not (np.isfinite(value) and finite):
+        raise SystemExit("the self-conditioned step is not finite")
+    del model, opt, gd
+    torch.cuda.empty_cache()
+    return {"loss": value, "ms": ms, "launches": counts}
+
+
+def _grad_rule(g_card, g_cpu, g_nudged, what):
+    """Phase 9's rule for each gradient: within STEP_GRAD_TOL of its largest
+    value, or STEP_NOISE_FACTOR times the CPU's own change for the nudged
+    input.  Returns the worst (name, rel, tol)."""
+    def rel(a, g):
+        return float((a - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+
+    rels = {n: rel(g_card[n], g) for n, g in g_cpu.items()}
+    tols = {n: max(STEP_GRAD_TOL, STEP_NOISE_FACTOR * rel(g_nudged[n], g))
+            for n, g in g_cpu.items()}
+    order = sorted(rels, key=lambda n: -rels[n] / tols[n])
+    bad = [n for n in order if not rels[n] <= tols[n]]
+    log(f"[{what}] gradients of {len(rels)} parameters; closest to their tolerance: "
+        + ", ".join(f"{n} {rels[n]:.3g} (tol {tols[n]:.3g})" for n in order[:3]))
+    if bad:
+        raise SystemExit(f"{what}: gradients disagree {[(n, rels[n], tols[n]) for n in bad]}")
+    return [(n, rels[n], tols[n]) for n in order[:3]]
+
+
+def uncond_card_vs_cpu(dev, seed: int, heads: int, dim_head: int, with_loss: bool) -> dict:
+    """One fp32 forward of the twin at full width (UNCOND_CPU_SIZE²,
+    UNCOND_CPU_BATCH images) with the same weights on the card (kernels)
+    and on the CPU (plain versions), held against the CPU's own change for
+    an input nudged by GEN_INPUT_NOISE; with ``with_loss`` also one loss
+    with injected draws and its gradients, under phase 9's rule."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from dmhomo_torch.diffusion.uncond import UncondDiffusionConfig, UnconditionalGaussianDiffusion
+    from dmhomo_torch.models.unet_uncond import UncondUNetConfig, build_uncond_unet
+
+    tag = f"uncond-card-vs-cpu {heads}x{dim_head}"
+    cfg = dataclasses.replace(UncondUNetConfig(), attn_heads=heads, attn_dim_head=dim_head)
+    dcfg = dataclasses.replace(UncondDiffusionConfig(), image_size=UNCOND_CPU_SIZE)
+    cpu_model = build_uncond_unet(cfg, device="cpu",
+                                  generator=torch.Generator().manual_seed(seed + 31))
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    rng = np.random.default_rng(seed + 31)
+    shape = (UNCOND_CPU_BATCH, UNCOND_CPU_SIZE, UNCOND_CPU_SIZE, 3)
+    x = rng.normal(size=shape).astype(np.float32)
+    nudge = (GEN_INPUT_NOISE * rng.normal(size=shape)).astype(np.float32)
+    t = torch.tensor([17, 600])
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        card = card_model(torch.from_numpy(x).to(dev), t.to(dev)).cpu()
+        cpu = cpu_model(torch.from_numpy(x), t)
+        nudged = cpu_model(torch.from_numpy(x + nudge), t)
+    scale = float(cpu.abs().max())
+    diff = float((card - cpu).abs().max()) / scale
+    noise = float((nudged - cpu).abs().max()) / scale
+    tol = max(GEN_CPU_TOL, GEN_NOISE_FACTOR * noise)
+    log(f"[{tag}] fp32 forward {shape}: max |card - cpu| / max |cpu| = {diff:.3g}; the CPU's own "
+        f"change for an input nudged by {GEN_INPUT_NOISE:g}: {noise:.3g}; tol {tol:.3g}")
+    if not diff <= tol:
+        raise SystemExit(f"{tag}: card and CPU forwards disagree: {diff} (tol {tol})")
+    out = {"forward_rel": diff, "forward_rel_nudged_cpu": noise, "forward_tol": tol}
+    if with_loss:
+        img = rng.uniform(size=shape).astype(np.float32)
+        draws = (rng.integers(0, dcfg.timesteps, (UNCOND_CPU_BATCH,)),
+                 rng.normal(size=shape).astype(np.float32), False)
+        img_nudged = (img + STEP_INPUT_NOISE * rng.normal(size=shape)).astype(np.float32)
+        results = {}
+        for where, model, d, im in (("card", card_model, dev, img), ("cpu", cpu_model, "cpu", img),
+                                    ("nudged", cpu_model, "cpu", img_nudged)):
+            model.zero_grad(set_to_none=True)
+            gd = UnconditionalGaussianDiffusion(model, dcfg, device=d)
+            loss = gd.loss(torch.from_numpy(im).to(d), draws=draws)
+            loss.backward()
+            results[where] = (float(loss.detach()), {n: p.grad.detach().cpu().clone()
+                                            for n, p in model.named_parameters()})
+        loss_rel = abs(results["card"][0] - results["cpu"][0]) / abs(results["cpu"][0])
+        log(f"[{tag}] fp32 loss with injected draws: card {results['card'][0]:.7f} cpu "
+            f"{results['cpu'][0]:.7f}: rel {loss_rel:.3g} (tol {STEP_LOSS_TOL:g})")
+        if not loss_rel <= STEP_LOSS_TOL:
+            raise SystemExit(f"{tag}: card and CPU losses disagree: {loss_rel}")
+        out["loss_rel"] = loss_rel
+        out["grad_closest"] = _grad_rule(results["card"][1], results["cpu"][1],
+                                         results["nudged"][1], tag)
+    out["cpu_s"] = time.perf_counter() - t0
+    del card_model
+    torch.cuda.empty_cache()
+    return out
+
+
+def cond_generic_path(dev, seed: int) -> dict:
+    """(c): the conditional DGM UNet with attn (8, 64) at the shipped DGM
+    config in bf16: one generate batch at dgm_sample's defaults and
+    GENERIC_DGM_STEPS DGMTrainer steps (all linear-attention launches
+    generic; the plain version made to raise), then one fp32 forward card
+    vs CPU at UNCOND_CPU_SIZE²."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from dmhomo_torch.cli.dgm_sample import generate
+    from dmhomo_torch.data.conditions import synthetic_condition_batches
+    from dmhomo_torch.diffusion.gaussian import DiffusionConfig, GaussianDiffusion
+    from dmhomo_torch.models.unet import UNetConfig, build_unet
+    from dmhomo_torch.train.config import DGMTrainConfig
+
+    heads, dh = UNCOND_GENERIC
+    # generation: dgm_sample's defaults with the attention's heads and dim_head changed
+    cfg = UNetConfig(dim=64, num_classes=1, dim_mults=(1, 2, 4, 8), dtype=torch.bfloat16,
+                     attn_heads=heads, attn_dim_head=dh)
+    model = build_unet(cfg, device=dev, generator=torch.Generator().manual_seed(seed + 32))
+    gd = GaussianDiffusion(model, DiffusionConfig(
+        image_size=GEN_SIZE, timesteps=1000, sampling_timesteps=GEN_STEPS, objective="pred_x0",
+        cond_scale=3.0), device=dev)
+    cond, classes = next(synthetic_condition_batches(GEN_BS, GEN_SIZE, GEN_BS, 1, seed + 32))
+    cond_t = torch.from_numpy(cond).to(dev)
+    cls_t = torch.from_numpy(classes.astype(np.int64)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_la_counters()
+    t0 = time.perf_counter()
+    with PlainLinearAttentionRefused():
+        imgs, homos = generate(gd, cond_t, cls_t, gen)
+    torch.cuda.synchronize()
+    batch_ms = 1e3 * (time.perf_counter() - t0)
+    counts = _la_read_counters()
+    gen_peak = torch.cuda.max_memory_allocated()
+    n_sites = la_sites(model)  # 8 as shipped
+    _check_la_counts(counts, n_sites * GEN_STEPS, True, "conditional generation at (8, 64)")
+    if not bool(torch.isfinite(imgs).all()) or float(imgs.min()) < 0 or float(imgs.max()) > 1:
+        raise SystemExit("conditional generation at (8, 64): images not finite in [0, 1]")
+    log(f"[cond-generic] conditional UNet attn {heads} x {dh}, bf16, dgm_sample's defaults (bs "
+        f"{GEN_BS}, CFG batch {2 * GEN_BS}, {GEN_STEPS} DDIM steps, {GEN_SIZE}x{GEN_SIZE}), "
+        f"without warm-up: {batch_ms:.1f} ms per batch, {batch_ms / GEN_STEPS:.2f} ms per DDIM "
+        f"step, {1e3 * GEN_BS / batch_ms:.3f} samples/s, peak {gen_peak / 2**30:.2f} GiB; "
+        f"launches {counts}")
+    out = {"gen_batch_ms": batch_ms, "gen_ms_per_ddim_step": batch_ms / GEN_STEPS,
+           "gen_samples_per_s": 1e3 * GEN_BS / batch_ms, "gen_peak_bytes": gen_peak,
+           "gen_launches": counts}
+    cpu_state = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model, gd, imgs, homos
+    torch.cuda.empty_cache()
+    # training: the shipped DGM config with the attention changed
+    base = DGMTrainConfig()
+    base = dataclasses.replace(base, unet=dataclasses.replace(base.unet, attn_heads=heads,
+                                                              attn_dim_head=dh))
+    B, S = base.train_batch_size, base.diffusion.image_size
+    pool_c, pool_k = dgm_condition_pool(B, S, base.unet.num_classes, seed + 33, dev)
+
+    def batch_of(step):
+        return pool_c, pool_k
+
+    trainer, tgen, first_ms, attempts = dgm_trainer_that_fits(base, dev, seed + 33, batch_of)
+    accum, remat = trainer.config.gradient_accumulate_every, trainer.config.unet.remat
+    per_step = n_sites * accum * (2 if remat else 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_la_counters()
+    times, losses = [], []
+    with PlainLinearAttentionRefused():
+        for step in range(1, GENERIC_DGM_STEPS):
+            t0 = time.perf_counter()
+            res = trainer.train_step(*batch_of(step), generator=tgen)
+            losses.append(float(res["loss"]))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+    counts_t = _la_read_counters()
+    train_peak = torch.cuda.max_memory_allocated()
+    _check_la_counts(counts_t, per_step * (GENERIC_DGM_STEPS - 1), True,
+                     "DGM training at (8, 64)")
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"DGM training at (8, 64): losses {losses}")
+    step_ms = float(np.median(times))
+    log(f"[cond-generic] DGMTrainer, shipped config with attn {heads} x {dh} (bf16, batch {B} in "
+        f"microbatches of {B // accum}, remat {remat}; {attempts}): first step {first_ms:.1f} ms, "
+        f"then {', '.join(f'{t:.1f}' for t in times)} ms ({1e3 * B / step_ms:.3f} training "
+        f"samples/s), peak {train_peak / 2**30:.2f} GiB; losses {losses}; launches {counts_t} = "
+        f"{per_step} + {per_step} per step, all generic")
+    out.update({"train_first_ms": first_ms, "train_step_ms": step_ms, "train_times_ms": times,
+                "train_samples_per_s": 1e3 * B / step_ms, "train_peak_bytes": train_peak,
+                "train_losses": losses, "train_launches": counts_t, "microbatch": B // accum,
+                "remat": remat})
+    del trainer, pool_c, pool_k
+    torch.cuda.empty_cache()
+    # card vs CPU: one fp32 CFG forward at full width, UNCOND_CPU_SIZE²
+    from dmhomo_torch.models.unet import ConditionalUNet
+
+    cpu_model = ConditionalUNet(dataclasses.replace(cfg, dtype=torch.float32))
+    cpu_model.load_state_dict(cpu_state)
+    cpu_model.eval()
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    S = UNCOND_CPU_SIZE
+    rng = np.random.default_rng(seed + 34)
+    x = rng.normal(size=(2, S, S, 6)).astype(np.float32)
+    nudge = (GEN_INPUT_NOISE * rng.normal(size=x.shape)).astype(np.float32)
+    rgb = rng.uniform(-1, 1, (2, S, S, 3)).astype(np.float32)
+    mask = (rng.uniform(size=(2, S, S, 1)) > 0.2).astype(np.float32)
+
+    def inputs(xx, d):
+        return (torch.from_numpy(xx).to(d), torch.tensor([500, 500], device=d),
+                torch.zeros(2, dtype=torch.long, device=d), torch.from_numpy(rgb).to(d),
+                torch.from_numpy(mask).to(d), torch.tensor([True, False], device=d))
+
+    with torch.inference_mode():
+        card = card_model(*inputs(x, dev)).cpu()
+        cpu = cpu_model(*inputs(x, "cpu"))
+        nudged = cpu_model(*inputs(x + nudge, "cpu"))
+    scale = float(cpu.abs().max())
+    diff = float((card - cpu).abs().max()) / scale
+    noise = float((nudged - cpu).abs().max()) / scale
+    tol = max(GEN_CPU_TOL, GEN_NOISE_FACTOR * noise)
+    log(f"[cond-generic] fp32 CFG forward (2, {S}, {S}, 6) at attn {heads} x {dh}: max |card - "
+        f"cpu| / max |cpu| = {diff:.3g}; the CPU's own change for an input nudged by "
+        f"{GEN_INPUT_NOISE:g}: {noise:.3g}; tol {tol:.3g}")
+    if not diff <= tol:
+        raise SystemExit(f"conditional UNet at (8, 64): card and CPU disagree {diff} (tol {tol})")
+    out.update({"forward_rel": diff, "forward_rel_nudged_cpu": noise, "forward_tol": tol})
+    del card_model
+    torch.cuda.empty_cache()
+    return out
+
+
+def generic_la_site_times(dev, seed: int) -> dict:
+    """(d): each generic kernel at the sites of (c)'s paths, as the UNet
+    calls it (channel-major, prenorm, statistics computed by pass 1): the
+    twin's sampling (B = UNCOND_BS, fp32, 128²) and the conditional
+    generation (B = 2 * GEN_BS, bf16, 256²), both at (8, 64): errors against
+    the plain version, the median of TIMING_BURSTS bursts, the plain
+    version's time and the bound."""
+    import torch
+
+    from dmhomo_torch.models.unet import UNetConfig
+    from dmhomo_torch.ops import linear_attention as la
+
+    heads, dh = UNCOND_GENERIC
+    hd = heads * dh
+    gen = torch.Generator(device=dev).manual_seed(seed + 35)
+    rows = []
+    paths = (("uncond sampling", UNCOND_BS, "float32", 128),
+             ("conditional generation", 2 * GEN_BS, "bfloat16", GEN_SIZE))
+    for path, B, dtype, size in paths:
+        for site, hw, C in linear_attention_sites(UNetConfig(), size):
+            N = hw * hw
+            x, w, g = _la_inputs(B, N, C, hd, dtype, True, dev, gen)
+            want_sums = la.linear_attention_pass1_reference(x, w, heads, dh, (g,))
+            want = la.linear_attention_pass2_reference(x, w, want_sums, heads, dh, (g,))
+            sums = torch.empty_like(want_sums)
+            mean = torch.empty((B, N), device=dev)
+            rstd = torch.empty_like(mean)
+            out = torch.empty((B, hd, N), dtype=x.dtype, device=dev).transpose(1, 2)
+
+            def p1():
+                la.linear_attention_pass1(x, w, g, mean, rstd, True, sums, heads, dh)
+
+            def p2():
+                la.linear_attention_pass2(x, w, g, mean, rstd, want_sums, out, heads, dh)
+
+            p1()
+            p2()
+            torch.cuda.synchronize()
+            e1, e2 = rel_err(sums, want_sums), rel_err(out, want)
+            ms1, b1s = burst_ms(p1, iters=5)
+            ms2, b2s = burst_ms(p2, iters=5)
+            del want
+            plain1 = cuda_ms(lambda: la.linear_attention_pass1_reference(x, w, heads, dh, (g,)),
+                             iters=1, warmup=1)
+            plain2 = cuda_ms(lambda: la.linear_attention_pass2_reference(x, w, want_sums, heads,
+                                                                         dh, (g,)),
+                             iters=1, warmup=1)
+            (bd1, by1), (bd2, by2) = (linear_bound(x, p, heads, dh) for p in (1, 2))
+            ok = e1 <= LA_TOL[dtype] and e2 <= LA_TOL[dtype]
+            rows.append({"path": path, "site": site, "B": B, "N": N, "C": C, "dtype": dtype,
+                         "heads": heads, "dim_head": dh, "rel_err_pass1": e1, "rel_err_pass2": e2,
+                         "pass1_ms": ms1, "pass2_ms": ms2, "pass1_ms_bursts": b1s,
+                         "pass2_ms_bursts": b2s, "plain1_ms": plain1, "plain2_ms": plain2,
+                         "bound1_ms": bd1, "bound1_by": by1, "bound2_ms": bd2, "bound2_by": by2,
+                         "plan1": la.generic_launch_plan(1, B, N, C, heads, dh),
+                         "plan2": la.generic_launch_plan(2, B, N, C, heads, dh)})
+            log(f"[la-any-site] {path} {site} {hw}x{hw} N={N} C={C} B={B} {dtype}: rel err pass1 "
+                f"{e1:.3g} pass2 {e2:.3g} (tol {LA_TOL[dtype]:g}); pass1 {ms1:.3f} ms (bursts "
+                f"{spread(b1s)}; bound {bd1:.3f} {by1}: {100 * bd1 / ms1:.1f}%; plain "
+                f"{plain1:.3f}) pass2 {ms2:.3f} ms (bursts {spread(b2s)}; bound {bd2:.3f} {by2}: "
+                f"{100 * bd2 / ms2:.1f}%; plain {plain2:.3f}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"generic kernels at {path} {site} disagree: {e1} {e2}")
+            del x, w, g, sums, mean, rstd, out, want_sums
+            torch.cuda.empty_cache()
+    totals = {}
+    for path, *_ in paths:
+        pr = [r for r in rows if r["path"] == path]
+        for p in (1, 2):
+            totals[f"{path} pass{p}"] = {
+                "ms": sum(r[f"pass{p}_ms"] for r in pr),
+                "plain_ms": sum(r[f"plain{p}_ms"] for r in pr),
+                "bound_ms": sum(r[f"bound{p}_ms"] for r in pr),
+                "bound_by": ("bytes" if all(r[f"bound{p}_by"] == "bytes" for r in pr)
+                             else "operations"),
+                "max_rel_err": max(r[f"rel_err_pass{p}"] for r in pr)}
+    for k, v in totals.items():
+        log(f"[la-any-site] per UNet forward, {k}: {v['ms']:.3f} ms (bound {v['bound_ms']:.3f} "
+            f"{v['bound_by']}, plain {v['plain_ms']:.3f})")
+    return {"rows": rows, "totals": totals}
+
+
+def phase_uncond(dev, seed: int) -> dict:
+    """Phase 29: (a) the generic kernels over the grid, (b) the twin with
+    the tuned kernels, (c) the generic kernels on the twin and the
+    conditional UNet at (8, 64), (d) the generic kernels' times at (c)'s
+    sites."""
+    import torch
+
+    t0 = time.perf_counter()
+    grid = phase_la_any_kernels(dev, seed)
+    torch.cuda.empty_cache()
+    tuned = uncond_twin(dev, seed, 4, 32, "uncond-tuned")
+    selfcond = uncond_self_condition_step(dev, seed)
+    tuned_cpu = uncond_card_vs_cpu(dev, seed, 4, 32, with_loss=True)
+    generic = uncond_twin(dev, seed, *UNCOND_GENERIC, "uncond-generic")
+    generic_cpu = uncond_card_vs_cpu(dev, seed, *UNCOND_GENERIC, with_loss=False)
+    cond = cond_generic_path(dev, seed)
+    sites = generic_la_site_times(dev, seed)
+    phase_s = time.perf_counter() - t0
+    log(f"[uncond] phase 29 in {phase_s:.1f} s")
+    return {"grid": grid, "tuned": tuned, "self_condition": selfcond, "tuned_card_vs_cpu": tuned_cpu,
+            "generic": generic, "generic_card_vs_cpu": generic_cpu, "cond": cond,
+            "sites": sites, "phase_s": phase_s}
+
+
+def uncond_summary(u: dict) -> None:
+    """The [summary] and [uncond-summary] lines of phase 29."""
+    for key in ("tuned", "generic"):
+        r = u[key]
+        log(f"[summary] uncond twin ({r['heads']} x {r['dim_head']}, {r['variant']} kernels, fp32, "
+            f"128x128, batch {UNCOND_BS}): {r['samples_per_s']:.3f} samples/s, "
+            f"{r['ms_per_ddim_step']:.2f} ms per DDIM step, peak {r['peak_bytes'] / 2**30:.2f} "
+            f"GiB, idle {100 * r['idle']:.1f}%; training step {r['train_step_ms']:.2f} ms, peak "
+            f"{r['train_peak_bytes'] / 2**30:.2f} GiB, held loss {r['held_loss'][0]:.5f} -> "
+            f"{r['held_loss'][1]:.5f}")
+    c = u["cond"]
+    log(f"[summary] conditional UNet at {UNCOND_GENERIC[0]} x {UNCOND_GENERIC[1]} (bf16): "
+        f"generation {c['gen_batch_ms']:.1f} ms per batch of {GEN_BS} ({c['gen_samples_per_s']:.3f} "
+        f"samples/s), DGM step {c['train_step_ms']:.1f} ms ({c['train_samples_per_s']:.3f} "
+        f"samples/s, peak {c['train_peak_bytes'] / 2**30:.2f} GiB); phase 29 {u['phase_s']:.1f} s")
+    log("[uncond-summary] " + json.dumps(json_keys(u), default=str))
+
+
+def generic_la_entries(u: dict) -> list:
+    """The ``generic`` entries of kernels 3 and 4 in the kernels line: per
+    UNet forward of the twin at (8, 64) (B = UNCOND_BS, fp32, 128²), with
+    the conditional generation's forward (B = 2 * GEN_BS, bf16) beside it."""
+    out = []
+    for p in (1, 2):
+        t = u["sites"]["totals"][f"uncond sampling pass{p}"]
+        c = u["sites"]["totals"][f"conditional generation pass{p}"]
+        out.append({
+            "source": "dmhomo_torch/csrc/linear_attention_any.cu",
+            "launches": u["generic"]["launches"][f"generic{p}"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "max_abs_err": t["max_rel_err"],
+            "max_rel_err_grid": {k: v for k, v in u["grid"]["worst"].items()},
+            "unit": (f"sum over the 8 sites of one UncondUNet forward at attn "
+                     f"{UNCOND_GENERIC[0]} x {UNCOND_GENERIC[1]}, B={UNCOND_BS}, fp32, 128x128; "
+                     "max_abs_err is relative to the largest plain value"),
+            "launches_train": u["generic"]["train_launches"][f"generic{p}"],
+            "launches_cond_generation": u["cond"]["gen_launches"][f"generic{p}"],
+            "launches_cond_dgm_steps": u["cond"]["train_launches"][f"generic{p}"],
+            "cond_generation": {"ms": c["ms"], "plain_ms": c["plain_ms"],
+                                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                                "max_rel_err": c["max_rel_err"],
+                                "unit": (f"one conditional UNet forward at B={2 * GEN_BS}, "
+                                         "bf16, 256x256")},
+            "atomic_instructions": u["grid"]["atomics"],
+        })
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -4249,6 +5023,9 @@ def main(argv=None):
                         help="phase 28's child: hem_train --tiny on the card, its losses")
     parser.add_argument("--only-generic", action="store_true",
                         help="phases 1-2 (device, build), then phase 28 alone; prints no "
+                             "final line")
+    parser.add_argument("--only-uncond", action="store_true",
+                        help="phases 1-2 (device, build), then phase 29 alone; prints no "
                              "final line")
     args = parser.parse_args(argv)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -4275,6 +5052,10 @@ def main(argv=None):
 
         phase_generic(dev, eval_pairs(EstimatorConfig(), dev, BATCH, args.seed),
                       synthetic_train_batch(BATCH, args.seed), args.seed)
+        log(smi)
+        return
+    if args.only_uncond:
+        uncond_summary(phase_uncond(dev, args.seed))
         log(smi)
         return
     wa_sass, wa_atomics = phase_window_sass()
@@ -4377,6 +5158,8 @@ def main(argv=None):
         pipe = phase_pipeline(dev, args.seed, tmp)
     dp = phase_data_parallel(dev, train_batch, args.seed)
     generic = phase_generic(dev, pairs, train_batch, args.seed)
+    torch.cuda.empty_cache()
+    uncond = phase_uncond(dev, args.seed)
 
     # per-forward totals at the eval path's dtype (fp32) and launch mix
     main = [r for r in results if r["dtype"] == "float32"]
@@ -4679,6 +5462,10 @@ def main(argv=None):
     log("[generic-summary] " + json.dumps(json_keys({
         "worst": gw, "main_path_worst": gm, "tiny": generic["tiny"], "window4": generic["w4"], "totals": gt}),
         default=str))
+    # kernels 3 and 4 at any heads / dim_head (phase 29)
+    for entry, g in zip(la_kernels, generic_la_entries(uncond)):
+        entry["generic"] = g
+    uncond_summary(uncond)
     log(smi)  # nvidia-smi: card name, power limit
     log(json.dumps({"kernels": [kernel, bwd_kernel] + la_kernels + [sb_kernel, sbb_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -7,6 +7,10 @@
 * :func:`load_reference_state_dict` loads a reference OSNet state dict
   (HEM.pth layout) with ``strict=True``, after dropping the reference's dead
   modules and re-derived buffers.
+* :func:`unet_state_dict_from_jax` and :func:`uncond_unet_state_dict_from_jax`
+  turn the JAX ``ConditionalUNet`` / ``UncondUNet`` params into the port's
+  UNet state dicts (reference key names), sharing one stage walk;
+  :func:`load_dgm_checkpoint` loads a reference ``DGM.pt``.
 """
 
 from __future__ import annotations
@@ -159,64 +163,87 @@ def load_hem_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     return ckpt
 
 
+def _conv_into(sd: Dict, dst: str, p: Dict) -> None:
+    sd[f"{dst}.weight"] = _conv(p["kernel"])
+    if "bias" in p:
+        sd[f"{dst}.bias"] = _t(p["bias"])
+
+
+def _dense_into(sd: Dict, dst: str, p: Dict) -> None:
+    sd[f"{dst}.weight"] = _lin(p["kernel"])
+    sd[f"{dst}.bias"] = _t(p["bias"])
+
+
+def _gain_into(sd: Dict, dst: str, g) -> None:
+    sd[dst] = _t(np.asarray(g).reshape(1, -1, 1, 1))
+
+
+def _resblock_into(sd: Dict, dst: str, p: Dict) -> None:
+    _dense_into(sd, f"{dst}.mlp.1", p["mlp"])
+    for b in ("block1", "block2"):
+        _conv_into(sd, f"{dst}.{b}.proj", p[b]["proj"])
+        sd[f"{dst}.{b}.norm.weight"] = _t(p[b]["norm"]["scale"])
+        sd[f"{dst}.{b}.norm.bias"] = _t(p[b]["norm"]["bias"])
+    if "res_conv" in p:
+        _conv_into(sd, f"{dst}.res_conv", p["res_conv"])
+
+
+def _attn_into(sd: Dict, params: Dict, dst: str, wrap: str, inner: str, full=False) -> None:
+    _gain_into(sd, f"{dst}.fn.norm.g", params[wrap]["norm"]["g"])
+    _conv_into(sd, f"{dst}.fn.fn.to_qkv", params[inner]["to_qkv"])
+    if full:
+        _conv_into(sd, f"{dst}.fn.fn.to_out", params[inner]["to_out"])
+    else:
+        _conv_into(sd, f"{dst}.fn.fn.to_out.0", params[inner]["to_out"])
+        _gain_into(sd, f"{dst}.fn.fn.to_out.1.g", params[inner]["out_norm"]["g"])
+
+
+def _unet_body_into(sd: Dict, params: Dict, n: int, downsample_key) -> None:
+    """The init conv, the n down and up stages, the middle and the final
+    blocks shared by both UNets; ``downsample_key(i)`` names stage i's
+    downsample in the port."""
+    _conv_into(sd, "init_conv", params["init_conv"])
+    _dense_into(sd, "time_mlp.1", params["time_mlp_0"])
+    _dense_into(sd, "time_mlp.3", params["time_mlp_1"])
+    for i in range(n):
+        _resblock_into(sd, f"downs.{i}.0", params[f"down_{i}_block1"])
+        _resblock_into(sd, f"downs.{i}.1", params[f"down_{i}_block2"])
+        _attn_into(sd, params, f"downs.{i}.2", f"down_{i}_attn_wrap", f"down_{i}_attn")
+        _conv_into(sd, downsample_key(i), params[f"down_{i}_downsample"])
+    _resblock_into(sd, "mid_block1", params["mid_block1"])
+    _attn_into(sd, params, "mid_attn", "mid_attn_wrap", "mid_attn", full=True)
+    _resblock_into(sd, "mid_block2", params["mid_block2"])
+    for i in range(n):
+        _resblock_into(sd, f"ups.{i}.0", params[f"up_{i}_block1"])
+        _resblock_into(sd, f"ups.{i}.1", params[f"up_{i}_block2"])
+        _attn_into(sd, params, f"ups.{i}.2", f"up_{i}_attn_wrap", f"up_{i}_attn")
+        _conv_into(sd, f"ups.{i}.3" if i == n - 1 else f"ups.{i}.3.1", params[f"up_{i}_upsample"])
+    _resblock_into(sd, "final_res_block", params["final_res_block"])
+    _conv_into(sd, "final_conv", params["final_conv"])
+
+
 def unet_state_dict_from_jax(params: Dict, config) -> Dict[str, torch.Tensor]:
     """JAX ``ConditionalUNet`` params -> this port's UNet state dict
     (reference key names; LayerNorm gains as (1, C, 1, 1))."""
     sd: Dict[str, torch.Tensor] = {}
-
-    def conv(dst, p):
-        sd[f"{dst}.weight"] = _conv(p["kernel"])
-        if "bias" in p:
-            sd[f"{dst}.bias"] = _t(p["bias"])
-
-    def dense(dst, p):
-        sd[f"{dst}.weight"] = _lin(p["kernel"])
-        sd[f"{dst}.bias"] = _t(p["bias"])
-
-    def gain(dst, g):
-        sd[dst] = _t(np.asarray(g).reshape(1, -1, 1, 1))
-
-    def resblock(dst, p):
-        dense(f"{dst}.mlp.1", p["mlp"])
-        for b in ("block1", "block2"):
-            conv(f"{dst}.{b}.proj", p[b]["proj"])
-            sd[f"{dst}.{b}.norm.weight"] = _t(p[b]["norm"]["scale"])
-            sd[f"{dst}.{b}.norm.bias"] = _t(p[b]["norm"]["bias"])
-        if "res_conv" in p:
-            conv(f"{dst}.res_conv", p["res_conv"])
-
-    def attn(dst, wrap, inner, full=False):
-        gain(f"{dst}.fn.norm.g", params[wrap]["norm"]["g"])
-        conv(f"{dst}.fn.fn.to_qkv", params[inner]["to_qkv"])
-        if full:
-            conv(f"{dst}.fn.fn.to_out", params[inner]["to_out"])
-        else:
-            conv(f"{dst}.fn.fn.to_out.0", params[inner]["to_out"])
-            gain(f"{dst}.fn.fn.to_out.1.g", params[inner]["out_norm"]["g"])
-
-    conv("init_conv", params["init_conv"])
-    dense("time_mlp.1", params["time_mlp_0"])
-    dense("time_mlp.3", params["time_mlp_1"])
-    dense("classes_mlp.0", params["classes_mlp_0"])
-    dense("classes_mlp.2", params["classes_mlp_1"])
+    _unet_body_into(sd, params, len(config.dim_mults), lambda i: f"downs.{i}.3")
+    _dense_into(sd, "classes_mlp.0", params["classes_mlp_0"])
+    _dense_into(sd, "classes_mlp.2", params["classes_mlp_1"])
     sd["classes_emb.weight"] = _t(params["classes_emb"]["embedding"])
     sd["null_classes_emb"] = _t(params["null_classes_emb"])
+    return sd
+
+
+def uncond_unet_state_dict_from_jax(params: Dict, config) -> Dict[str, torch.Tensor]:
+    """JAX ``UncondUNet`` params -> this port's ``UncondUNet`` state dict
+    (reference key names): the pixel-unshuffle's conv as ``downs.{i}.3.1``
+    (the last stage's 3x3 conv as ``downs.{i}.3``), the learned or random
+    Fourier weights as ``time_mlp.0.weights``."""
+    sd: Dict[str, torch.Tensor] = {}
     n = len(config.dim_mults)
-    for i in range(n):
-        resblock(f"downs.{i}.0", params[f"down_{i}_block1"])
-        resblock(f"downs.{i}.1", params[f"down_{i}_block2"])
-        attn(f"downs.{i}.2", f"down_{i}_attn_wrap", f"down_{i}_attn")
-        conv(f"downs.{i}.3", params[f"down_{i}_downsample"])
-    resblock("mid_block1", params["mid_block1"])
-    attn("mid_attn", "mid_attn_wrap", "mid_attn", full=True)
-    resblock("mid_block2", params["mid_block2"])
-    for i in range(n):
-        resblock(f"ups.{i}.0", params[f"up_{i}_block1"])
-        resblock(f"ups.{i}.1", params[f"up_{i}_block2"])
-        attn(f"ups.{i}.2", f"up_{i}_attn_wrap", f"up_{i}_attn")
-        conv(f"ups.{i}.3" if i == n - 1 else f"ups.{i}.3.1", params[f"up_{i}_upsample"])
-    resblock("final_res_block", params["final_res_block"])
-    conv("final_conv", params["final_conv"])
+    _unet_body_into(sd, params, n, lambda i: f"downs.{i}.3" if i == n - 1 else f"downs.{i}.3.1")
+    if config.learned_sinusoidal or config.random_fourier:
+        sd["time_mlp.0.weights"] = _t(params["sinu_pos_emb"]["weights"])
     return sd
 
 

@@ -288,26 +288,33 @@ class ConditionalUNet(nn.Module):
         return out.permute(0, 2, 3, 1)
 
 
+def seeded_weights_(model: nn.Module, generator: torch.Generator) -> None:
+    """Draws every parameter of a UNet from ``generator``, in place: a
+    normal of std 1/sqrt(fan_in) for every conv and linear weight (LeCun, as
+    the JAX package's init), zero biases, unit gains, N(0, 1) for the rest
+    (class embeddings, Fourier weights)."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".g") or name.endswith("norm.weight"):
+                p.fill_(1.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            elif p.dim() >= 2 and "classes_emb" not in name:
+                fan_in = p[0].numel()
+                p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(fan_in))
+            else:
+                p.copy_(torch.randn(p.shape, generator=generator))
+
+
 def build_unet(config: UNetConfig = UNetConfig(), device=None,
                generator: Optional[torch.Generator] = None) -> ConditionalUNet:
     """A ConditionalUNet on ``device`` (default: the card; raises without
-    one), in eval mode, with weights drawn from ``generator`` where given:
-    a normal of std 1/sqrt(fan_in) for every conv and linear weight (LeCun,
-    as the JAX package's init), zero biases, unit gains, N(0, 1) embeddings."""
+    one), in eval mode, with weights drawn from ``generator`` where given
+    (:func:`seeded_weights_`)."""
     from dmhomo_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
     model = ConditionalUNet(config)
     if generator is not None:
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                if name.endswith(".g") or name.endswith("norm.weight"):
-                    p.fill_(1.0)
-                elif name.endswith("bias"):
-                    p.zero_()
-                elif p.dim() >= 2 and "classes_emb" not in name:
-                    fan_in = p[0].numel()
-                    p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(fan_in))
-                else:  # class embeddings
-                    p.copy_(torch.randn(p.shape, generator=generator))
+        seeded_weights_(model, generator)
     return model.to(dev).eval()

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -38,13 +39,19 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_compiler(), "-O3", "-shared", "-fPIC", str(SOURCE), "-o", str(tmp)],
-                          capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        raise RuntimeError(f"building {SOURCE.name} failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
+    fd, tmp = tempfile.mkstemp(prefix=f"{lib.name}.", suffix=".tmp", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_compiler(), "-O3", "-shared", "-fPIC", str(SOURCE), "-o", tmp],
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {SOURCE.name} failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        if not lib.exists():
+            os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
     return lib
 
 

@@ -1,6 +1,13 @@
 """Builds the port's CUDA sources (``dmhomo_torch/csrc/*.cu``) with ``nvcc``
 for sm_90a into shared libraries with a plain C interface, at first use,
-under ``build/kernels/`` of the checkout (once per source content)."""
+under ``build/kernels/`` of the checkout (once per source content).
+
+Concurrent first uses (threads, processes, processes of other PID
+namespaces sharing the checkout) each compile into a temporary file that
+``tempfile.mkstemp`` makes unique in the build directory and move it into
+place with ``os.replace``; a builder that finds the library already in
+place keeps that one.  Every caller gets a complete library, and no
+temporary file is left."""
 
 from __future__ import annotations
 
@@ -9,6 +16,7 @@ import os
 import re
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -55,14 +63,24 @@ def build_library(source: Path, stem: str) -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
+    fd, tmp = tempfile.mkstemp(prefix=f"{lib.name}.", suffix=".tmp", dir=BUILD_DIR)
+    os.close(fd)
+    log = tmp[:-len(".tmp")] + ".log.tmp"
+    try:
+        cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        if not lib.exists():
+            # the log first: a library in place always has its log beside it
+            Path(log).write_text(proc.stdout + proc.stderr)
+            os.replace(log, lib.with_suffix(".log"))
+            os.replace(tmp, lib)
+    finally:
+        for path in (tmp, log):
+            if os.path.exists(path):
+                os.remove(path)
     return lib
 
 

@@ -1,12 +1,12 @@
-"""Linear attention of the DGM UNet: two CUDA kernels for Hopper and their
-plain PyTorch version.
+"""Linear attention of the DGM UNet: CUDA kernels for Hopper and their plain
+PyTorch version.
 
-The kernels (``dmhomo_torch/csrc/linear_attention.cu``) replace the Pallas
-TPU kernels ``dmhomo_tpu/ops/linear_attention.py::_pass1_kernel`` (the k
-side: exp-sums and the ek^T v cross blocks) and ``::_pass2_kernel`` (the q
-side: per-head softmax over d against the context).  Both compute what the
-JAX production function ``blockdiag_linear_attention`` computes, max-free,
-in this order, with round() the rounding to the I/O dtype dt:
+The kernels replace the Pallas TPU kernels
+``dmhomo_tpu/ops/linear_attention.py::_pass1_kernel`` (the k side:
+exp-sums and the ek^T v cross blocks) and ``::_pass2_kernel`` (the q side:
+per-head softmax over d against the context).  Both compute what the JAX
+production function ``blockdiag_linear_attention`` computes, max-free, in
+this order, with round() the rounding to the I/O dtype dt:
 
 1. ``qkv = round(x . round(W))``, or with a folded pre-LayerNorm of gain g,
    ``round((x . round(diag(g) W) - mean * (g W)) * rstd)`` (fp32 accumulation);
@@ -15,27 +15,39 @@ in this order, with round() the rounding to the I/O dtype dt:
 3. ``eq = round(exp(clip(q, +-60)))``,
    ``out = round(round(eq . context) / round(per-head sum eq))``.
 
-Only the four 32x32 diagonal blocks of E exist in the kernels.  Pass 1 adds
-each block's share of (E, s) into a zeroed fp32 buffer with atomics, so its
-sum order changes between runs.  :func:`linear_attention` runs
-:func:`linear_attention_reference` for CPU tensors only; for a CUDA tensor
-it launches both kernels or raises.
+Two variants, picked by shape alone (:func:`variant`):
+
+* **tuned** (``csrc/linear_attention.cu``) at heads = 4, dim_head = 32, the
+  sizes compiled in.  Only the four 32x32 diagonal blocks of E exist.
+  Pass 1 adds each block's share of (E, s) into a zeroed fp32 buffer with
+  atomics, so its sum order changes between runs.  bf16 runs on tensor
+  cores; :func:`launch_plan` picks, from the shapes and strides, the loader
+  (16-byte asynchronous copies where x has token stride 1 and 16-byte
+  aligned rows, else element loads), the heads per block, the channels per
+  ring slot and the number of slots.  fp32 runs the CUDA-core kernels.
+* **generic** (``csrc/linear_attention_any.cu``) at every other shape of
+  the envelope: 1 <= heads <= 16, 1 <= dim_head <= 128, heads * dim_head <=
+  1024, C <= 1024, any N, B <= 65535.  Pass 1 runs over (token chunk,
+  head, batch) and writes each chunk's (E_h, s_h) to a scratch buffer; a
+  second launch sums the chunks in a fixed order (no atomics: reruns give
+  the same bits).  Pass 2 runs over (token tile, head, batch), each block
+  rebuilding context_h in shared memory.  fp32 products on CUDA cores in
+  both dtypes.  :func:`generic_launch_plan` gives its grids and shared
+  memory; the private ``_generic=True`` forces it at (4, 32).
+
+A shape outside the envelope raises ``ValueError`` before any launch.
+:func:`linear_attention` runs :func:`linear_attention_reference` for CPU
+tensors only; for a CUDA tensor it launches both kernels or raises.
 
 A call that needs a gradient goes through :class:`LinearAttentionFunction`:
 its forward is the two kernels (the plain version on the CPU), and it keeps
 x, the weights and pass 1's fp32 LayerNorm statistics, nothing of size
-(B, N, 128) or more.  Its backward, :func:`linear_attention_backward`,
-recomputes qkv by one projection and everything after it, and applies the
-chain rule of steps 1-3 with plain tensor ops, rounding each cotangent of a
-primal in dt to dt, as autodiff of the JAX production function does (the
-JAX package has no backward kernel: XLA differentiates
-``blockdiag_linear_attention``).
-
-bf16 runs on tensor cores; :func:`launch_plan` picks, from the shapes and
-strides, the loader (16-byte asynchronous copies where x has token stride
-1 and 16-byte aligned rows, else element loads), the heads per block, the
-channels per ring slot and the number of slots.  fp32 runs the CUDA-core
-kernels.
+(B, N, heads*dim_head) or more.  Its backward,
+:func:`linear_attention_backward`, recomputes qkv by one projection and
+everything after it, and applies the chain rule of steps 1-3 with plain
+tensor ops, rounding each cotangent of a primal in dt to dt, as autodiff of
+the JAX production function does (the JAX package has no backward kernel:
+XLA differentiates ``blockdiag_linear_attention``).
 """
 
 from __future__ import annotations
@@ -46,16 +58,28 @@ from pathlib import Path
 
 import torch
 
-from dmhomo_torch.ops.build import CSRC, build_library
+from dmhomo_torch.ops.build import CSRC, atomic_instructions, build_library
 
 CLIP = 60.0
-HEADS = 4
+HEADS = 4  # the tuned kernels' heads and dim_head
 DIM_HEAD = 32
 HIDDEN = HEADS * DIM_HEAD
 SUMS = HEADS * DIM_HEAD * DIM_HEAD + HIDDEN  # per batch: the E blocks, then s
 LN_EPS = 1e-5
+# the generic kernels' envelope
+MAX_HEADS = 16
+MAX_DIM_HEAD = 128
+MAX_HIDDEN = 1024  # heads * dim_head
+MAX_CHANNELS = 1024
+MAX_BATCH = 65535  # the grid's z
 
 _SOURCE = CSRC / "linear_attention.cu"
+_SOURCE_ANY = CSRC / "linear_attention_any.cu"
+
+
+def sums_width(heads: int, dim_head: int) -> int:
+    """Floats of pass 1's sums per batch: the heads' dim_head^2 E blocks, then s."""
+    return heads * dim_head * (dim_head + 1)
 
 
 def layer_norm_stats(x: torch.Tensor):
@@ -139,9 +163,102 @@ def build() -> Path:
     return build_library(_SOURCE, "dmh_linear_attention")
 
 
-def build_log() -> str:
+def build_generic() -> Path:
+    """Compile the generic variant's library (``csrc/linear_attention_any.cu``)
+    for sm_90a and return its path."""
+    return build_library(_SOURCE_ANY, "dmh_linear_attention_any")
+
+
+def build_log(generic: bool = False) -> str:
     """nvcc's ptxas report (registers, shared memory, spills) of the build."""
-    return build().with_suffix(".log").read_text()
+    return (build_generic() if generic else build()).with_suffix(".log").read_text()
+
+
+def variant(heads: int, dim_head: int) -> str:
+    """The kernels a shape takes: ``"tuned"`` at heads = 4, dim_head = 32,
+    ``"generic"`` at every other."""
+    return "tuned" if (heads, dim_head) == (HEADS, DIM_HEAD) else "generic"
+
+
+# the generic variant's plan constants, as csrc/linear_attention_any.cu has them
+ANY_THREADS = 256
+ANY_KC = 16  # channels staged per step
+ANY_TARGET_BLOCKS = 132 * 4  # pass 1's blocks in all, about four per SM
+
+
+@functools.lru_cache(maxsize=None)
+def generic_launch_plan(pass_: int, B: int, N: int, C: int, heads: int, dim_head: int) -> dict:
+    """How a generic launch of ``pass_`` goes, from the shapes alone, as
+    ``csrc/linear_attention_any.cu`` computes it: ``grid`` (token chunks
+    (pass 1) or tiles (pass 2), heads, batch), ``threads``, dynamic shared
+    memory ``smem`` (bytes), ``tile`` tokens per tile, ``tiles_per_chunk``,
+    ``partials`` (pass 1's scratch floats: one (E_h, s_h) slot per chunk,
+    head and batch; 0 for pass 2) and ``dim_head_padded`` (a multiple of 4).
+    Each thread projects 4 tokens x 4 columns of the head's 2 (pass 1) or 1
+    (pass 2) padded dim_head columns; the tile holds 256 threads' tokens, at
+    most 256."""
+    dhp = -(-dim_head // 4) * 4
+    cols = 2 * dhp if pass_ == 1 else dhp
+    groups_t = min(64, ANY_THREADS // (cols // 4))
+    tile = 4 * groups_t
+    n_tiles = -(-N // tile)
+    stats = 2 * tile + ANY_THREADS
+    if pass_ == 1:
+        want = min(max(1, -(-ANY_TARGET_BLOCKS // (B * heads))), n_tiles)
+        per = -(-n_tiles // want)
+        chunks = -(-n_tiles // per)
+        partials = B * heads * chunks * (dim_head * dim_head + dim_head)
+        floats = ANY_KC * tile + ANY_KC * cols + 2 * tile * dhp + dhp * dhp + cols + stats
+    else:
+        per, chunks, partials = 1, n_tiles, 0
+        floats = ANY_KC * tile + ANY_KC * cols + dhp * dhp + tile * (dhp + 1) + cols + stats
+    return {"grid": (chunks, heads, B), "threads": ANY_THREADS, "smem": 4 * floats,
+            "tile": tile, "tiles_per_chunk": per, "partials": partials,
+            "dim_head_padded": dhp, "variant": "generic"}
+
+
+_ANY_PLAN_KEYS = ("grid_x", "grid_y", "grid_z", "threads", "smem", "tile", "tiles_per_chunk",
+                  "partials", "dim_head_padded")
+
+
+def library_plan_any(pass_: int, B: int, N: int, C: int, heads: int, dim_head: int) -> dict:
+    """The plan the generic library launches ``pass_`` with, with the keys
+    of :func:`generic_launch_plan` (``partials`` modulo 2^31)."""
+    out = (ctypes.c_int * len(_ANY_PLAN_KEYS))()
+    err = _library_any().dmh_linear_attention_any_plan(pass_, B, N, C, heads, dim_head, out)
+    if err != 0:
+        raise RuntimeError(f"linear attention plan refused: cudaError {err}")
+    plan = dict(zip(_ANY_PLAN_KEYS, out))
+    plan["grid"] = (plan.pop("grid_x"), plan.pop("grid_y"), plan.pop("grid_z"))
+    plan["variant"] = "generic"
+    return plan
+
+
+def atomic_instructions_any() -> dict:
+    """Atomic instructions in the generic library's machine code of each of
+    its kernels (pass 1, the reduction, pass 2): kernel name -> count."""
+    found = atomic_instructions(build_generic(), "linear_attention_any_")
+    if not all(any(part in n for n in found) for part in ("_pass1_", "_reduce_", "_pass2_")):
+        raise RuntimeError("the generic linear-attention kernels are not in the machine code")
+    return found
+
+
+@functools.lru_cache(maxsize=None)
+def _library_any() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_generic()))
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn = lib.dmh_linear_attention_any_pass1
+    fn.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i32, ptr, ptr, i64,
+                   i32, i32, i32, i32, i32, i32, ptr]
+    fn.restype = i32
+    fn = lib.dmh_linear_attention_any_pass2
+    fn.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
+                   i32, i32, i32, i32, i32, ctypes.c_float, i32, ptr]
+    fn.restype = i32
+    fn = lib.dmh_linear_attention_any_plan
+    fn.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
+    fn.restype = i32
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -261,10 +378,15 @@ def _check_fp32(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_cuda_args(x, w_qkv, heads, dim_head, g=None, stats=()):
-    if (heads, dim_head) != (HEADS, DIM_HEAD):
-        raise ValueError(f"the kernels take heads={HEADS}, dim_head={DIM_HEAD}; "
-                         f"got {heads}, {dim_head}")
+def _check_cuda_args(x, w_qkv, heads, dim_head, g=None, stats=(), generic: bool = False):
+    """Refuses, before any launch, what the shape's kernels do not take."""
+    generic = _takes_generic(heads, dim_head, generic)
+    if generic:
+        for name, value, lo, hi in (("heads", heads, 1, MAX_HEADS),
+                                    ("dim_head", dim_head, 1, MAX_DIM_HEAD),
+                                    ("heads*dim_head", heads * dim_head, 1, MAX_HIDDEN)):
+            if not lo <= value <= hi:
+                raise ValueError(f"the generic kernels take {lo} <= {name} <= {hi}; got {value}")
     if x.dim() != 3:
         raise ValueError(f"x must be (B, N, C); got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -272,7 +394,12 @@ def _check_cuda_args(x, w_qkv, heads, dim_head, g=None, stats=()):
     B, N, C = x.shape
     if min(x.stride()) < 0 or B * N * C == 0:
         raise ValueError("x must be non-empty with non-negative strides")
-    _check_fp32("w_qkv", w_qkv, (C, 3 * HIDDEN), x.device)
+    if generic:
+        if C > MAX_CHANNELS:
+            raise ValueError(f"the generic kernels take C <= {MAX_CHANNELS}; got {C}")
+        if B > MAX_BATCH:
+            raise ValueError(f"the generic kernels take B <= {MAX_BATCH}; got {B}")
+    _check_fp32("w_qkv", w_qkv, (C, 3 * heads * dim_head), x.device)
     if g is not None:
         _check_fp32("g", g, (C,), x.device)
     for name, t in stats:
@@ -283,45 +410,70 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def linear_attention_pass1(x, w_qkv, g, mean, rstd, compute_stats: bool,
-                           sums: torch.Tensor) -> None:
-    """Kernel A: adds (E blocks, s) of x into ``sums`` (B, 4224) fp32, which
-    the caller zeroes.  With ``g``, mean and rstd (B, N) fp32 are computed
-    and written (``compute_stats``) or read.  ``launches`` counts each launch."""
+def _takes_generic(heads, dim_head, generic: bool) -> bool:
+    """Whether a launch goes to the generic library: by shape
+    (:func:`variant`), or forced by the private ``_generic`` argument."""
+    return generic or variant(heads, dim_head) == "generic"
+
+
+def linear_attention_pass1(x, w_qkv, g, mean, rstd, compute_stats: bool, sums: torch.Tensor,
+                           heads: int = HEADS, dim_head: int = DIM_HEAD,
+                           _generic: bool = False) -> None:
+    """Kernel A: (E blocks, s) of x into ``sums`` (B, heads*dim_head*(dim_head+1))
+    fp32: the tuned kernel adds them (the caller zeroes ``sums``), the
+    generic one writes them.  With ``g``, mean and rstd (B, N) fp32 are
+    computed and written (``compute_stats``) or read.  ``launches`` counts
+    each launch, ``generic`` those of the generic kernel."""
     B, N, C = x.shape
+    generic = _takes_generic(heads, dim_head, _generic)
     stats = () if g is None else (mean, rstd)
     args = (x.data_ptr(), *x.stride(), w_qkv.data_ptr(), None if g is None else g.data_ptr(),
             *(tuple(t.data_ptr() for t in stats) or (None, None)),
-            int(compute_stats), sums.data_ptr(), B, N, C)
+            int(compute_stats), sums.data_ptr())
     with torch.cuda.device(x.device):
-        if x.dtype == torch.bfloat16:
+        if generic:
+            n = generic_launch_plan(1, B, N, C, heads, dim_head)["partials"]
+            partials = torch.empty(n, dtype=torch.float32, device=x.device)
+            err = _library_any().dmh_linear_attention_any_pass1(
+                *args, partials.data_ptr(), n, B, N, C, heads, dim_head,
+                int(x.dtype == torch.bfloat16), _stream(x))
+        elif x.dtype == torch.bfloat16:
             plan = launch_plan(x, 1, () if compute_stats else stats)
             err = _library().dmh_linear_attention_pass1_bf16(
-                *args, *_plan_args(plan), int(plan["loader"] == "aligned"), _stream(x))
+                *args, B, N, C, *_plan_args(plan), int(plan["loader"] == "aligned"), _stream(x))
             linear_attention_pass1.elementwise += plan["loader"] == "elementwise"
         else:
-            err = _library().dmh_linear_attention_pass1(*args, _stream(x))
+            err = _library().dmh_linear_attention_pass1(*args, B, N, C, _stream(x))
     if err != 0:
         raise RuntimeError(f"linear attention pass 1 launch failed: cudaError {err}")
     linear_attention_pass1.launches += 1
+    linear_attention_pass1.generic += generic
 
 
 linear_attention_pass1.launches = 0
 linear_attention_pass1.elementwise = 0  # bf16 launches that took the element-wise loader
+linear_attention_pass1.generic = 0  # launches of the generic kernel
 
 
-def linear_attention_pass2(x, w_qkv, g, mean, rstd, sums: torch.Tensor,
-                           out: torch.Tensor) -> None:
-    """Kernel B: out (B, N, 128) in x.dtype, written through its strides,
-    from x and pass 1's ``sums`` (and mean, rstd with ``g``).  ``launches``
-    counts each launch."""
+def linear_attention_pass2(x, w_qkv, g, mean, rstd, sums: torch.Tensor, out: torch.Tensor,
+                           heads: int = HEADS, dim_head: int = DIM_HEAD,
+                           _generic: bool = False) -> None:
+    """Kernel B: out (B, N, heads*dim_head) in x.dtype, written through its
+    strides, from x and pass 1's ``sums`` (and mean, rstd with ``g``).
+    ``launches`` counts each launch, ``generic`` those of the generic
+    kernel."""
     B, N, C = x.shape
+    generic = _takes_generic(heads, dim_head, _generic)
     stats = () if g is None else (mean, rstd)
     args = (x.data_ptr(), *x.stride(), w_qkv.data_ptr(), None if g is None else g.data_ptr(),
             *(tuple(t.data_ptr() for t in stats) or (None, None)), sums.data_ptr(),
             out.data_ptr(), *out.stride(), B, N, C)
     with torch.cuda.device(x.device):
-        if x.dtype == torch.bfloat16:
+        if generic:
+            err = _library_any().dmh_linear_attention_any_pass2(
+                *args, heads, dim_head, float(dim_head**-0.5), int(x.dtype == torch.bfloat16),
+                _stream(x))
+        elif x.dtype == torch.bfloat16:
             plan = launch_plan(x, 2, stats, out)
             padded, _, chunk, stages, streamed = _plan_args(plan)
             err = _library().dmh_linear_attention_pass2_bf16(
@@ -333,13 +485,15 @@ def linear_attention_pass2(x, w_qkv, g, mean, rstd, sums: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"linear attention pass 2 launch failed: cudaError {err}")
     linear_attention_pass2.launches += 1
+    linear_attention_pass2.generic += generic
 
 
 linear_attention_pass2.launches = 0
 linear_attention_pass2.elementwise = 0  # bf16 launches that took the element-wise loader
+linear_attention_pass2.generic = 0  # launches of the generic kernel
 
 
-def _forward(x, w_qkv, g, mean, rstd, heads, dim_head):
+def _forward(x, w_qkv, g, mean, rstd, heads, dim_head, generic=False):
     """(out, mean, rstd) of one call: on the card both kernels (pass
     1 writes mean and rstd where they are not given), on the CPU the plain
     passes.  mean and rstd are (B, N) fp32, or None without a prenorm."""
@@ -363,14 +517,20 @@ def _forward(x, w_qkv, g, mean, rstd, heads, dim_head):
     elif given:
         mean, rstd = mean.reshape(B, N), rstd.reshape(B, N)
     _check_cuda_args(x, w_qkv, heads, dim_head, g,
-                     () if g is None else (("mean", mean), ("rstd", rstd)))
-    sums = torch.zeros((B, SUMS), dtype=torch.float32, device=x.device)
-    linear_attention_pass1(x, w_qkv, g, mean, rstd, g is not None and not given, sums)
+                     () if g is None else (("mean", mean), ("rstd", rstd)), generic)
+    generic = _takes_generic(heads, dim_head, generic)
+    width = sums_width(heads, dim_head)
+    # the tuned pass 1 adds into its sums, the generic one writes them
+    sums = (torch.empty if generic else torch.zeros)((B, width), dtype=torch.float32,
+                                                      device=x.device)
+    linear_attention_pass1(x, w_qkv, g, mean, rstd, g is not None and not given, sums,
+                           heads, dim_head, generic)
+    hd = heads * dim_head
     if x.stride(1) < x.stride(2):
-        out = torch.empty((B, HIDDEN, N), dtype=x.dtype, device=x.device).transpose(1, 2)
+        out = torch.empty((B, hd, N), dtype=x.dtype, device=x.device).transpose(1, 2)
     else:
-        out = torch.empty((B, N, HIDDEN), dtype=x.dtype, device=x.device)
-    linear_attention_pass2(x, w_qkv, g, mean, rstd, sums, out)
+        out = torch.empty((B, N, hd), dtype=x.dtype, device=x.device)
+    linear_attention_pass2(x, w_qkv, g, mean, rstd, sums, out, heads, dim_head, generic)
     return out, mean, rstd
 
 
@@ -516,8 +676,8 @@ class LinearAttentionFunction(torch.autograd.Function):
     recomputes the rest."""
 
     @staticmethod
-    def forward(ctx, x, w_qkv, g, heads, dim_head):
-        out, mean, rstd = _forward(x, w_qkv, g, None, None, heads, dim_head)
+    def forward(ctx, x, w_qkv, g, heads, dim_head, generic=False):
+        out, mean, rstd = _forward(x, w_qkv, g, None, None, heads, dim_head, generic)
         ctx.save_for_backward(x, w_qkv, g, mean, rstd)
         ctx.heads, ctx.dim_head = heads, dim_head
         return out
@@ -529,20 +689,22 @@ class LinearAttentionFunction(torch.autograd.Function):
         with torch.profiler.record_function("linear_attention_backward"):
             dx, dw, dg = linear_attention_backward(x, w_qkv, g, mean, rstd, dout,
                                                    ctx.heads, ctx.dim_head)
-        return dx, dw, dg, None, None
+        return dx, dw, dg, None, None, None
 
 
 def linear_attention(x: torch.Tensor, w_qkv: torch.Tensor, heads: int = HEADS,
-                     dim_head: int = DIM_HEAD, prenorm=None) -> torch.Tensor:
+                     dim_head: int = DIM_HEAD, prenorm=None,
+                     _generic: bool = False) -> torch.Tensor:
     """x (B, N, C) fp32 or bf16, any strides; w_qkv (C, 3*heads*dim_head)
     fp32; ``prenorm`` ``(g,)`` or ``(mean, rstd, g)`` -> (B, N,
     heads*dim_head) in x.dtype.
 
     CPU tensors go through :func:`linear_attention_reference`; CUDA tensors
-    through the two kernels.  Where a gradient is needed the call goes
+    through the two kernels of the shape's variant (:func:`variant`; the
+    private ``_generic`` forces the generic one at (4, 32)).  Where a gradient is needed the call goes
     through :class:`LinearAttentionFunction` on either device; it takes
     ``prenorm`` None or ``(g,)`` (given statistics raise).  The output
-    has x's layout: channel-major (a transposed (B, 128, N) tensor) when
+    has x's layout: channel-major (a transposed (B, heads*dim_head, N) tensor) when
     x's token stride is the smaller, as for the UNet's NCHW activations.
     """
     g = mean = rstd = None
@@ -555,5 +717,5 @@ def linear_attention(x: torch.Tensor, w_qkv: torch.Tensor, heads: int = HEADS,
         if mean is not None:
             raise ValueError("a gradient of linear_attention needs prenorm None or (g,): "
                              "the statistics are computed, not given")
-        return LinearAttentionFunction.apply(x, w_qkv, g, heads, dim_head)
-    return _forward(x, w_qkv, g, mean, rstd, heads, dim_head)[0]
+        return LinearAttentionFunction.apply(x, w_qkv, g, heads, dim_head, _generic)
+    return _forward(x, w_qkv, g, mean, rstd, heads, dim_head, _generic)[0]

@@ -33,7 +33,7 @@ def test_no_jax_in_the_port():
     modules = sorted(m.name for m in pkgutil.walk_packages(dmhomo_torch.__path__, "dmhomo_torch."))
     for m in ("ops.window_attention", "ops.linear_attention", "ops.swin_block", "models.unet",
               "diffusion.gaussian", "diffusion.schedules", "data.conditions",
-              "cli.dgm_sample"):
+              "cli.dgm_sample", "models.unet_uncond", "diffusion.uncond", "data.image_data"):
         assert f"dmhomo_torch.{m}" in modules
     assert len(modules) >= 25
     code = (

@@ -274,9 +274,36 @@ Phases, each printing its results; any failure exits non-zero:
     sampling paths (the twin B=16 fp32, the conditional B=50 bf16): errors,
     the median of 5 bursts, the plain version's time and the bound.
     ``--only-uncond`` runs phases 1-2 and 29 alone.
+30. the rest of the DGM trainer, under a temporary directory in ``build/``:
+    (a) the shipped ``DGMTrainConfig()`` (bf16, 128 in microbatches of 32)
+    eagerly and as a CUDA graph (``train_steps``, one call per step: the
+    first an eager step and the capture, then 3 warm-up and 10 timed
+    replays): step ms of both, the idle share of a profiled replay, peak
+    memory with the graph's pool, 32 + 32 linear-attention launches per
+    replay (at capture and by name in the profile) and none generic or of
+    the plain version; (b) phase 25's fp32 config at 64x64 with the
+    shipped EMA rule: 3 steps eagerly (twice) and by ``train_steps`` from
+    generators seeded alike, within phase 8c's rule (losses 1e-5 relative,
+    weights 2 lr), the generators' offsets equal after them (each replay
+    drew anew), then the graph on to 16 steps: its EMA equals its weights
+    after step 10; (c) ``shard_params`` over (data 1, model 2) in child
+    processes (``--shard-rank``; ``nccl`` with a card each when there are 2,
+    else ``gloo`` on card 0): phase 25's fp32 step against one process
+    under phase 25's rule, each rank's share of the sharded leaves'
+    parameter, Adam and EMA elements (1/2), the checkpoint (one file)
+    loaded back by the ranks and by one replicated trainer; with 2 cards
+    the shipped step as a graph sharded over (1, 2) beside the replicated
+    2-card step, with 4 also over (2, 2), and per-rank peak memory; (d)
+    ``dgm_train --fuse-steps 5 --preview-every 5`` (10 steps) and then
+    ``dgm_sample --ckpt <its root> --preview-every 1`` at a small config in
+    child processes: exit 0, each preview PNG parses (signature, IHDR size,
+    IDAT inflating to H * (1 + 3W) bytes), the logged photometric errors
+    finite.  ``--only-dgm-steps`` runs phases 1-2 and 30 alone,
+    ``--only-shard-params`` phases 1-2 and 30c.
 
 The line before the last is a JSON object with the six kernels' numbers
-(kernels 3 and 4 with their launches per DGM training step, the HEM
+(kernels 3 and 4 with their launches per DGM training step, eager and per
+replay of the graph step, the HEM
 kernels with their launches per replayed step, and under ``generic`` the
 generic variants': the HEM kernels' at window 4, kernels 3 and 4 at the
 twin's (8, 64) sites); the last is
@@ -5005,6 +5032,801 @@ def generic_la_entries(u: dict) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 30: the rest of the DGM trainer (the graph step, shard_params, the
+# milestone previews and dgm_sample --ckpt)
+# ---------------------------------------------------------------------------
+
+DGMS_MICROBATCH = 32  # phase 22's fit of the shipped batch of 128
+DGMS_EAGER_STEPS = 3  # eager steps timed beside the graph's, after one warm-up
+DGMS_WARMUP, DGMS_TIMED = 3, 10  # graph replays: the median of 10 after 3
+DGMS_VS_EAGER_STEPS = 3  # fp32: the first eager, then two replays
+DGMS_EMA_STEPS = 16  # fp32 graph steps before the EMA check (an update every 10)
+SHARD_MODEL = 2
+SHARD_SPEED_WARMUP, SHARD_SPEED_TIMED = 2, 5
+DGMS_SPREAD_RUNS = 6  # 30e: fresh trainers per mode, and kernel 3 calls per dtype
+DGMS_CHILD_S = 600  # a child's whole run; then it is killed and the phase fails
+PREVIEW_STEPS, PREVIEW_EVERY = 10, 5
+DGMS_TINY = ["--synthetic", "8", "--dim", "16", "--dim-mults", "1,2", "--image-size", "32"]
+
+
+def dgm_graph_shipped(dev, seed: int) -> dict:
+    """30a: the shipped config (bf16, 128 in microbatches of 32) eagerly
+    (DGMS_EAGER_STEPS after a warm-up) and as a graph (one ``train_steps``
+    call per step: the first an eager step and the capture, DGMS_WARMUP
+    replays, DGMS_TIMED timed); launches per replay at capture and by name
+    in a profiled replay; the idle share within that replay's wall span,
+    unclamped; a profiled eager step's kernels against the replay's; peak
+    memory with the graph's pool."""
+    import dataclasses
+
+    import torch
+
+    from dmhomo_torch.ops import linear_attention as la
+    from dmhomo_torch.train.config import DGMTrainConfig
+    from dmhomo_torch.train.dgm_trainer import DGMTrainer
+
+    base = DGMTrainConfig()
+    B, S = base.train_batch_size, base.diffusion.image_size
+    cfg = dataclasses.replace(base, gradient_accumulate_every=B // DGMS_MICROBATCH)
+    cond, cls = dgm_condition_pool(B, S, base.unet.num_classes, seed + 30, dev)
+    tr = DGMTrainer(cfg, device=dev)
+    tr.init_state(seed + 30)
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    eager = []
+    with PlainLinearAttentionRefused():
+        for _ in range(1 + DGMS_EAGER_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(tr.train_step(cond, cls, generator=gen)["loss"])
+            torch.cuda.synchronize()
+            eager.append(1e3 * (time.perf_counter() - t0))
+    eager_ms = float(np.median(eager[1:]))
+    # a profiled eager step (before the capture: with the graph's pool held
+    # an eager step does not fit) and, below, a profiled replay: the idle
+    # share within each one's own wall span (profiling lengthens the
+    # kernels), and where the eager step's extra device time goes
+    profiled = {"eager": profiled_step(lambda: tr.train_step(cond, cls, generator=gen))}
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts from zero just before it, read just after
+    for fn in (la.linear_attention_pass1, la.linear_attention_pass2):
+        fn.launches = fn.generic = 0
+    times, losses = [], []
+    with PlainLinearAttentionRefused():
+        for _ in range(1 + DGMS_WARMUP + DGMS_TIMED):
+            t0 = time.perf_counter()
+            losses.append(float(tr.train_steps(cond[None], cls[None], generator=gen)[0]))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+    counted = la_counts()
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    graph_ms = float(np.median(times[1 + DGMS_WARMUP:]))
+    sg = tr.step_graph
+    profiled["graph"] = profiled_step(
+        lambda: tr.train_steps(cond[None], cls[None], generator=gen))
+    events, prof_ms = profiled["graph"]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    by_name = {p: sum(e.count for e in events if f"linear_attention_pass{p}" in e.key)
+               for p in (1, 2)}
+    idle = 1.0 - busy / prof_ms
+    eager_events, eager_prof_ms = profiled["eager"]
+    eager_busy = sum(e.self_device_time_total for e in eager_events) / 1e3
+    breakdown = eager_vs_graph_kernels(eager_events, events)
+    per = len(linear_attention_sites(cfg.unet, S)) * cfg.gradient_accumulate_every
+    want = {"linear_attention_pass1": per, "linear_attention_pass2": per,
+            "linear_attention_pass1_generic": 0, "linear_attention_pass2_generic": 0}
+    ok = (sg.launches == want and by_name == {1: per, 2: per} and counted == (per, per)
+          and busy > 0 and np.isfinite(losses).all())
+    log(f"[dgm-steps] shipped config, B={B} in microbatches of {DGMS_MICROBATCH}, bf16: graph "
+        f"step {graph_ms:.2f} ms (timed {', '.join(f'{t:.1f}' for t in times[1 + DGMS_WARMUP:])};"
+        f" the first call, an eager step and the capture, {times[0]:.1f} ms), eager step "
+        f"{eager_ms:.2f} ms (timed {', '.join(f'{t:.1f}' for t in eager[1:])}); "
+        f"{1e3 * B / graph_ms:.3f} vs {1e3 * B / eager_ms:.3f} training samples/s; a profiled "
+        f"replay: device busy {busy:.2f} ms of its {prof_ms:.2f} ms wall span, idle "
+        f"{100 * idle:.2f}% (against the unprofiled median {100 * (1 - busy / graph_ms):.2f}%); "
+        f"a profiled eager step: busy {eager_busy:.2f} ms of {eager_prof_ms:.2f}, idle "
+        f"{100 * (1 - eager_busy / eager_prof_ms):.2f}%; peak {peak / 2**30:.2f} GiB with the "
+        f"graph's pool (reserved {reserved / 2**30:.2f})")
+    log(f"[dgm-steps] device time eager - graph, profiled: {eager_busy - busy:.2f} ms over "
+        f"{breakdown['kernels_eager']} vs {breakdown['kernels_graph']} kernels; the largest "
+        f"differences by kernel name (ms, eager - graph; count eager/graph) "
+        f"{json.dumps(breakdown['largest'])}")
+    log(f"[dgm-steps] linear-attention launches per replay at capture {sg.launches}, by name in "
+        f"the profiled replay pass 1/2 {by_name[1]}/{by_name[2]}; counted over the main path "
+        f"(the first call's eager step; replays run no Python) {counted}; expected {per} of each "
+        f"({per // cfg.gradient_accumulate_every} sites x {cfg.gradient_accumulate_every} "
+        f"microbatches), none generic or plain {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the DGM graph step launched other kernels than the eager step, or "
+                         f"its loss is not finite: {losses}")
+    del tr
+    torch.cuda.empty_cache()
+    return {"graph_step_ms": graph_ms, "graph_times": times, "eager_step_ms": eager_ms,
+            "eager_times": eager, "idle": idle, "busy_ms": busy, "profiled_replay_ms": prof_ms,
+            "eager_busy_ms": eager_busy, "profiled_eager_ms": eager_prof_ms,
+            "eager_vs_graph_kernels": breakdown, "peak_bytes": peak,
+            "reserved_bytes": reserved, "launches_per_replay": sg.launches,
+            "launches_by_name": by_name, "launches_counted": counted, "losses": losses}
+
+
+def profiled_step(step) -> tuple:
+    """One call of ``step`` under torch.profiler: (its device kernels,
+    its wall ms from before the call to the card's end)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with PlainLinearAttentionRefused():
+            step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    return kernel_events(prof.key_averages()), wall
+
+
+def eager_vs_graph_kernels(eager_events, graph_events, top: int = 8) -> dict:
+    """Two profiles' device kernels by name: the counts, and the names whose
+    total device time differs most (eager minus graph, ms)."""
+    def by_name(events):
+        out = {}
+        for e in events:
+            ms, n = out.get(e.key, (0.0, 0))
+            out[e.key] = (ms + e.self_device_time_total / 1e3, n + e.count)
+        return out
+
+    a, b = by_name(eager_events), by_name(graph_events)
+    diff = {k: (a.get(k, (0.0, 0))[0] - b.get(k, (0.0, 0))[0], a.get(k, (0.0, 0))[1],
+                b.get(k, (0.0, 0))[1]) for k in set(a) | set(b)}
+    largest = sorted(diff.items(), key=lambda kv: -abs(kv[1][0]))[:top]
+    return {"kernels_eager": sum(n for _, n in a.values()),
+            "kernels_graph": sum(n for _, n in b.values()),
+            "largest": [(k[:90], round(d, 3), ne, ng) for k, (d, ne, ng) in largest]}
+
+
+def dgm_graph_vs_eager(dev, seed: int) -> dict:
+    """30b: phase 25's fp32 config (full width, 64x64, batch 4 in 2
+    microbatches) with the shipped EMA rule: DGMS_VS_EAGER_STEPS steps by
+    ``train_step`` (twice: the spread of eager runs) and by ``train_steps``
+    (the first eager, then replays), the draws from generators seeded
+    alike: phase 8c's rule; the generators' offsets after the steps equal
+    (each replay drew anew, as each eager step did); then the graph trainer
+    on to DGMS_EMA_STEPS steps: its EMA is its weights after step 10."""
+    import dataclasses
+
+    import torch
+
+    from dmhomo_torch.train.dgm_trainer import DGMTrainer
+
+    cfg, _, _, _ = dgm_dp_setup(seed)
+    cfg = dataclasses.replace(cfg, ema_update_every=10)
+    B, S = cfg.train_batch_size, cfg.diffusion.image_size
+    cond, cls = dgm_condition_pool(B * DGMS_EMA_STEPS, S, cfg.unet.num_classes, seed + 32, dev)
+    cond, cls = cond.reshape(DGMS_EMA_STEPS, B, S, S, 12), cls.reshape(DGMS_EMA_STEPS, B)
+    n = DGMS_VS_EAGER_STEPS
+    runs = {}
+    for name in ("eager", "again", "graph"):
+        tr = DGMTrainer(cfg, device=dev)
+        tr.init_state(seed + 32)
+        gen = torch.Generator(device=dev).manual_seed(seed + 33)
+        with PlainLinearAttentionRefused():
+            if name == "graph":
+                losses = tr.train_steps(cond[:n], cls[:n], generator=gen)
+            else:
+                losses = torch.stack([tr.train_step(cond[k], cls[k], generator=gen)["loss"]
+                                      for k in range(n)])
+        torch.cuda.synchronize()
+        runs[name] = (tr, losses, gen.get_offset())
+
+    def differ(a, b):
+        """Phase 8c's measures without BatchNorm: the losses relative, the
+        weights' largest difference."""
+        (ta, la_, _), (tb, lb, _) = runs[a], runs[b]
+        with torch.no_grad():
+            w = max(float((p - q).abs().max())
+                    for p, q in zip(ta.model.parameters(), tb.model.parameters()))
+        return {"loss_rel": float(((la_ - lb).abs() / lb.abs()).max()), "weight_abs": w}
+
+    d, noise = differ("graph", "eager"), differ("again", "eager")
+    offsets = {k: v[2] for k, v in runs.items()}
+    graph = runs["graph"][0]
+    launches = graph.step_graph.launches
+    graph.train_steps(cond[n:10], cls[n:10], generator=runs["graph"][0].step_graph.generator)
+    after_10 = [p.detach().clone() for p in graph.model.parameters()]
+    graph.train_steps(cond[10:], cls[10:], generator=graph.step_graph.generator)
+    torch.cuda.synchronize()
+    ema_ok = graph.ema.step == graph.step == DGMS_EMA_STEPS and all(
+        torch.equal(e, p) for e, p in zip(graph.ema.params, after_10))
+    ok = (d["loss_rel"] <= GRAPH_LOSS_TOL and d["weight_abs"] <= GRAPH_LR_FACTOR * cfg.lr
+          and offsets["graph"] == offsets["eager"] and ema_ok
+          and launches["linear_attention_pass1"] == 8 * cfg.gradient_accumulate_every)
+    want, got = runs["eager"][1], runs["graph"][1]
+    log(f"[dgm-steps] fp32 {S}x{S}, batch {B} in {cfg.gradient_accumulate_every} microbatches, "
+        f"{n} steps eager vs train_steps (step 1 eager, then replays), draws from generators "
+        f"seeded alike: losses {', '.join(f'{x:.8f}' for x in want.tolist())} vs "
+        f"{', '.join(f'{x:.8f}' for x in got.tolist())}: rel {d['loss_rel']:.3g} (tol "
+        f"{GRAPH_LOSS_TOL:g}); weights max |graph - eager| {d['weight_abs']:.3g} (tol "
+        f"{GRAPH_LR_FACTOR:g} lr = {GRAPH_LR_FACTOR * cfg.lr:g}); two eager runs differ by "
+        f"{json.dumps(noise)}; generator offsets after the steps {offsets} (each replay drew "
+        f"anew); launches per replay {launches}; the EMA after {DGMS_EMA_STEPS} graph steps "
+        f"equals the weights after step 10: {ema_ok} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"the DGM graph step disagrees with the eager one: {d}, offsets "
+                         f"{offsets}, EMA {ema_ok}, launches {launches}")
+    del runs, graph
+    torch.cuda.empty_cache()
+    return {**d, "eager_vs_eager": noise, "generator_offsets": offsets, "ema_ok": ema_ok}
+
+
+def _rank_state(tr) -> dict:
+    """What a trainer stores (its masters, Adam's moments, its EMA), on
+    the CPU, in the UNet's parameter order."""
+    st = tr.optimizer.state
+    return {"masters": [m.detach().cpu().clone() for m in tr.masters],
+            "ema": [e.cpu().clone() for e in tr.ema.params],
+            "moments": [(st[m]["exp_avg"].cpu().clone(), st[m]["exp_avg_sq"].cpu().clone())
+                        for m in tr.masters],
+            "step": tr.step, "ema_step": tr.ema.step}
+
+
+def _same_state(a: dict, b: dict) -> bool:
+    import torch
+
+    return a["step"] == b["step"] and a["ema_step"] == b["ema_step"] and all(
+        torch.equal(x, y) for key in ("masters", "ema") for x, y in zip(a[key], b[key])) and all(
+        torch.equal(x[i], y[i]) for x, y in zip(a["moments"], b["moments"]) for i in (0, 1))
+
+
+def shard_rank(rank: int, world: int, model: int, root: str, backend: str, seed: int,
+               check: bool, dev=None) -> None:
+    """30c, one rank (a child process of the phase): joins the group
+    through ``root``, makes the (world / model, model) mesh; with ``check``,
+    phase 25's fp32 step with ``shard_params`` on its data index's rows and
+    the global draws, what it stores, and its checkpoint saved (rank 0
+    writes) and loaded back into a new sharded trainer; writes
+    ``root/rank<rank>.pt``.  With ``nccl`` (a card each), then
+    :func:`shard_speed`."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from dmhomo_torch.parallel import distributed as pd
+    from dmhomo_torch.parallel.mesh import make_mesh, shard_batch
+    from dmhomo_torch.train.dgm_trainer import DGMTrainer
+
+    speed = backend == "nccl"
+    dev = dev or torch.device("cuda", rank if speed else 0)
+    pd.maybe_initialize_distributed(backend=backend, init_method=f"file://{root}/pg",
+                                    world_size=world, rank=rank, device=dev,
+                                    timeout_s=DP_TIMEOUT_S)
+    try:
+        mesh = make_mesh(model=model)
+        out = {"backend": dist.get_backend(), "world": world, "device": str(dev),
+               "mesh": (mesh.data, mesh.model, mesh.data_index, mesh.model_index)}
+        if check:
+            dcfg, cond, cls, draws = dgm_dp_setup(seed)
+            cfg = dataclasses.replace(dcfg, shard_params=True,
+                                      results_dir=os.path.join(root, "ckpt"))
+            tr = DGMTrainer(cfg, mesh=mesh, device=dev)
+            tr.init_state(seed + 27)
+            rows = [shard_batch(x, mesh.data_index, mesh.data, cfg.gradient_accumulate_every)
+                    for x in (cond, cls)]
+            c0 = la_counts()
+            with PlainLinearAttentionRefused():
+                loss = tr.loss_and_grads(*rows, draws=draws)
+            launches = tuple(b - a for a, b in zip(c0, la_counts()))
+            grads = {n: p.grad.detach().cpu().clone() for n, p in tr.model.named_parameters()}
+            upd = tr.apply_gradients()
+            sd = tr.state_dict()
+            names = [n for n, _ in tr.model.named_parameters()]
+            out["dgm"] = {
+                "loss": float(loss), "grads": grads, "launches": launches,
+                "grad_norm": float(upd["grad_norm"]),
+                "params": [sd["model"][f"model.{n}"] for n in names],
+                "ema_is_params": all(torch.equal(sd["ema"][f"ema_model.model.{n}"],
+                                                 sd["model"][f"model.{n}"]) for n in names),
+                "stored": tr.stored_elements(),
+                "per_leaf": {n: (m.numel(), e.numel(), p.numel()) for n, m, e, p in
+                             zip(names, tr.masters, tr.ema.params, tr.model.parameters())}}
+            out["ckpt"] = tr.save()
+            kept = _rank_state(tr)
+            back = DGMTrainer(cfg, mesh=mesh, device=dev)
+            back.init_state(seed + 99)
+            back.load()
+            out["roundtrip"] = _same_state(_rank_state(back), kept)
+            del tr, back
+            torch.cuda.empty_cache()
+        torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+        if speed:
+            shard_speed(rank, world, mesh, root, dev, seed, replicated_too=check)
+    finally:
+        dist.destroy_process_group()
+
+
+def _timed_graph_steps(tr, cond, cls, gen, warmup: int, timed: int):
+    """One ``train_steps`` call per step: (median ms of the timed, all,
+    the losses)."""
+    import torch
+
+    times, losses = [], []
+    for _ in range(1 + warmup + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(tr.train_steps(cond[None], cls[None], generator=gen)[0]))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times[1 + warmup:])), times, losses
+
+
+def shard_graph_vs_eager(mesh, dev, seed: int) -> dict:
+    """30c under ``nccl``, one rank: phase 25's fp32 config with
+    ``shard_params`` over ``mesh`` (an EMA update every step),
+    DGMS_VS_EAGER_STEPS steps by ``train_step`` and by ``train_steps`` (the
+    first eager, then replays of a graph that holds the gathers, the data
+    group's sum and the model group's sum of the clip norm), on this rank's
+    rows, the draws from generators seeded alike by the data index, and a
+    second eager run beside them (the spread of eager runs: kernel 3's
+    atomic sums and Adam's first steps, which follow the signs of
+    near-zero gradients): the measures of phase 8c's rule on the losses
+    and on this rank's slices of the weights and the EMA, the generators'
+    offsets, the launches."""
+    import dataclasses
+
+    import torch
+
+    from dmhomo_torch.parallel.mesh import shard_stacked_batch
+    from dmhomo_torch.train.dgm_trainer import DGMTrainer
+
+    cfg, _, _, _ = dgm_dp_setup(seed)
+    cfg = dataclasses.replace(cfg, shard_params=True)
+    B, S, n = cfg.train_batch_size, cfg.diffusion.image_size, DGMS_VS_EAGER_STEPS
+    cond, cls = dgm_condition_pool(B * n, S, cfg.unet.num_classes, seed + 36, dev)
+    cond, cls = (shard_stacked_batch(x.reshape(n, B, *x.shape[1:]), mesh.data_index, mesh.data,
+                                     cfg.gradient_accumulate_every) for x in (cond, cls))
+    runs = {}
+    for name in ("eager", "again", "graph"):
+        tr = DGMTrainer(cfg, mesh=mesh, device=dev)
+        tr.init_state(seed + 36)
+        gen = torch.Generator(device=dev).manual_seed(seed + 37 + mesh.data_index)
+        with PlainLinearAttentionRefused():
+            if name == "graph":
+                losses = tr.train_steps(cond, cls, generator=gen)
+            else:
+                losses = torch.stack([tr.train_step(cond[k], cls[k], generator=gen)["loss"]
+                                      for k in range(n)])
+        torch.cuda.synchronize()
+        runs[name] = {"losses": losses.cpu(), "masters": [m.detach().cpu() for m in tr.masters],
+                      "ema": [e.cpu() for e in tr.ema.params], "offset": gen.get_offset(),
+                      "launches": None if tr.step_graph is None else tr.step_graph.launches}
+        del tr
+        torch.cuda.empty_cache()
+    def differ(a, b):
+        return {"loss_rel": float(((a["losses"] - b["losses"]).abs() / b["losses"].abs()).max()),
+                "weight_abs": max(float((x - y).abs().max())
+                                  for x, y in zip(a["masters"], b["masters"])),
+                "ema_abs": max(float((x - y).abs().max()) for x, y in zip(a["ema"], b["ema"]))}
+
+    e, g = runs["eager"], runs["graph"]
+    return {"losses_eager": e["losses"].tolist(), "losses_graph": g["losses"].tolist(),
+            **differ(g, e), "eager_vs_eager": differ(runs["again"], e),
+            "offsets": [r["offset"] for r in runs.values()], "launches_per_replay": g["launches"],
+            "accum": cfg.gradient_accumulate_every, "lr": cfg.lr, "mesh": mesh.shape}
+
+
+def shard_loss_tol(c: dict) -> float:
+    """Phase 8c's loss tolerance, or STEP_NOISE_FACTOR times the two eager
+    runs' spread where that is the larger (phase 25's noise rule)."""
+    return max(GRAPH_LOSS_TOL, STEP_NOISE_FACTOR * c["eager_vs_eager"]["loss_rel"])
+
+
+def shard_graph_ok(c: dict) -> bool:
+    """Phase 8c's rule on :func:`shard_graph_vs_eager`'s measures, the
+    losses against :func:`shard_loss_tol`."""
+    per = 8 * c["accum"]
+    return (np.isfinite(c["losses_graph"]).all() and c["loss_rel"] <= shard_loss_tol(c)
+            and c["weight_abs"] <= GRAPH_LR_FACTOR * c["lr"]
+            and c["ema_abs"] <= GRAPH_LR_FACTOR * c["lr"] and len(set(c["offsets"])) == 1
+            and c["launches_per_replay"] == {
+                "linear_attention_pass1": per, "linear_attention_pass2": per,
+                "linear_attention_pass1_generic": 0, "linear_attention_pass2_generic": 0})
+
+
+def shard_speed(rank: int, world: int, mesh, root: str, dev, seed: int,
+                replicated_too: bool) -> None:
+    """30c, one rank on its own card: first :func:`shard_graph_vs_eager`;
+    then the shipped DGM step (bf16, global batch 128, microbatches of
+    DGMS_MICROBATCH per rank) as a graph with ``shard_params`` over
+    ``mesh``; with ``replicated_too``, first the same step replicated over
+    the ranks' ``data`` axis (``make_mesh()``).  Step times, the losses,
+    per-rank peak memory and what the rank stores; writes
+    ``root/speed<rank>.json``."""
+    import dataclasses
+
+    import torch
+
+    from dmhomo_torch.parallel import distributed as pd
+    from dmhomo_torch.parallel.mesh import make_mesh, shard_batch
+    from dmhomo_torch.train.config import DGMTrainConfig
+    from dmhomo_torch.train.dgm_trainer import DGMTrainer
+
+    base = DGMTrainConfig()
+    B, S = base.train_batch_size, base.diffusion.image_size
+    cond, cls = dgm_condition_pool(B, S, base.unet.num_classes, seed + 34, dev)
+    out = {"graph_vs_eager": shard_graph_vs_eager(mesh, dev, seed)}
+    for name, m, shard in ((("replicated", make_mesh(), False),) if replicated_too else ()) + (
+            ("sharded", mesh, True),):
+        accum = B // m.data // DGMS_MICROBATCH
+        cfg = dataclasses.replace(base, gradient_accumulate_every=accum, shard_params=shard)
+        rows = [shard_batch(x, m.data_index, m.data, accum) for x in (cond, cls)]
+        tr = DGMTrainer(cfg, mesh=m, device=dev)
+        tr.init_state(seed + 34)
+        gen = torch.Generator(device=dev).manual_seed(seed + 35 + m.data_index)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        pd.all_reduce_(torch.zeros(1, device=dev))  # start together
+        ms, times, losses = _timed_graph_steps(tr, *rows, gen, SHARD_SPEED_WARMUP,
+                                               SHARD_SPEED_TIMED)
+        out[name] = {"mesh": m.shape, "step_ms": ms, "times": times, "losses": losses,
+                     "accum": accum,
+                     "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                     "stored": tr.stored_elements(),
+                     "launches_per_replay": tr.step_graph.launches}
+        del tr
+        torch.cuda.empty_cache()
+    with open(os.path.join(root, f"speed{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _start_children(args_of, n: int):
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), *args_of(r)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(n)]
+
+
+def _join(procs, what: str, timeout: float = DGMS_CHILD_S) -> list:
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise SystemExit(f"{what} {i} failed ({p.returncode}):\n{text[-4000:]}")
+    return logs
+
+
+def dgm_shard_params(dev, seed: int, tmp: str) -> dict:
+    """30c: (data 1, model SHARD_MODEL) in child processes (``nccl`` with a
+    card each when there are 2, else ``gloo`` on card 0), phase 25's fp32
+    step with ``shard_params`` against one process under phase 25's rule;
+    each rank's share of the sharded leaves' parameter, Adam and EMA
+    elements; the checkpoint (one file) loaded back by the ranks and by one
+    process.  With 2 cards the shipped step sharded over (1, 2) beside the
+    replicated 2-card step; with 4, also over (2, 2)."""
+    import dataclasses
+
+    import torch
+
+    from dmhomo_torch.train.dgm_trainer import DGMTrainer
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= SHARD_MODEL else "gloo"
+    root = os.path.join(tmp, "shard")
+    os.makedirs(root)
+
+    def child(world, model, d, check):
+        return lambda r: ["--seed", str(seed), "--shard-rank", str(r), "--shard-world",
+                          str(world), "--shard-model", str(model), "--shard-dir", d,
+                          "--shard-backend", backend] + (["--shard-check"] if check else [])
+
+    procs = _start_children(child(SHARD_MODEL, SHARD_MODEL, root, True), SHARD_MODEL)
+    # meanwhile, one process: the same seeds and draws
+    dcfg, cond, cls, draws = dgm_dp_setup(seed)
+    nudged = (cond + STEP_INPUT_NOISE * np.random.default_rng(seed).normal(size=cond.shape)
+              ).astype(np.float32)
+    dt = DGMTrainer(dcfg, device=dev)
+    dt.init_state(seed + 27)
+    dt.loss_and_grads(nudged, cls, draws=draws)
+    g_nudged = {n: p.grad.detach().cpu().clone() for n, p in dt.model.named_parameters()}
+    want_loss = float(dt.loss_and_grads(cond, cls, draws=draws))
+    g_want = {n: p.grad.detach().cpu().clone() for n, p in dt.model.named_parameters()}
+    upd = dt.apply_gradients()
+    p_want = [p.detach().cpu() for p in dt.model.parameters()]
+    del dt
+    _join(procs, "shard_params rank")
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+             for r in range(SHARD_MODEL)]
+    out = {"backend": backend, "cards": cards, "ranks": []}
+    for r, got in enumerate(ranks):
+        g = got["dgm"]
+        loss_rel = abs(g["loss"] - want_loss) / abs(want_loss)
+        rels = {n: float((g["grads"][n] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+                for n, v in g_want.items()}
+        tols = {n: max(STEP_GRAD_TOL, STEP_NOISE_FACTOR * float((g_nudged[n] - v).abs().max())
+                       / max(float(v.abs().max()), 1e-30)) for n, v in g_want.items()}
+        bad = [n for n in rels if not rels[n] <= tols[n]]
+        diff = torch.cat([(a - b).abs().flatten() for a, b in zip(g["params"], p_want)])
+        norm_rel = abs(g["grad_norm"] - float(upd["grad_norm"])) / float(upd["grad_norm"])
+        st = g["stored"]
+        share = {"params": st["sharded_stored"] / st["sharded_full"]}
+        halves = all(m * SHARD_MODEL == p and e == m for m, e, p in g["per_leaf"].values()
+                     if m != p)
+        share["adam"] = (st["adam"] / 2 - st["replicated"]) / st["sharded_full"]
+        share["ema"] = (st["ema"] - st["replicated"]) / st["sharded_full"]
+        worst = max(rels, key=lambda n: rels[n] / tols[n])
+        ok = (not bad and loss_rel <= STEP_LOSS_TOL and norm_rel <= STEP_GRAD_TOL
+              and float(diff.max()) <= 2 * dcfg.lr + 1e-6
+              and float((diff > 1e-6).float().mean()) < 0.01 and g["ema_is_params"]
+              and g["launches"] == (8 * dcfg.gradient_accumulate_every,) * 2 and got["roundtrip"]
+              and halves and all(abs(v - 1 / SHARD_MODEL) < 1e-12 for v in share.values())
+              and got["backend"] == backend)
+        log(f"[dgm-shard] rank {r} {got['mesh']} (data, model, data index, model index) on "
+            f"{got['device']}, {backend}: fp32 step with shard_params against one process: loss "
+            f"rel {loss_rel:.3g} (tol {STEP_LOSS_TOL:g}); closest gradient {worst} "
+            f"{rels[worst]:.3g} (tol {tols[worst]:.3g}); global norm rel {norm_rel:.3g}; "
+            f"weights after Adam max {float(diff.max()):.3g} (2 lr = {2 * dcfg.lr:g}); EMA = "
+            f"weights {g['ema_is_params']}; linear-attention launches {g['launches']}; stores "
+            f"{st['sharded_leaves']} of {st['leaves']} leaves sharded: share of their elements "
+            f"held {json.dumps(share)} (each sharded leaf halved: {halves}); replicated "
+            f"{st['replicated']:,} elements; checkpoint saved and loaded back by the ranks: "
+            f"{got['roundtrip']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"rank {r}: the shard_params step or its state disagrees: loss "
+                             f"{loss_rel}, gradients {[(n, rels[n], tols[n]) for n in bad]}, "
+                             f"norm {norm_rel}, share {share}")
+        out["ranks"].append({"loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+                             "param_max_diff": float(diff.max()), "share": share,
+                             "stored": st, "mesh": got["mesh"]})
+    files = sorted(os.listdir(os.path.join(root, "ckpt")))
+    one = DGMTrainer(dataclasses.replace(dcfg, results_dir=os.path.join(root, "ckpt")),
+                     device=dev)
+    one.init_state(seed + 98)
+    one.load()
+    loaded = [p.detach().cpu() for p in one.model.parameters()]
+    same = files == ["model-1.pt"] and all(torch.equal(a, b) for a, b in
+                                           zip(loaded, ranks[0]["dgm"]["params"]))
+    log(f"[dgm-shard] checkpoint files {files}; loaded into one replicated trainer: the ranks' "
+        f"gathered weights {same}")
+    if not same:
+        raise SystemExit("the sharded checkpoint did not load into a replicated trainer")
+    del one
+    torch.cuda.empty_cache()
+    out["checkpoint_loads_replicated"] = same
+    if backend != "nccl":
+        log(f"[dgm-shard] the shipped step sharded over (1, {SHARD_MODEL}): not run ({cards} "
+            f"card(s); ranks sharing one card measure no step)")
+        return out
+    speeds = [json.load(open(os.path.join(root, f"speed{r}.json"))) for r in range(SHARD_MODEL)]
+    out["speed"] = {"1x2": speeds}
+    if cards >= 4:
+        root4 = os.path.join(tmp, "shard4")
+        os.makedirs(root4)
+        _join(_start_children(child(4, SHARD_MODEL, root4, False), 4), "(2, 2) rank")
+        out["speed"]["2x2"] = [json.load(open(os.path.join(root4, f"speed{r}.json")))
+                               for r in range(4)]
+    for name, ranks_speed in out["speed"].items():
+        checks = [s["graph_vs_eager"] for s in ranks_speed]
+        ok = all(shard_graph_ok(c) for c in checks)
+        log(f"[dgm-shard] fp32 {DGM_CPU_SIZE}x{DGM_CPU_SIZE} step with shard_params over mesh "
+            f"{checks[0]['mesh']}, {DGMS_VS_EAGER_STEPS} steps eager vs train_steps (step 1 "
+            f"eager, then replays of a graph holding the gathers and the collectives), draws "
+            f"from generators seeded alike, per rank: losses rel "
+            f"{[c['loss_rel'] for c in checks]} (tol {[shard_loss_tol(c) for c in checks]}: "
+            f"{GRAPH_LOSS_TOL:g}, or {STEP_NOISE_FACTOR:g} x the two eager runs' "
+            f"{[c['eager_vs_eager']['loss_rel'] for c in checks]}); weight slices max "
+            f"{[c['weight_abs'] for c in checks]} (eager runs "
+            f"{[c['eager_vs_eager']['weight_abs'] for c in checks]}), EMA slices max "
+            f"{[c['ema_abs'] for c in checks]} (tol {GRAPH_LR_FACTOR:g} lr = "
+            f"{GRAPH_LR_FACTOR * checks[0]['lr']:g}); generator offsets (eager, again, graph) "
+            f"{[c['offsets'] for c in checks]}; launches per replay "
+            f"{checks[0]['launches_per_replay']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"the sharded graph step disagrees with the eager one: {checks}")
+        for kind in ("replicated", "sharded"):
+            rows = [s[kind] for s in ranks_speed if kind in s]
+            if not rows:
+                continue
+            if not all(np.isfinite(r["losses"]).all() for r in rows):
+                raise SystemExit(f"the shipped {kind} step's losses over {name} are not finite: "
+                                 f"{[r['losses'] for r in rows]}")
+            log(f"[dgm-shard] shipped DGM step ({kind}, mesh {rows[0]['mesh']}, {len(rows)} "
+                f"cards, bf16, global batch 128, microbatches of {DGMS_MICROBATCH} per rank, "
+                f"accum {rows[0]['accum']}) as a graph: "
+                f"{max(r['step_ms'] for r in rows):.2f} ms (per rank "
+                f"{[round(r['step_ms'], 2) for r in rows]}), per-rank peak "
+                f"{[round(r['peak_bytes'] / 2**30, 2) for r in rows]} GiB; losses (finite) "
+                f"{rows[0]['losses']}; stored elements "
+                f"{rows[0]['stored']}; launches per replay {rows[0]['launches_per_replay']}")
+    return out
+
+
+def _png_ok(path: str) -> dict:
+    """A PNG's signature, IHDR size and IDAT inflating to H * (1 + 3W) bytes."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    ok = data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, {}
+    while ok and pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        chunks[data[pos + 4:pos + 8]] = chunks.get(data[pos + 4:pos + 8], b"") + \
+            data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    w, h = struct.unpack(">II", chunks[b"IHDR"][:8])
+    raw = zlib.decompress(chunks[b"IDAT"])
+    return {"ok": ok and len(raw) == h * (1 + 3 * w), "w": w, "h": h}
+
+
+def start_preview_child(tmp: str):
+    """30d's training child: ``dgm_train`` at a small config, PREVIEW_STEPS
+    steps by ``--fuse-steps 5``, previews every PREVIEW_EVERY."""
+    results = os.path.join(tmp, "train")
+    cmd = [sys.executable, "-m", "dmhomo_torch.cli.dgm_train", *DGMS_TINY, "--batch-size", "4",
+           "--accum", "2", "--steps", str(PREVIEW_STEPS), "--save-every", str(PREVIEW_EVERY),
+           "--fuse-steps", str(PREVIEW_EVERY), "--preview-every", str(PREVIEW_EVERY),
+           "--results", results]
+    cwd = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(cmd, cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), results
+
+
+def dgm_previews(train_proc, results: str, tmp: str) -> dict:
+    """30d: the training child's previews and logged photometric errors,
+    then ``dgm_sample --ckpt <its root> --preview-every 1``."""
+    t0 = time.perf_counter()
+    train_log = _join([train_proc], "dgm_train child")[0]
+    errs = [float(x) for x in re.findall(r"photometric error (\S+)", train_log)]
+    cmd = [sys.executable, "-m", "dmhomo_torch.cli.dgm_sample", "--ckpt", results, *DGMS_TINY,
+           "--s-step", "4", "--bs", "2", "--batches", "2", "--exp", "e", "--preview-every", "1",
+           "--out", os.path.join(tmp, "gen")]
+    sample = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    sample_log = _join([sample], "dgm_sample child")[0]
+    previews = {os.path.relpath(p, tmp): _png_ok(p) for p in sorted(
+        [os.path.join(results, "previews", f) for f in os.listdir(os.path.join(results, "previews"))]
+        + [os.path.join(tmp, "gen", "e", "previews", f)
+           for f in os.listdir(os.path.join(tmp, "gen", "e", "previews"))])}
+    want = [f"train/previews/sample-{s}.png" for s in range(PREVIEW_EVERY, PREVIEW_STEPS + 1,
+                                                             PREVIEW_EVERY)] + \
+        [f"gen/e/previews/shard_00_batch_{b:05d}.png" for b in range(2)]
+    ok = (sorted(previews) == sorted(want) and all(v["ok"] for v in previews.values())
+          and len(errs) == len(want) - 2 and np.isfinite(errs).all()
+          and "loaded reference checkpoint" in sample_log)
+    log(f"[dgm-previews] dgm_train --fuse-steps {PREVIEW_EVERY} --preview-every {PREVIEW_EVERY} "
+        f"({PREVIEW_STEPS} steps) and dgm_sample --ckpt <its root> --preview-every 1 in child "
+        f"processes, both exit 0: previews {json.dumps(previews)}; photometric errors {errs} "
+        f"{'ok' if ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s after training started)")
+    if not ok:
+        raise SystemExit(f"previews: {previews}, errors {errs}\n{train_log[-2000:]}\n"
+                         f"{sample_log[-2000:]}")
+    return {"previews": previews, "photometric_errors": errs}
+
+
+def dgm_step_spread(dev, seed: int) -> dict:
+    """30e, no gate: how far one DGM step's gradients move from run to run
+    on the card.  The small config of ``tests/test_torch_dgm_train_cli.py``'s
+    remat test (dim 16, mults (1, 2), 32x32, batch 4 in 2 microbatches,
+    fp32) with the same draws, DGMS_SPREAD_RUNS fresh trainers each without
+    remat, with remat, and without remat under cuDNN's deterministic
+    algorithms: each run's largest gradient difference from the first run
+    without remat, relative to that gradient's largest value; then
+    kernel 3's sums at that config's 16x16 sites (B 2, N 256, C 32) over
+    DGMS_SPREAD_RUNS calls on one input, in both dtypes: how many differ
+    bitwise from the first call (its blocks add into the sums atomically).
+    Its launches are taken back off the counters: no main path runs here."""
+    import torch
+
+    from dmhomo_torch.diffusion.gaussian import DiffusionConfig
+    from dmhomo_torch.models.unet import UNetConfig
+    from dmhomo_torch.ops import linear_attention as la
+    from dmhomo_torch.train.config import DGMTrainConfig
+    from dmhomo_torch.train.dgm_trainer import DGMTrainer
+
+    counters = [(fn, fn.launches, fn.generic)
+                for fn in (la.linear_attention_pass1, la.linear_attention_pass2)]
+    rng = np.random.default_rng(seed + 38)
+    cond, cls = dgm_condition_pool(4, 32, 2, seed + 38, dev)
+    draws = [(rng.integers(0, 1000, (2,)), rng.normal(size=(2, 32, 32, 6)).astype(np.float32),
+              np.array([True, False])) for _ in range(2)]
+    runs = {}
+    for mode in ("no_remat", "remat", "no_remat_cudnn_deterministic"):
+        cfg = DGMTrainConfig(unet=UNetConfig(dim=16, dim_mults=(1, 2), num_classes=2,
+                                             remat=mode == "remat"),
+                             diffusion=DiffusionConfig(image_size=32, sampling_timesteps=4),
+                             train_batch_size=4, gradient_accumulate_every=2, bf16=False)
+        torch.backends.cudnn.deterministic = mode.endswith("deterministic")
+        try:
+            for _ in range(DGMS_SPREAD_RUNS):
+                tr = DGMTrainer(cfg, device=dev)
+                tr.init_state(seed + 38)
+                with PlainLinearAttentionRefused():
+                    loss = float(tr.loss_and_grads(cond, cls, draws=draws))
+                runs.setdefault(mode, []).append((loss, {
+                    n: p.grad.detach().cpu().clone() for n, p in tr.model.named_parameters()}))
+        finally:
+            torch.backends.cudnn.deterministic = False
+    ref = runs["no_remat"][0][1]
+
+    def worst(grads):
+        return max((float((g - ref[n]).abs().max()) / (float(ref[n].abs().max()) + 1e-30), n)
+                   for n, g in grads.items())
+
+    # the first run without remat is the reference
+    spread = {mode: [worst(g) for _, g in (rs[1:] if mode == "no_remat" else rs)]
+              for mode, rs in runs.items()}
+    losses = sorted({loss for rs in runs.values() for loss, _ in rs})
+    gen = torch.Generator(device=dev).manual_seed(seed + 39)
+    x32 = torch.randn(2, 32, 256, device=dev, generator=gen).transpose(1, 2)
+    w = torch.randn(32, 384, device=dev, generator=gen) * 32 ** -0.5
+    g = torch.rand(32, device=dev, generator=gen) + 0.5
+    sums = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = x32.to(dt)
+        outs = []
+        for _ in range(DGMS_SPREAD_RUNS):
+            s = torch.zeros(2, la.sums_width(4, 32), device=dev)
+            la.linear_attention_pass1(x, w, g, torch.empty(2, 256, device=dev),
+                                      torch.empty(2, 256, device=dev), True, s)
+            outs.append(s)
+        sums[str(dt)[6:]] = {
+            "differ_bitwise": sum(not torch.equal(o, outs[0]) for o in outs[1:]),
+            "max_rel": max(float((o - outs[0]).abs().max() / outs[0].abs().max())
+                           for o in outs[1:])}
+    for fn, launches, generic in counters:
+        fn.launches, fn.generic = launches, generic
+    log(f"[dgm-steps] run-to-run spread of one fp32 step (dim 16, 32x32, batch 4 in 2 "
+        f"microbatches, the same draws), {DGMS_SPREAD_RUNS} fresh trainers each: distinct losses "
+        f"{losses}; each run's largest gradient difference from the first run without remat, "
+        f"relative to that gradient's largest value: {json.dumps(spread)}; kernel 3's sums "
+        f"(B 2, N 256, C 32) over {DGMS_SPREAD_RUNS} calls on one input: {json.dumps(sums)}")
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"the small DGM step's loss is not finite: {losses}")
+    return {"losses": losses, "grad_spread": spread, "kernel3_sums": sums}
+
+
+def phase_dgm_steps(dev, seed: int) -> dict:
+    """Phase 30, under a temporary directory in ``build/``."""
+    import tempfile
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dgm_steps_", dir=build) as tmp:
+        shipped = dgm_graph_shipped(dev, seed)
+        train_proc, results = start_preview_child(tmp)
+        try:
+            vs_eager = dgm_graph_vs_eager(dev, seed)
+            shard = dgm_shard_params(dev, seed, tmp)
+            spread = dgm_step_spread(dev, seed)
+        except BaseException:
+            train_proc.kill()
+            train_proc.wait()
+            raise
+        previews = dgm_previews(train_proc, results, tmp)
+    out = {"shipped": shipped, "vs_eager": vs_eager, "shard_params": shard, "spread": spread,
+           "previews": previews, "phase_s": time.perf_counter() - t0}
+    log(f"[dgm-steps] phase 30 {out['phase_s']:.1f} s")
+    log("[dgm-steps-summary] " + json.dumps(out, default=str))
+    return out
+
+
+def dgm_steps_summary(d: dict, phase22_ms) -> None:
+    """One line: phase 30's graph step beside the eager step."""
+    sh = d["shipped"]
+    beside = "" if phase22_ms is None else f"; phase 22's eager step {phase22_ms:.2f} ms"
+    log(f"[summary] DGM graph step (phase 30): {sh['graph_step_ms']:.2f} ms, eager "
+        f"{sh['eager_step_ms']:.2f} ms in this phase{beside}; idle {100 * sh['idle']:.2f}%, peak "
+        f"{sh['peak_bytes'] / 2**30:.2f} GiB with the graph's pool; launches per replay "
+        f"{sh['launches_per_replay']}; graph vs eager (fp32) {json.dumps(d['vs_eager'])}; "
+        f"shard_params ({d['shard_params']['backend']}) shares "
+        f"{[r['share'] for r in d['shard_params']['ranks']]}; previews "
+        f"{len(d['previews']['previews'])}; phase {d['phase_s']:.1f} s")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -5027,6 +5849,20 @@ def main(argv=None):
     parser.add_argument("--only-uncond", action="store_true",
                         help="phases 1-2 (device, build), then phase 29 alone; prints no "
                              "final line")
+    parser.add_argument("--only-dgm-steps", action="store_true",
+                        help="phases 1-2 (device, build), then phase 30 alone; prints no "
+                             "final line")
+    parser.add_argument("--only-shard-params", action="store_true",
+                        help="phases 1-2 (device, build), then phase 30c alone (the path "
+                             "across cards); prints no final line")
+    parser.add_argument("--shard-rank", type=int, default=None,
+                        help="phase 30's child: this rank of --shard-world, through --shard-dir")
+    parser.add_argument("--shard-world", type=int, default=SHARD_MODEL)
+    parser.add_argument("--shard-model", type=int, default=SHARD_MODEL)
+    parser.add_argument("--shard-dir", type=str, default=None)
+    parser.add_argument("--shard-backend", type=str, default="gloo", choices=("nccl", "gloo"))
+    parser.add_argument("--shard-check", action="store_true",
+                        help="phase 30's child: the fp32 step and checkpoint checks too")
     args = parser.parse_args(argv)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if args.streamed_step_copies:
@@ -5038,6 +5874,10 @@ def main(argv=None):
     if args.tiny_train_child:
         attn, fuse = args.tiny_train_child.split(",")
         print(json.dumps(tiny_train_child(attn, int(fuse), args.seed)), flush=True)
+        return
+    if args.shard_rank is not None:
+        shard_rank(args.shard_rank, args.shard_world, args.shard_model, args.shard_dir,
+                   args.shard_backend, args.seed, args.shard_check)
         return
     t_start = time.perf_counter()
 
@@ -5056,6 +5896,20 @@ def main(argv=None):
         return
     if args.only_uncond:
         uncond_summary(phase_uncond(dev, args.seed))
+        log(smi)
+        return
+    if args.only_dgm_steps:
+        dgm_steps_summary(phase_dgm_steps(dev, args.seed), None)
+        log(smi)
+        return
+    if args.only_shard_params:
+        import tempfile
+
+        build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+        os.makedirs(build, exist_ok=True)
+        with tempfile.TemporaryDirectory(prefix="dgm_shard_", dir=build) as tmp:
+            log("[dgm-shard-summary] " + json.dumps(dgm_shard_params(dev, args.seed, tmp),
+                                                    default=str))
         log(smi)
         return
     wa_sass, wa_atomics = phase_window_sass()
@@ -5160,6 +6014,8 @@ def main(argv=None):
     generic = phase_generic(dev, pairs, train_batch, args.seed)
     torch.cuda.empty_cache()
     uncond = phase_uncond(dev, args.seed)
+    torch.cuda.empty_cache()
+    dgm_steps = phase_dgm_steps(dev, args.seed)
 
     # per-forward totals at the eval path's dtype (fp32) and launch mix
     main = [r for r in results if r["dtype"] == "float32"]
@@ -5466,6 +6322,11 @@ def main(argv=None):
     for entry, g in zip(la_kernels, generic_la_entries(uncond)):
         entry["generic"] = g
     uncond_summary(uncond)
+    # the DGM step as a CUDA graph (phase 30): launches per replay
+    for p, entry in enumerate(la_kernels, start=1):
+        entry["launches_per_dgm_graph_step"] = dgm_steps["shipped"]["launches_per_replay"][
+            f"linear_attention_pass{p}"]
+    dgm_steps_summary(dgm_steps, dgm["step_ms"])
     log(smi)  # nvidia-smi: card name, power limit
     log(json.dumps({"kernels": [kernel, bwd_kernel] + la_kernels + [sb_kernel, sbb_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -5,16 +5,22 @@ Each batch of conditions drives one DDIM chain through the conditional UNet
 their homographies fitted (``fit_homography_to_flow``), and the pairs land
 in reference-format shards (CHW uint8) under ``OUT/EXP/dataset``.
 --shard-index / --num-shards slice the condition set, one process per card.
+--preview-every N writes the warp-consistency panel grid of every Nth
+batch to ``OUT/EXP/previews/shard_XX_batch_XXXXX.png``.
 
 Examples:
   python -m dmhomo_torch.cli.dgm_sample --torch-ckpt DGM.pt --conditions cache \\
       --s-step 32 --bs 25 --exp generate_trainset
+  python -m dmhomo_torch.cli.dgm_sample --ckpt results/dgm --conditions cache \\
+      --exp generate_trainset --preview-every 10
   python -m dmhomo_torch.cli.dgm_sample --synthetic 64 --exp smoke --batches 2
   python -m dmhomo_torch.cli.dgm_sample --synthetic 8 --dim 8 --dim-mults 1,2 \\
       --image-size 16 --s-step 4 --bs 2 --exp smoke --batches 2 --device cpu
 
-Runs on ``cuda`` (raises without a card) unless ``--device cpu``.  Without
---torch-ckpt the weights are random, drawn from --seed.
+Runs on ``cuda`` (raises without a card) unless ``--device cpu``.  The
+weights are the EMA of the newest ``model-<step>.pt`` under --ckpt (the
+port trainer's checkpoint root) or of a reference DGM.pt (--torch-ckpt);
+without either they are random, drawn from --seed.
 """
 
 from __future__ import annotations
@@ -67,7 +73,10 @@ def generate(gd, cond: torch.Tensor, classes: torch.Tensor, generator=None):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--torch-ckpt", type=str, default=None, help="reference DGM.pt")
+    ckpt = parser.add_mutually_exclusive_group()
+    ckpt.add_argument("--ckpt", type=str, default=None,
+                      help="the port trainer's checkpoint root: its newest model-<step>.pt")
+    ckpt.add_argument("--torch-ckpt", type=str, default=None, help="reference DGM.pt")
     parser.add_argument("--conditions", type=str, default=None, help="condition cache dir")
     parser.add_argument("--synthetic", type=int, default=0, help="N synthetic conditions")
     parser.add_argument("--s-step", type=int, default=32)
@@ -86,6 +95,8 @@ def main(argv=None):
     parser.add_argument("--cond-scale", type=float, default=3.0)
     parser.add_argument("--out", type=str, default="traindata")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--preview-every", type=int, default=0, metavar="N",
+                        help="every N batches, write a warp-consistency sample-panel PNG; 0 = off")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
@@ -123,15 +134,23 @@ def main(argv=None):
     if args.batches:
         max_batches = min(max_batches, args.batches)
 
+    torch_ckpt = args.torch_ckpt
+    if args.ckpt:
+        from dmhomo_torch.train.dgm_trainer import checkpoint_steps
+
+        steps = checkpoint_steps(args.ckpt)
+        if not steps:
+            raise FileNotFoundError(f"no model-<step>.pt under {args.ckpt}")
+        torch_ckpt = os.path.join(args.ckpt, f"model-{max(steps)}.pt")
     gd = build_sampler(args.dim, [int(m) for m in args.dim_mults.split(",")], args.num_classes,
                        args.image_size, args.s_step, args.cond_scale, device=device,
-                       seed=args.seed, torch_ckpt=args.torch_ckpt)
+                       seed=args.seed, torch_ckpt=torch_ckpt)
     dev = gd.schedule.betas.device
     generator = torch.Generator(device=dev).manual_seed(args.seed + args.shard_index)
 
     out_dir = os.path.join(args.out, args.exp, "dataset")
     os.makedirs(out_dir, exist_ok=True)
-    pending, paths, part, done, total = [], [], 0, 0, 0
+    pending, paths, previews, part, done, total = [], [], [], 0, 0, 0
     t_start = time.perf_counter()
 
     def flush():
@@ -146,6 +165,15 @@ def main(argv=None):
             break
         imgs, homos = generate(gd, torch.from_numpy(np.asarray(cond)).to(dev),
                                torch.from_numpy(np.asarray(classes, np.int64)).to(dev), generator)
+        if args.preview_every and b % args.preview_every == 0:
+            from dmhomo_torch.utils.viz import image_grid, sample_panel, save_png
+
+            # the shard index in the name: shard processes share the experiment dir
+            ppath = os.path.join(args.out, args.exp, "previews",
+                                 f"shard_{args.shard_index:02d}_batch_{b:05d}.png")
+            save_png(ppath, image_grid(sample_panel(imgs, cond[..., 6:7], cond[..., 10:12])))
+            previews.append(ppath)
+            log.info("preview: %s", ppath)
         imgs = imgs.float().cpu().numpy()
         imgs_u8 = (np.clip(imgs, 0, 1) * 255).astype(np.uint8).transpose(0, 3, 1, 2)
         pending.append({"imgs": imgs_u8, "homos": homos.cpu().numpy()})
@@ -163,7 +191,7 @@ def main(argv=None):
     if rate:
         log.info("throughput: %.3f samples/s at s_step=%d (first batch excluded)",
                  rate, args.s_step)
-    return {"shards": paths, "samples": total, "samples_per_s": rate}
+    return {"shards": paths, "samples": total, "samples_per_s": rate, "previews": previews}
 
 
 if __name__ == "__main__":

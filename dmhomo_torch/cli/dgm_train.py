@@ -3,8 +3,14 @@
 Conditions come from a condition cache dir (``ConditionCache``: conditions.npy
 and classes.npy) or, for smoke runs, from synthetic homographies
 (--synthetic N).  Checkpoints land in --results as ``model-<step>.pt`` in
-the reference layout (they load in ``dgm_sample --torch-ckpt``); --resume
-continues from the newest.
+the reference layout (they load in ``dgm_sample --ckpt``); --resume
+continues from the newest.  At each checkpoint milestone whose step
+--preview-every divides (0: every milestone) the EMA samples a held-out
+condition batch (at most 16, taken before training) into
+``<results>/previews/sample-<step>.png`` and logs its masked photometric
+error; --no-preview skips that.  --fuse-steps K runs up to K steps per
+host call (``DGMTrainer.train_steps``: on the card one CUDA graph replay
+per step), chunks ending at the milestones.
 
 Examples:
   python -m dmhomo_torch.cli.dgm_train --conditions cache_dir --steps 112500 \\
@@ -12,6 +18,8 @@ Examples:
   python -m dmhomo_torch.cli.dgm_train --synthetic 256 --accum 8 --steps 50
   python -m dmhomo_torch.cli.dgm_train --synthetic 8 --dim 8 --dim-mults 1,2 \\
       --image-size 16 --batch-size 4 --accum 2 --steps 3 --device cpu
+  python -m dmhomo_torch.cli.dgm_train --synthetic 64 --accum 4 --steps 1000 \\
+      --fuse-steps 10 --save-every 500 --preview-every 1000
 
 Runs on ``cuda`` (raises without a card) unless ``--device cpu``.  The
 weights start random, drawn from --seed.
@@ -21,7 +29,9 @@ dmhomo_torch.cli.dgm_train ...`` (``nccl``; ``gloo`` with ``--device
 cpu``).  --batch-size stays the global batch: every rank draws the same
 global batches as one process would and takes its rows of each microbatch
 (``accum * N`` must divide it); the diffusion noise comes from seed + 1 +
-rank.  Only rank 0 writes checkpoints.
+rank.  Only rank 0 writes checkpoints and previews; every rank samples the
+same held-out batch.  ``--fuse-steps`` above 1 captures the step's
+collectives, which needs ``nccl``.
 """
 
 from __future__ import annotations
@@ -32,12 +42,12 @@ import logging
 import numpy as np
 
 
-def cache_condition_batches(cache_dir: str, batch_size: int, seed: int = 0, rank: int = 0,
-                            world: int = 1, accum: int = 1):
+def cache_condition_batches(cache_dir: str, batch_size: int, seed: int = 0, index: int = 0,
+                            size: int = 1, accum: int = 1):
     """Endless (conditions, classes) batches drawn from a condition cache:
-    of each global batch of ``batch_size``, rank ``rank``'s rows
-    (``parallel/mesh.py::shard_batch``; all of them on one process), read
-    alone."""
+    of each global batch of ``batch_size``, data index ``index``'s rows
+    of ``size`` (``parallel/mesh.py::shard_batch``; all of them on one
+    process), read alone."""
     from dmhomo_torch.data.conditions import ConditionCache
     from dmhomo_torch.parallel.mesh import shard_batch
 
@@ -45,7 +55,7 @@ def cache_condition_batches(cache_dir: str, batch_size: int, seed: int = 0, rank
     rng = np.random.default_rng(seed)
     while True:
         idx = rng.integers(0, len(cache), (batch_size,))
-        yield cache.batch(shard_batch(idx, rank, world, accum) if world > 1 else idx)
+        yield cache.batch(shard_batch(idx, index, size, accum) if size > 1 else idx)
 
 
 def main(argv=None):
@@ -70,6 +80,13 @@ def main(argv=None):
     parser.add_argument("--results", type=str, default="results/dgm")
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--save-every", type=int, default=500)
+    parser.add_argument("--fuse-steps", type=int, default=1,
+                        help="optimizer steps per host call (a CUDA graph replay each)")
+    parser.add_argument("--preview-every", type=int, default=0,
+                        help="sample an EMA preview grid every N steps "
+                             "(0 = at every checkpoint milestone)")
+    parser.add_argument("--no-preview", action="store_true",
+                        help="skip milestone preview sampling")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
@@ -80,18 +97,13 @@ def main(argv=None):
     from dmhomo_torch.data.conditions import synthetic_condition_batches
     from dmhomo_torch.diffusion.gaussian import DiffusionConfig
     from dmhomo_torch.models.unet import UNetConfig
-    from dmhomo_torch.parallel.distributed import (
-        local_device,
-        maybe_initialize_distributed,
-        rank_and_world,
-    )
+    from dmhomo_torch.parallel.distributed import local_device, maybe_initialize_distributed
     from dmhomo_torch.parallel.mesh import shard_batch
     from dmhomo_torch.train.config import DGMTrainConfig
     from dmhomo_torch.train.dgm_trainer import DGMTrainer
 
     maybe_initialize_distributed(device=args.device)
     device = local_device(args.device)
-    rank, world = rank_and_world()
 
     cfg = DGMTrainConfig(
         unet=UNetConfig(dim=args.dim, num_classes=args.num_classes,
@@ -107,16 +119,38 @@ def main(argv=None):
     trainer.init_state()
     if args.resume:
         trainer.load()
-    if args.conditions:
+    mesh = trainer.mesh
+    if args.conditions:  # this data index's rows of each global batch, read alone
         batches = cache_condition_batches(args.conditions, args.batch_size, args.seed,
-                                          rank, world, args.accum)
+                                          mesh.data_index, mesh.data, args.accum)
     else:
         batches = synthetic_condition_batches(args.synthetic, args.image_size, args.batch_size,
                                               args.num_classes, args.seed)
-        if world > 1:
-            batches = ((shard_batch(c, rank, world, args.accum),
-                        shard_batch(k, rank, world, args.accum)) for c, k in batches)
-    last = trainer.train(batches, num_steps=args.steps)
+
+    # milestone previews (the reference Trainer samples a grid every
+    # save_and_sample_every): the first global condition batch is held out
+    # so that successive previews compare; save_preview logs the error
+    on_milestone = None
+    if not args.no_preview:
+        if args.conditions:
+            pv_cond, pv_cls = next(cache_condition_batches(args.conditions, args.batch_size,
+                                                           args.seed))
+            next(batches)  # this rank's rows of it
+        else:
+            pv_cond, pv_cls = next(batches)
+        n_pv = min(16, len(pv_cond))
+        pv_cond, pv_cls = pv_cond[:n_pv], pv_cls[:n_pv]
+
+        def on_milestone(tr, step):
+            if args.preview_every and step % args.preview_every:
+                return
+            tr.save_preview(pv_cond, pv_cls, f"{args.results}/previews/sample-{step}.png")
+
+    if not args.conditions and mesh.data > 1:  # this data index's rows of each global batch
+        batches = ((shard_batch(c, mesh.data_index, mesh.data, args.accum),
+                    shard_batch(k, mesh.data_index, mesh.data, args.accum)) for c, k in batches)
+    last = trainer.train(batches, num_steps=args.steps, on_milestone=on_milestone,
+                         fuse_steps=args.fuse_steps)
     path = trainer.save()
     return {"checkpoint": path, "step": trainer.step,
             "loss": None if last is None else float(last["loss"])}

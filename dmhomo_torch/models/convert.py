@@ -11,10 +11,15 @@
   turn the JAX ``ConditionalUNet`` / ``UncondUNet`` params into the port's
   UNet state dicts (reference key names), sharing one stage walk;
   :func:`load_dgm_checkpoint` loads a reference ``DGM.pt``.
+* :class:`ChannelProbe` runs a converter on no weights at all: each leaf
+  transform then says which torch dim receives the JAX leaf's last dim,
+  the dim ``parallel/tp.py`` shards over the mesh's ``model`` axis as the
+  JAX package's ``channel_shardings`` does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Dict, Tuple
 
@@ -38,16 +43,54 @@ DEAD_KEYS: Tuple[str, ...] = (
 )
 
 
+_CONV_AXES = (3, 2, 0, 1)  # HWIO -> OIHW
+_LIN_AXES = (1, 0)  # (I, O) -> (O, I)
+
+
+class ChannelProbe(dict):
+    """A stand-in for a JAX params tree: every key holds another probe and
+    every ``in`` test is true.  A converter run on it returns, in place of
+    each tensor, the :class:`ChannelDim` its leaf transform moves the JAX
+    leaf's last dim to; it also names keys the module may lack (the bias
+    of a conv built without one), which the caller drops."""
+
+    def __missing__(self, key):
+        return ChannelProbe()
+
+    def __contains__(self, key) -> bool:
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class ChannelDim:
+    """The torch dim holding a JAX leaf's last dim (negative: from the end)."""
+
+    dim: int
+
+
 def _t(a) -> torch.Tensor:
+    if isinstance(a, ChannelProbe):
+        return ChannelDim(-1)  # as it is: the last dim stays last
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
 
 def _conv(k) -> torch.Tensor:
-    return _t(np.transpose(np.asarray(k), (3, 2, 0, 1)))  # HWIO -> OIHW
+    if isinstance(k, ChannelProbe):
+        return ChannelDim(_CONV_AXES.index(len(_CONV_AXES) - 1))
+    return _t(np.transpose(np.asarray(k), _CONV_AXES))
 
 
 def _lin(k) -> torch.Tensor:
-    return _t(np.transpose(np.asarray(k), (1, 0)))  # (I, O) -> (O, I)
+    if isinstance(k, ChannelProbe):
+        return ChannelDim(_LIN_AXES.index(len(_LIN_AXES) - 1))
+    return _t(np.transpose(np.asarray(k), _LIN_AXES))
+
+
+def _gain(g) -> torch.Tensor:
+    """A LayerNorm gain (C,) as (1, C, 1, 1)."""
+    if isinstance(g, ChannelProbe):
+        return ChannelDim(1)
+    return _t(np.asarray(g).reshape(1, -1, 1, 1))
 
 
 def estimator_state_dict_from_jax(params: Dict, batch_stats: Dict,
@@ -175,7 +218,7 @@ def _dense_into(sd: Dict, dst: str, p: Dict) -> None:
 
 
 def _gain_into(sd: Dict, dst: str, g) -> None:
-    sd[dst] = _t(np.asarray(g).reshape(1, -1, 1, 1))
+    sd[dst] = _gain(g)
 
 
 def _resblock_into(sd: Dict, dst: str, p: Dict) -> None:

@@ -11,8 +11,10 @@ card: no collective at all.
 Under a group (one rank included) the trainers are data-parallel: every
 BatchNorm reduces its moments across the ranks, the NLL divides by the
 global count of valid entries, and each step all-reduces one flat buffer
-of the gradients.  Only ``broadcast`` and ``all_reduce`` run, the two
-collectives gloo also runs on CUDA tensors.  File writes go through
+of the gradients (over the mesh's ``data`` group, ``parallel/mesh.py``).
+Only ``broadcast`` and ``all_reduce`` run, the two collectives gloo also
+runs on CUDA tensors; ``parallel/tp.py`` gathers shards with
+``all_reduce`` too.  File writes go through
 :func:`is_main_process`; every rank computes."""
 
 from __future__ import annotations
@@ -93,12 +95,12 @@ def is_main_process() -> bool:
     return rank_and_world()[0] == 0
 
 
-def all_reduce_(t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` over the ranks, in place; counts its calls in ``calls``
-    (a CUDA-graph replay runs no Python, so only captures and eager steps
-    move it)."""
+def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` over the ranks of ``group`` (default: all of them), in
+    place; counts its calls in ``calls`` (a CUDA-graph replay runs no
+    Python, so only captures and eager steps move it)."""
     all_reduce_.calls += 1
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=group)
     return t
 
 
@@ -159,13 +161,14 @@ class FlatGradients:
     def zero_(self) -> None:
         self.buffer.zero_()
 
-    def reduce_(self, extras: list, divisor: float) -> torch.Tensor:
+    def reduce_(self, extras: list, divisor: float, group=None) -> torch.Tensor:
         """Copy ``extras`` (0-d tensors) into their slots, sum the buffer
-        over the ranks and divide it by ``divisor``; returns the slots."""
+        over the ranks of ``group`` (default: all of them; a mesh's data
+        group) and divide it by ``divisor``; returns the slots."""
         if len(extras) != self.extra.numel():
             raise ValueError(f"{len(extras)} values for {self.extra.numel()} slots")
         if extras:
             self.extra.copy_(torch.stack([e.to(self.extra.dtype) for e in extras]))
-        all_reduce_(self.buffer)
+        all_reduce_(self.buffer, group)
         self.buffer.div_(divisor)
         return self.extra

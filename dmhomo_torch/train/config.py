@@ -22,8 +22,10 @@ class DGMTrainConfig:
     """DGM diffusion training: Adam(lr, betas (adam_b1, adam_b2)) after a
     global-norm clip, an EMA of the weights, ``gradient_accumulate_every``
     microbatches per step of the global ``train_batch_size``.  ``bf16``
-    runs the UNet's activations in bf16 (parameters stay fp32).  One card:
-    the JAX config's ``shard_params`` waits for the parallel layer."""
+    runs the UNet's activations in bf16 (parameters stay fp32).
+    ``shard_params`` stores the parameters, Adam's moments and the EMA
+    channel-sharded over the mesh's ``model`` axis (``parallel/tp.py``);
+    with a ``model`` axis of 1 it does nothing."""
 
     unet: UNetConfig = UNetConfig(dim=64, num_classes=5)
     diffusion: DiffusionConfig = DiffusionConfig(
@@ -43,6 +45,7 @@ class DGMTrainConfig:
     results_dir: str = "results"
     seed: int = 0
     bf16: bool = True
+    shard_params: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -226,17 +226,18 @@ def _jax_dgm(case):
                 jax.tree.map(np.asarray, jax.device_get(jt.state["ema"].params)), cfg)}
 
 
-def _run_ranks(root, inputs):
-    """Start the ranks; returns a function that joins them (killing them on
-    expiry) and returns their results."""
+def _run_ranks(root, inputs, world=WORLD, *case):
+    """Start ``world`` ranks (``case``: the script's optional last
+    argument); returns a function that joins them (killing them on expiry)
+    and returns their results."""
     torch.save(inputs, os.path.join(root, "inputs.pt"))
     script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_dp_ranks.py")
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.dirname(os.path.dirname(script)), env.get("PYTHONPATH", "")])
-    procs = [subprocess.Popen([sys.executable, script, root, str(r), str(WORLD)], env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-             for r in range(WORLD)]
+    procs = [subprocess.Popen([sys.executable, script, root, str(r), str(world), *case],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(world)]
 
     def join():
         logs = []
@@ -251,7 +252,7 @@ def _run_ranks(root, inputs):
         failed = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
         assert not failed, f"ranks failed {failed}:\n" + "\n".join(logs)
         return [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
-                for r in range(WORLD)]
+                for r in range(world)]
 
     return join
 

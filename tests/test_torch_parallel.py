@@ -10,10 +10,13 @@ process (the two-process tests are ``test_torch_data_parallel.py``).
 * ``bucket_sums`` / ``merge_bucket_sums`` equal JAX's (float32 sums,
   float64 merge: exactly).
 * ``maybe_initialize_distributed`` does nothing without torchrun's
-  environment or arguments, and the grid refuses a ``model`` axis.
+  environment or arguments; the grid refuses a ``model`` axis that does
+  not divide the world size and places each rank where JAX's
+  ``reshape(data, model)`` places its device (the grid under a 4-rank
+  group: ``test_torch_shard_params.py``).
 * ``hem_train`` and ``dgm_train`` under ``torchrun`` with 2 ranks on the
   CPU (``gloo``): both ranks report the same global losses, one checkpoint
-  file is written.
+  file (and for ``dgm_train`` one milestone preview) is written.
 """
 
 import os
@@ -43,6 +46,7 @@ from dmhomo_torch.parallel.distributed import maybe_initialize_distributed, rank
 from dmhomo_torch.parallel.mesh import (
     accum_for,
     make_mesh as port_make_mesh,
+    mesh_coords,
     shard_batch,
     shard_stacked_batch,
 )
@@ -149,10 +153,23 @@ def test_maybe_initialize_distributed_is_a_no_op_without_a_launcher(monkeypatch)
     assert port_make_mesh().shape == {"data": 1, "model": 1}
 
 
-def test_make_mesh_refuses_a_model_axis():
-    with pytest.raises(NotImplementedError, match="FSDP2"):
-        port_make_mesh(2, model=2)
-    assert port_make_mesh(4).shape == {"data": 4, "model": 1}
+@pytest.mark.parametrize("data,model", [(4, 2), (2, 4), (8, 1), (1, 8)])
+def test_make_mesh_model_axis(data, model):
+    """Without a group the world is one rank: a model axis above 1 does
+    not divide it, nor does a data axis above 1 fill it.  Each rank's
+    coordinates are its device's in the JAX mesh over 8 devices."""
+    if model > 1:
+        with pytest.raises(ValueError, match="does not divide"):
+            port_make_mesh(model=model)
+    if data > 1:
+        with pytest.raises(ValueError, match="rank"):
+            port_make_mesh(data, model=1)
+    assert port_make_mesh().shape == {"data": 1, "model": 1}
+    devices = jax.devices()[:data * model]
+    jmesh = make_mesh(devices, data=data, model=model)
+    for r, dev in enumerate(devices):
+        want = tuple(int(i) for i in np.argwhere(jmesh.devices == dev)[0])
+        assert mesh_coords(r, model) == want, r
 
 
 def _torchrun(args, cwd):
@@ -182,5 +199,7 @@ def test_dgm_train_under_torchrun(tmp_path):
     _torchrun(["dmhomo_torch.cli.dgm_train", "--synthetic", "8", "--dim", "8", "--dim-mults",
                "1,2", "--image-size", "16", "--batch-size", "4", "--accum", "2", "--steps", "2",
                "--save-every", "2", "--device", "cpu", "--results", str(out)], tmp_path)
-    assert os.listdir(out) == ["model-2.pt"]
+    # one checkpoint and, at the milestone, one preview: rank 0 writes both
+    assert sorted(os.listdir(out)) == ["model-2.pt", "previews"]
+    assert os.listdir(out / "previews") == ["sample-2.png"]
     assert torch.load(out / "model-2.pt", weights_only=False)["step"] == 2

@@ -1,13 +1,15 @@
-"""The ranks' side of ``test_torch_data_parallel.py``: one process per rank,
-started by that test's module fixture as
+"""The ranks' side of ``test_torch_data_parallel.py`` and
+``test_torch_shard_params.py``: one process per rank, started by those
+tests' module fixtures as
 
-  python tests/torch_dp_ranks.py DIR RANK WORLD
+  python tests/torch_dp_ranks.py DIR RANK WORLD [shard]
 
 It joins a ``gloo`` group on the CPU through ``DIR/pg`` (a file, so that
 concurrent test workers never share a port), reads ``DIR/inputs.pt``, runs
 every case on this rank's rows of each global batch, and writes what it
-saw to ``DIR/rank<RANK>.pt``.  It imports torch and the port only, never
-JAX, so that it starts in seconds.
+saw to ``DIR/rank<RANK>.pt``.  With ``shard`` it runs the DGM trainer with
+``shard_params`` on a (WORLD / 2, 2) mesh instead.  It imports torch and
+the port only, never JAX, so that it starts in seconds.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from dmhomo_torch.diffusion.gaussian import DiffusionConfig
 from dmhomo_torch.losses.hem_losses import nll_laplace
 from dmhomo_torch.models.unet import UNetConfig
 from dmhomo_torch.parallel.distributed import maybe_initialize_distributed
-from dmhomo_torch.parallel.mesh import accum_for, shard_batch
+from dmhomo_torch.parallel.mesh import accum_for, make_mesh, shard_batch
 from dmhomo_torch.train.config import DGMTrainConfig
 from dmhomo_torch.train.dgm_trainer import DGMTrainer
 from dmhomo_torch.train.hem_trainer import HEMTrainer
@@ -99,12 +101,70 @@ def nll_case(case: dict, rank: int, world: int) -> dict:
             "valid": int((torch.isfinite(gt) & mask).sum())}
 
 
+def _gathered(tr: DGMTrainer) -> dict:
+    """The trainer's whole state as its checkpoint holds it (gathered)."""
+    sd = tr.state_dict()
+    return {"step": sd["step"], "model": sd["model"], "ema": sd["ema"],
+            "opt": {i: {k: v.clone() for k, v in st.items()}
+                    for i, st in sd["opt"]["state"].items()}}
+
+
+def shard_case(case: dict, root: str) -> dict:
+    """``DGMTrainConfig(shard_params=True)`` over a (world / 2, 2) mesh: two
+    steps on this data index's rows with the global draws injected, what
+    each rank stores, a sharded checkpoint, sampling, and a replicated
+    checkpoint loaded into a sharded trainer."""
+    mesh = make_mesh(model=2)
+    out = {"mesh": (mesh.data, mesh.model, mesh.data_index, mesh.model_index),
+           "data_group": dist.get_process_group_ranks(mesh.data_group),
+           "model_group": dist.get_process_group_ranks(mesh.model_group)}
+    cfg = dataclasses.replace(
+        dgm_config(case["batch"], case["accum"], case["lr"], case["ema_every"]), shard_params=True)
+    tr = DGMTrainer(cfg, mesh=mesh, device="cpu")
+    tr.init_state()
+    tr.load_params(case["params"])
+    names = [n for n, _ in tr.model.named_parameters()]
+    out["shard_dims"] = {names[i]: tr._shards.dims[i] for i in tr._shards.sharded}
+    out["losses"], out["grad_norms"] = [], []
+    for (img, cls), draws in zip(case["data"], case["draws"]):
+        rows = [shard_batch(x, mesh.data_index, mesh.data, case["accum"]) for x in (img, cls)]
+        step = tr.train_step(*rows, draws=draws)
+        out["losses"].append(float(step["loss"]))
+        out["grad_norms"].append(float(step["grad_norm"]))
+    st = tr.optimizer.state
+    out["stored"] = {n: (m.numel(), st[m]["exp_avg"].numel(), st[m]["exp_avg_sq"].numel(),
+                         e.numel(), p.numel())
+                     for n, m, e, p in zip(names, tr.masters, tr.ema.params,
+                                           tr.model.parameters())}
+    out["stored_elements"] = tr.stored_elements()
+    out["masters"] = [m.detach().clone() for m in tr.masters]
+    out["state"] = _gathered(tr)
+    out["ckpt"] = tr.save(os.path.join(root, "sharded"))
+    cond, cls = case["sample"]
+    out["sample"] = tr.sample(torch.as_tensor(cls), torch.as_tensor(cond[..., 7:10]),
+                              torch.as_tensor(cond[..., 6:7]),
+                              generator=torch.Generator().manual_seed(3))
+    back = DGMTrainer(cfg, mesh=mesh, device="cpu")
+    back.init_state(seed=11)  # other weights: the load must replace them all
+    back.load(case["replicated"])
+    out["loaded"] = _gathered(back)
+    out["loaded_masters"] = [m.detach().clone() for m in back.masters]
+    out["loaded_ema"] = [e.clone() for e in back.ema.params]
+    return out
+
+
 def main(argv) -> None:
     root, rank, world = argv[0], int(argv[1]), int(argv[2])
     torch.set_num_threads(1)
     inputs = torch.load(os.path.join(root, "inputs.pt"), weights_only=False)
     maybe_initialize_distributed(backend="gloo", init_method=f"file://{root}/pg",
                                  world_size=world, rank=rank, device="cpu", timeout_s=TIMEOUT_S)
+    if argv[3:] == ["shard"]:
+        try:
+            torch.save(shard_case(inputs["shard"], root), os.path.join(root, f"rank{rank}.pt"))
+        finally:
+            dist.destroy_process_group()
+        return
     try:
         out = {"world": dist.get_world_size(), "backend": dist.get_backend()}
         for name in ("hem_main", "hem_clamp"):

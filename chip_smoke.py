@@ -300,6 +300,29 @@ Phases, each printing its results; any failure exits non-zero:
     IDAT inflating to H * (1 + 3W) bytes), the logged photometric errors
     finite.  ``--only-dgm-steps`` runs phases 1-2 and 30 alone,
     ``--only-shard-params`` phases 1-2 and 30c.
+31. the rest of the JAX package, under a temporary directory in ``build/``:
+    (a) BasesHomo at full width (``models/baseshomo.py``: crop 320x576,
+    layers (3, 4, 6, 3), 16 basis maps, seeded random weights, B=32, fp32
+    with TF32 off): pairs/s (host clock around ``synchronize()``, the median
+    of 3 after one), peak memory, the idle share within a profiled call's
+    own span; card vs CPU stage by stage (B=2: the shared features, the
+    stem with layers 1-3 end to end, layer 4 and conv_last, each Subspace
+    stage with cond(V^T V) beside it; at random init V^T V is too
+    ill-conditioned for a whole forward to compare) within BH_STAGE_TOL or
+    BH_COND_TOL x cond; a reference-format state dict loaded ``strict``;
+    (b) ``hem_eval --mask-vis`` in a child process (``--mask-vis-child``) on
+    VIS_PAIRS PNG pairs at 360x640 whose videos fall in the five scene
+    categories, the shipped estimator: 40 window-attention launches a
+    forward, the files JAX's ``mask_vis_categories`` names, each JPEG from
+    SOI to EOI, each GIF of 2 frames, loop 0, 50 cs; (c) phase 26's
+    ``make_samples`` call with ``--warp-check``: a GIF per shard, parsed
+    alike (with ``--only-rest``: two small random shards); (d) kernel 3's
+    repair: 0 atomic instructions in the tuned library's machine code,
+    K3_RERUNS calls per site and dtype bit-identical at the DGM training
+    sites (B=32) and the generation sites (B=50), its bf16 time per
+    generation batch and per DGM step beside the parent's (K3_OLD_MS).
+    (b)'s child runs beside (a).  ``--only-rest`` runs phases 1-2 and 31
+    alone.
 
 The line before the last is a JSON object with the six kernels' numbers
 (kernels 3 and 4 with their launches per DGM training step, eager and per
@@ -313,6 +336,7 @@ twin's (8, 64) sites); the last is
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 import re
@@ -351,8 +375,8 @@ GEN_BS, GEN_STEPS, GEN_SIZE = 25, 32, 256
 GEN_TIMED_BATCHES = 2
 # linear-attention kernels vs plain, relative to the largest plain value
 # (stricter than relative to max(1, |ref|): the outputs are far below 1):
-# fp32 summation order (E and s are summed with atomics); bf16 one rounding
-# of q, k, v, e or the output landing on the other side
+# fp32 summation order (E and s are summed in the kernels' own fixed order);
+# bf16 one rounding of q, k, v, e or the output landing on the other side
 LA_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 FIT_TOL_PX = 1e-2  # fitted H vs the condition's own flow, fp32
 # fp32 CFG UNet forward, card vs CPU, relative to the largest output: within
@@ -1233,6 +1257,8 @@ def phase_linear_build():
             if new != entry:
                 log(f"[la-build] {new}: dynamic shared memory by plan (phase 12)")
             entry = new
+        elif "linear_attention_reduce_kernel" in line:  # pass 1's fixed-order sums
+            entry = "pass1 reduction " + ("bf16 (per-warp slots)" if "_tc" in line else "fp32")
         elif entry and ("registers" in line or "spill" in line):
             log(f"[la-build] {entry}: {line.split(':', 1)[-1].strip()}")
 
@@ -2411,7 +2437,7 @@ def phase_dgm_train(dev, seed: int):
 
 # device-op categories of the DGM step's profile, by kernel name
 DGM_OP_GROUPS = {
-    "linear-attention pass 1": r"linear_attention_pass1",
+    "linear-attention pass 1": r"linear_attention_(pass1|reduce)",
     "linear-attention pass 2": r"linear_attention_pass2",
     "GroupNorm": r"(?i)group_?norm",
     "convolutions": r"(?i)conv|cudnn|xmma|implicit_?gemm|dgrad|wgrad|fprop",
@@ -2446,7 +2472,17 @@ def phase_dgm_profile(dgm):
             f"{k} {'not measured' if v is None else f'{v:.2f} ms'}" for k, v in groups.items()))
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
         log(f"[dgm-profile] {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
-    return {"busy_ms": dev_ms, "idle": idle, "groups_ms": groups}
+    # launches by kernel name: pass 1, its reduction (one after each pass-1
+    # launch), pass 2
+    by_name = {n: sum(e.count for e in events if n in e.key)
+               for n in ("linear_attention_pass1", "linear_attention_reduce",
+                         "linear_attention_pass2")}
+    ok = all(v == dgm["launches_per_step"] for v in by_name.values())
+    log(f"[dgm-profile] launches by name {by_name}, expected {dgm['launches_per_step']} each "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"the profiled DGM step launched {by_name}")
+    return {"busy_ms": dev_ms, "idle": idle, "groups_ms": groups, "launches_by_name": by_name}
 
 
 def la_backward_bound(x, pass_dtype: str):
@@ -2793,7 +2829,11 @@ def phase_pipeline(dev, seed: int, tmp: str):
     # c. per-sample files
     sdir = os.path.join(tmp, "samples")
     n = make_samples.main(["--shards", os.path.join(gdir, "pipeline", "dataset", "*.npy"),
-                           "--out", sdir])
+                           "--out", sdir, "--warp-check", os.path.join(tmp, "warp_check")])
+    # phase 31 (c): a warp-consistency GIF per shard, from this same call
+    out["warp_check"] = warp_check_files(
+        os.path.join(tmp, "warp_check"),
+        len(glob.glob(os.path.join(gdir, "pipeline", "dataset", "*.npy"))), "pipe-warp")
     cfg = HEMTrainConfig()
     est = cfg.estimator
     ds = HEMTrainDataset(sdir, est.crop_size, est.ori_size, cfg.rho,
@@ -5108,6 +5148,8 @@ def dgm_graph_shipped(dev, seed: int) -> dict:
     busy = sum(e.self_device_time_total for e in events) / 1e3
     by_name = {p: sum(e.count for e in events if f"linear_attention_pass{p}" in e.key)
                for p in (1, 2)}
+    # kernel 3's reduction: one launch after each pass-1 launch
+    by_name["reduce"] = sum(e.count for e in events if "linear_attention_reduce" in e.key)
     idle = 1.0 - busy / prof_ms
     eager_events, eager_prof_ms = profiled["eager"]
     eager_busy = sum(e.self_device_time_total for e in eager_events) / 1e3
@@ -5115,8 +5157,8 @@ def dgm_graph_shipped(dev, seed: int) -> dict:
     per = len(linear_attention_sites(cfg.unet, S)) * cfg.gradient_accumulate_every
     want = {"linear_attention_pass1": per, "linear_attention_pass2": per,
             "linear_attention_pass1_generic": 0, "linear_attention_pass2_generic": 0}
-    ok = (sg.launches == want and by_name == {1: per, 2: per} and counted == (per, per)
-          and busy > 0 and np.isfinite(losses).all())
+    ok = (sg.launches == want and by_name == {1: per, 2: per, "reduce": per}
+          and counted == (per, per) and busy > 0 and np.isfinite(losses).all())
     log(f"[dgm-steps] shipped config, B={B} in microbatches of {DGMS_MICROBATCH}, bf16: graph "
         f"step {graph_ms:.2f} ms (timed {', '.join(f'{t:.1f}' for t in times[1 + DGMS_WARMUP:])};"
         f" the first call, an eager step and the capture, {times[0]:.1f} ms), eager step "
@@ -5132,7 +5174,8 @@ def dgm_graph_shipped(dev, seed: int) -> dict:
         f"differences by kernel name (ms, eager - graph; count eager/graph) "
         f"{json.dumps(breakdown['largest'])}")
     log(f"[dgm-steps] linear-attention launches per replay at capture {sg.launches}, by name in "
-        f"the profiled replay pass 1/2 {by_name[1]}/{by_name[2]}; counted over the main path "
+        f"the profiled replay pass 1/2 {by_name[1]}/{by_name[2]} (pass 1's reduction "
+        f"{by_name['reduce']}); counted over the main path "
         f"(the first call's eager step; replays run no Python) {counted}; expected {per} of each "
         f"({per // cfg.gradient_accumulate_every} sites x {cfg.gradient_accumulate_every} "
         f"microbatches), none generic or plain {'ok' if ok else 'FAIL'}")
@@ -5716,7 +5759,8 @@ def dgm_step_spread(dev, seed: int) -> dict:
     without remat, relative to that gradient's largest value; then
     kernel 3's sums at that config's 16x16 sites (B 2, N 256, C 32) over
     DGMS_SPREAD_RUNS calls on one input, in both dtypes: how many differ
-    bitwise from the first call (its blocks add into the sums atomically).
+    bitwise from the first call (none since its partials are summed in a
+    fixed order; phase 31 (d) holds it to that).
     Its launches are taken back off the counters: no main path runs here."""
     import torch
 
@@ -5782,7 +5826,9 @@ def dgm_step_spread(dev, seed: int) -> dict:
         f"microbatches, the same draws), {DGMS_SPREAD_RUNS} fresh trainers each: distinct losses "
         f"{losses}; each run's largest gradient difference from the first run without remat, "
         f"relative to that gradient's largest value: {json.dumps(spread)}; kernel 3's sums "
-        f"(B 2, N 256, C 32) over {DGMS_SPREAD_RUNS} calls on one input: {json.dumps(sums)}")
+        f"(B 2, N 256, C 32) over {DGMS_SPREAD_RUNS} calls on one input: {json.dumps(sums)} ("
+        + ("bit-identical" if not any(v["differ_bitwise"] for v in sums.values())
+           else "NOT bit-identical") + ")")
     if not np.isfinite(losses).all():
         raise SystemExit(f"the small DGM step's loss is not finite: {losses}")
     return {"losses": losses, "grad_spread": spread, "kernel3_sums": sums}
@@ -5827,6 +5873,356 @@ def dgm_steps_summary(d: dict, phase22_ms) -> None:
         f"{len(d['previews']['previews'])}; phase {d['phase_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the rest of the JAX package, and kernel 3 without atomics
+# ---------------------------------------------------------------------------
+
+BH_BATCH = 32  # BasesHomo at full width: pairs per forward
+BH_CPU_BATCH = 2  # card vs CPU, stage by stage
+# a stage's card-vs-CPU difference relative to its largest CPU value: fp32
+# summation order (cuDNN and the CPU), TF32 off; a Subspace stage may also
+# amplify a rounding by cond(V^T V): within max(BH_STAGE_TOL, BH_COND_TOL x cond)
+BH_STAGE_TOL = 1e-4
+BH_COND_TOL = 1e-6
+VIS_PAIRS, VIS_BATCH = 5, 2  # hem_eval --mask-vis: one pair per scene category
+VIS_HW = (360, 640)
+K3_RERUNS = 6  # calls of kernel 3 per site and dtype that must give the same bits
+# kernel 3 with atomics (PERF.md, its row): ms per generation batch (phase
+# 12's per-site bursts) and per DGM step (phase 22's profile)
+K3_OLD_MS = {"generation batch": 109.68, "DGM step": 8.81}
+
+
+def gif_info(path: str) -> dict:
+    """Frames, NETSCAPE loop count and each frame's delay (hundredths) of a
+    GIF89a file, by walking its blocks (no image library on the card)."""
+    data = open(path, "rb").read()
+    if data[:6] != b"GIF89a":
+        raise ValueError(f"{path}: not a GIF89a file")
+    flags = data[10]
+    pos = 13 + (3 * 2 ** ((flags & 7) + 1) if flags & 0x80 else 0)
+    info = {"frames": 0, "loop": None, "delays": []}
+
+    def skip_subblocks(p):
+        while data[p]:
+            p += data[p] + 1
+        return p + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:
+            label = data[pos + 1]
+            if label == 0xF9:
+                info["delays"].append(int.from_bytes(data[pos + 4:pos + 6], "little"))
+            elif label == 0xFF and data[pos + 3:pos + 14] == b"NETSCAPE2.0":
+                info["loop"] = int.from_bytes(data[pos + 16:pos + 18], "little")
+            pos = skip_subblocks(pos + 2)
+        elif data[pos] == 0x2C:
+            lflags = data[pos + 9]
+            pos += 10 + (3 * 2 ** ((lflags & 7) + 1) if lflags & 0x80 else 0)
+            pos = skip_subblocks(pos + 1)  # the LZW minimum code size, then the data
+            info["frames"] += 1
+        else:
+            raise ValueError(f"{path}: unknown block {data[pos]:#x} at {pos}")
+    return info
+
+
+def flip_gif_ok(path: str) -> bool:
+    g = gif_info(path)
+    return g["frames"] == 2 and g["loop"] == 0 and g["delays"] == [50, 50]
+
+
+def bh_stages(model, x, z, w3, w4) -> dict:
+    """BasesHomo stage by stage: the shared features and the stem with
+    layers 1-3 end to end on the pair x (B, 2, H, W); layer 4 and conv_last
+    on z; each Subspace stage (its basis maps, cond(V^T V), its output) on
+    w3, w4.  NCHW, fp32."""
+    import torch
+
+    from dmhomo_torch.models.baseshomo import vtv_condition
+
+    with torch.no_grad():
+        f = torch.cat([model.share_feature(x[:, :1]), model.share_feature(x[:, 1:])], 1)
+        out = {"share_feature": f,
+               "stem_layers_1_3": model.layer3(model.layer2(model.layer1(model.stem(f))))}
+        out["layer4"] = model.layer4(z)
+        out["conv_last"] = model.conv_last(out["layer4"])
+        for name, w in (("sp_layer3", w3), ("sp_layer4", w4)):
+            stage = getattr(model, name)
+            out[f"{name} maps"] = stage.Block(w)
+            out[f"{name} cond"] = vtv_condition(out[f"{name} maps"])
+            out[name] = stage(w)
+    return out
+
+
+def rest_baseshomo(dev, seed: int) -> dict:
+    """31a: BasesHomo at full width (crop 320x576, layers (3, 4, 6, 3), 16
+    basis maps, seeded random weights) on the card, fp32 with TF32 off."""
+    import torch
+
+    from dmhomo_torch.models.baseshomo import BasesHomoConfig, BasesHomoNet, build_baseshomo
+    from dmhomo_torch.models.convert import load_baseshomo_state_dict
+
+    cfg = BasesHomoConfig()
+    model = build_baseshomo(cfg, device=dev, generator=torch.Generator().manual_seed(seed + 31))
+    rng = np.random.default_rng(seed + 31)
+    ph, pw = cfg.crop_size
+    x = torch.from_numpy(rng.normal(0, 0.5, (BH_BATCH, ph, pw, 2)).astype(np.float32)).to(dev)
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model(x)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        events, wall = profiled_step(lambda: model(x))
+    peak = torch.cuda.max_memory_allocated()
+    ms = float(np.median(times[1:]))
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    finite = {k: bool(torch.isfinite(v).all()) for k, v in out.items()}
+    shapes_ok = (tuple(out["homo_f"].shape) == (BH_BATCH, 3, 3)
+                 and tuple(out["offset_b"].shape) == (BH_BATCH, 8))
+
+    # card vs CPU, stage by stage, the same weights
+    cpu = BasesHomoNet(cfg).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, strict=True)
+    xs = torch.from_numpy(rng.normal(0, 0.5, (BH_CPU_BATCH, 2, ph, pw)).astype(np.float32))
+    z = torch.from_numpy(rng.normal(0, 0.5, (BH_CPU_BATCH, 256, ph // 16, pw // 16))
+                         .astype(np.float32))
+    w3 = torch.from_numpy(rng.normal(0, 0.2, z.shape).astype(np.float32))
+    w4 = torch.from_numpy(rng.normal(0, 0.2, (BH_CPU_BATCH, 512, ph // 32, pw // 32))
+                          .astype(np.float32))
+    want = bh_stages(cpu, xs, z, w3, w4)
+    got = bh_stages(model, *(t.to(dev) for t in (xs, z, w3, w4)))
+    stages, ok = {}, shapes_ok
+    for k, w in want.items():
+        if k.endswith("cond"):
+            continue
+        rel = float((got[k].cpu() - w).abs().max() / w.abs().max())
+        cond = float(want[f"{k} cond"].max()) if f"{k} cond" in want else None
+        tol = BH_STAGE_TOL if cond is None else max(BH_STAGE_TOL, BH_COND_TOL * cond)
+        stages[k] = {"rel": rel, "tol": tol, "cond_vtv": cond}
+        ok = ok and rel <= tol
+
+    # a reference-format state dict (DDP prefix, the dead keys) loads strict
+    sd = {f"module.{k}": v.clone() for k, v in model.state_dict().items()}
+    sd["module.subspace_block.conv0.weight"] = torch.zeros(16, 256, 1, 1)
+    sd["module.basis"] = torch.zeros(1, 8, ph * pw)
+    fresh = BasesHomoNet(cfg).to(dev)
+    load_baseshomo_state_dict(fresh, sd)
+    loaded = all(torch.equal(fresh.state_dict()[k], v) for k, v in model.state_dict().items())
+    ok = ok and loaded
+    res = {"pairs_per_s": 1e3 * BH_BATCH / ms, "batch_ms": ms, "times_ms": times[1:],
+           "peak_bytes": peak, "busy_ms": busy, "profiled_ms": wall, "idle": 1 - busy / wall,
+           "outputs_finite": finite, "stages": stages, "strict_load": loaded}
+    log(f"[rest-bh] BasesHomo full width (320x576, layers (3, 4, 6, 3), 16 maps), B={BH_BATCH}, "
+        f"fp32: {res['pairs_per_s']:.2f} pairs/s ({ms:.2f} ms a batch; timed "
+        f"{', '.join(f'{t:.1f}' for t in times[1:])}), peak {peak / 2**30:.2f} GiB, a profiled "
+        f"call: busy {busy:.2f} of {wall:.2f} ms, idle {100 * res['idle']:.2f}%; outputs finite "
+        f"{finite}; card vs CPU by stage (B={BH_CPU_BATCH}; rel. to the largest CPU value, "
+        f"cond(V^T V) beside each Subspace): " + "; ".join(
+            f"{k} {v['rel']:.3g} (tol {v['tol']:.3g}"
+            + (f", cond {v['cond_vtv']:.3g})" if v["cond_vtv"] is not None else ")")
+            for k, v in stages.items())
+        + f"; reference-format state dict strict {loaded} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"BasesHomo on the card: {res}")
+    del model, fresh, x, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def mask_vis_child(tmp: str) -> dict:
+    """31b's child: ``hem_eval --mask-vis`` on the card through its ``main``,
+    the plain window attention made to raise; the report and kernel 1's
+    launches."""
+    from dmhomo_torch.cli import hem_eval
+    from dmhomo_torch.ops import window_attention as wa
+
+    _plain_raises()
+    wa.window_attention.launches = 0
+    report = hem_eval.main(["--test-data", os.path.join(tmp, "cahomo"), "--torch-ckpt",
+                            os.path.join(tmp, "HEM.pth"), "--batch-size", str(VIS_BATCH),
+                            "--mask-vis", os.path.join(tmp, "vis")])
+    return {"report": report, "launches": wa.window_attention.launches}
+
+
+def start_mask_vis_child(tmp: str, seed: int):
+    """31b: a CAHomo-format test set of VIS_PAIRS PNG pairs at 360x640 (one
+    video of each scene category) and the shipped estimator's seeded weights
+    as a reference-layout checkpoint, then the child started."""
+    import torch
+
+    from dmhomo_torch.config import EstimatorConfig
+    from dmhomo_torch.data.hem_data import write_synthetic_cahomo
+    from dmhomo_torch.models.estimator import build_estimator
+
+    lines = write_synthetic_cahomo(os.path.join(tmp, "cahomo"), VIS_PAIRS, VIS_HW, seed + 32)
+    model = build_estimator(EstimatorConfig(), device="cpu",
+                            generator=torch.Generator().manual_seed(seed + 32))
+    torch.save({"state_dict": model.state_dict()}, os.path.join(tmp, "HEM.pth"))
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mask-vis-child", tmp],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    return proc, lines
+
+
+def rest_mask_vis(proc, lines, tmp: str) -> dict:
+    """31b: the child's exit, kernel 1's 40 launches a forward, the files
+    JAX's ``mask_vis_categories`` names, each JPEG from SOI to EOI, each GIF
+    two frames, loop 0, 50 cs a frame."""
+    from dmhomo_torch.evaluation.metrics import TEST_CATEGORIES
+
+    (text,) = _join([proc], "hem_eval --mask-vis child", timeout=300)
+    child = json.loads(text.strip().splitlines()[-1])
+    forwards = -(-len(lines) // VIS_BATCH)
+    vis = os.path.join(tmp, "vis")
+    want = set()
+    for i, line in enumerate(lines):
+        vid = line.split("/")[0]
+        cat = next(c for c, ids in TEST_CATEGORIES.items() if vid in ids)
+        want |= {f"{cat}/{vid}_{i % VIS_BATCH}{s}" for s in
+                 ("_img1.jpg", "_img2.jpg", "_mask_1.jpg", "_mask_2.jpg", ".gif")}
+    got = {os.path.relpath(os.path.join(d, f), vis) for d, _, fs in os.walk(vis) for f in fs}
+    jpegs = sorted(n for n in got if n.endswith(".jpg"))
+    gifs = sorted(n for n in got if n.endswith(".gif"))
+    bad_jpeg = [n for n in jpegs if not (lambda b: b[:2] == b"\xff\xd8" and b[-2:] == b"\xff\xd9")(
+        open(os.path.join(vis, n), "rb").read())]
+    bad_gif = [n for n in gifs if not flip_gif_ok(os.path.join(vis, n))]
+    ok = (got == want and not bad_jpeg and not bad_gif
+          and child["launches"] == 40 * forwards and np.isfinite(child["report"]["AVG"]))
+    log(f"[rest-vis] hem_eval --mask-vis (child, shipped estimator, {len(lines)} PNG pairs at "
+        f"{VIS_HW[0]}x{VIS_HW[1]}, batch {VIS_BATCH}): report {json.dumps(child['report'])}; "
+        f"window-attention launches {child['launches']} (40 x {forwards} forwards); files "
+        f"{len(got)} = the {len(want)} JAX names {got == want}; {len(jpegs)} JPEGs SOI..EOI, "
+        f"bad {bad_jpeg}; {len(gifs)} GIFs of 2 frames, loop 0, 50 cs, bad {bad_gif} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"hem_eval --mask-vis: missing {sorted(want - got)}, extra "
+                         f"{sorted(got - want)}, child {child}")
+    return {"files": len(got), "jpegs": len(jpegs), "gifs": len(gifs),
+            "launches": child["launches"], "forwards": forwards, "report": child["report"]}
+
+
+def warp_check_files(wdir: str, n_shards: int, tag: str) -> dict:
+    """31c: one flip GIF per shard from ``make_samples --warp-check``."""
+    gifs = sorted(f for f in os.listdir(wdir) if f.endswith(".gif"))
+    infos = {f: gif_info(os.path.join(wdir, f)) for f in gifs}
+    ok = len(gifs) == n_shards and all(flip_gif_ok(os.path.join(wdir, f)) for f in gifs)
+    log(f"[{tag}] make_samples --warp-check: {len(gifs)} GIFs for {n_shards} shards, each "
+        f"2 frames, loop 0, 50 cs: {ok} ({json.dumps(infos)[:300]})")
+    if not ok:
+        raise SystemExit(f"make_samples --warp-check wrote {gifs}: {infos}")
+    return {"gifs": len(gifs)}
+
+
+def rest_warp_check_alone(tmp: str, seed: int) -> dict:
+    """31c without phase 26 (``--only-rest``): two shards of random pairs."""
+    from dmhomo_torch.cli import make_samples
+    from dmhomo_torch.data.shards import save_generation_shard, shard_filename
+
+    rng = np.random.default_rng(seed + 33)
+    sdir = os.path.join(tmp, "shards")
+    os.makedirs(sdir)
+    for i in range(2):
+        H = np.eye(3) + np.diag([0.02, -0.02, 0.0]) + np.array(
+            [[0, 0, rng.normal(0, 3)], [0, 0, rng.normal(0, 3)], [0, 0, 0]])
+        save_generation_shard(os.path.join(sdir, shard_filename(i, 0, 0, 2)), [
+            {"imgs": rng.integers(0, 256, (2, 6, 256, 256), dtype=np.uint8),
+             "homos": np.stack([H, H]).astype(np.float32)}])
+    wdir = os.path.join(tmp, "warp_check")
+    make_samples.main(["--shards", os.path.join(sdir, "*.npy"), "--out",
+                       os.path.join(tmp, "samples"), "--warp-check", wdir])
+    return warp_check_files(wdir, 2, "rest-warp")
+
+
+def rest_kernel3(dev, seed: int) -> dict:
+    """31d: the tuned kernel 3 without atomics: its library's machine code
+    holds none; K3_RERUNS calls per site and dtype give the same bits at the
+    DGM training sites (microbatch 32) and the generation sites (B = 50);
+    pass 1's time per generation batch and per DGM step (the sum over the
+    sites' medians of bursts, times the calls a batch or a step makes)
+    beside the parent's.  Its launches are taken back off the counters: no
+    main path runs here."""
+    import torch
+
+    from dmhomo_torch.models.unet import UNetConfig
+    from dmhomo_torch.ops import linear_attention as la
+    from dmhomo_torch.ops.build import atomic_instructions
+
+    atomics = atomic_instructions(la.build(), "linear_attention")
+    saved = [(fn, fn.launches, fn.generic, fn.elementwise)
+             for fn in (la.linear_attention_pass1, la.linear_attention_pass2)]
+    sites = linear_attention_sites(UNetConfig(), GEN_SIZE)
+    gen = torch.Generator(device=dev).manual_seed(seed + 34)
+    reruns, ms = {}, {"generation batch": 0.0, "DGM step": 0.0}
+    for where, B, calls in (("DGM step", DGMS_MICROBATCH, 4), ("generation batch", 2 * GEN_BS,
+                                                               GEN_STEPS)):
+        for site, hw, C in sites:
+            N = hw * hw
+            x32 = (1.5 * torch.randn(B, C, N, generator=gen, device=dev) + 0.3).transpose(1, 2)
+            w = torch.randn(C, 3 * la.HIDDEN, generator=gen, device=dev) / C**0.5
+            g = 0.5 + torch.rand(C, generator=gen, device=dev)
+            mean, rstd = (torch.empty(B, N, device=dev) for _ in range(2))
+            for dt in ("float32", "bfloat16"):
+                x = x32.to(getattr(torch, dt))
+                outs = []
+                for _ in range(K3_RERUNS):
+                    s = torch.full((B, la.SUMS), float("nan"), device=dev)
+                    la.linear_attention_pass1(x, w, g, mean, rstd, True, s)
+                    outs.append(s)
+                torch.cuda.synchronize()
+                key = f"{where} {site} {dt}"
+                reruns[key] = sum(not torch.equal(o, outs[0]) for o in outs[1:])
+                if dt == "bfloat16":
+                    s = outs[0]
+                    t, _ = burst_ms(lambda: la.linear_attention_pass1(x, w, g, mean, rstd, True, s),
+                                    iters=5)
+                    ms[where] += calls * t
+                del outs, x
+            del x32
+    for fn, launches, generic, elementwise in saved:
+        fn.launches, fn.generic, fn.elementwise = launches, generic, elementwise
+    ok = not any(atomics.values()) and atomics and not any(reruns.values())
+    log(f"[rest-k3] kernel 3 (tuned): atomic instructions in its library's machine code "
+        f"{sum(atomics.values())} over {len(atomics)} kernels; {K3_RERUNS} calls per site and "
+        f"dtype ({len(reruns)} cases) differ bitwise from the first in {sum(reruns.values())}; "
+        f"bf16 pass 1 (its reduction included) {ms['generation batch']:.2f} ms per generation "
+        f"batch (with atomics {K3_OLD_MS['generation batch']}), {ms['DGM step']:.3f} ms per "
+        f"DGM step by CUDA events (with atomics {K3_OLD_MS['DGM step']} by profile) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"kernel 3: atomics {atomics}, reruns differing {reruns}")
+    return {"atomic_instructions": atomics, "reruns_differing": reruns, "ms": ms,
+            "old_ms": K3_OLD_MS}
+
+
+def phase_rest(dev, seed: int, warp_check=None) -> dict:
+    """Phase 31, under a temporary directory in ``build/``; (b)'s child runs
+    beside (a).  ``warp_check``: phase 26's (c), else it runs alone."""
+    import tempfile
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="rest_", dir=build) as tmp:
+        proc, lines = start_mask_vis_child(tmp, seed)
+        try:
+            bh = rest_baseshomo(dev, seed)
+        except BaseException:
+            proc.kill()
+            proc.wait()
+            raise
+        vis = rest_mask_vis(proc, lines, tmp)
+        if warp_check is None:
+            warp_check = rest_warp_check_alone(tmp, seed)
+        k3 = rest_kernel3(dev, seed)
+    out = {"baseshomo": bh, "mask_vis": vis, "warp_check": warp_check, "kernel3": k3,
+           "phase_s": time.perf_counter() - t0}
+    log(f"[rest] phase 31 {out['phase_s']:.1f} s")
+    log("[rest-summary] " + json.dumps(out, default=str))
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -5863,6 +6259,11 @@ def main(argv=None):
     parser.add_argument("--shard-backend", type=str, default="gloo", choices=("nccl", "gloo"))
     parser.add_argument("--shard-check", action="store_true",
                         help="phase 30's child: the fp32 step and checkpoint checks too")
+    parser.add_argument("--only-rest", action="store_true",
+                        help="phases 1-2 (device, build), then phase 31 alone; prints no "
+                             "final line")
+    parser.add_argument("--mask-vis-child", metavar="DIR", default=None,
+                        help="phase 31's child: hem_eval --mask-vis on DIR's test set")
     args = parser.parse_args(argv)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if args.streamed_step_copies:
@@ -5878,6 +6279,9 @@ def main(argv=None):
     if args.shard_rank is not None:
         shard_rank(args.shard_rank, args.shard_world, args.shard_model, args.shard_dir,
                    args.shard_backend, args.seed, args.shard_check)
+        return
+    if args.mask_vis_child:
+        print(json.dumps(mask_vis_child(args.mask_vis_child)), flush=True)
         return
     t_start = time.perf_counter()
 
@@ -5910,6 +6314,10 @@ def main(argv=None):
         with tempfile.TemporaryDirectory(prefix="dgm_shard_", dir=build) as tmp:
             log("[dgm-shard-summary] " + json.dumps(dgm_shard_params(dev, args.seed, tmp),
                                                     default=str))
+        log(smi)
+        return
+    if args.only_rest:
+        phase_rest(dev, args.seed)
         log(smi)
         return
     wa_sass, wa_atomics = phase_window_sass()
@@ -6016,6 +6424,8 @@ def main(argv=None):
     uncond = phase_uncond(dev, args.seed)
     torch.cuda.empty_cache()
     dgm_steps = phase_dgm_steps(dev, args.seed)
+    torch.cuda.empty_cache()
+    rest = phase_rest(dev, args.seed, pipe["warp_check"])
 
     # per-forward totals at the eval path's dtype (fp32) and launch mix
     main = [r for r in results if r["dtype"] == "float32"]
@@ -6327,6 +6737,20 @@ def main(argv=None):
         entry["launches_per_dgm_graph_step"] = dgm_steps["shipped"]["launches_per_replay"][
             f"linear_attention_pass{p}"]
     dgm_steps_summary(dgm_steps, dgm["step_ms"])
+    # phase 31: kernel 3 without atomics (counted in its machine code; the
+    # reduction launch of each pass-1 call is one of its kernels)
+    k3 = rest["kernel3"]
+    la_kernels[0]["atomic_instructions"] = k3["atomic_instructions"]
+    la_kernels[0]["reruns_differing"] = sum(k3["reruns_differing"].values())
+    la_kernels[0]["rest_ms"] = k3["ms"]
+    bh = rest["baseshomo"]
+    log(f"[summary] phase 31: BasesHomo {bh['pairs_per_s']:.2f} pairs/s at B={BH_BATCH}, peak "
+        f"{bh['peak_bytes'] / 2**30:.2f} GiB, idle {100 * bh['idle']:.2f}%; hem_eval --mask-vis "
+        f"{rest['mask_vis']['files']} files; make_samples --warp-check "
+        f"{rest['warp_check']['gifs']} GIFs; kernel 3 {sum(k3['atomic_instructions'].values())} "
+        f"atomic instructions, reruns differing {sum(k3['reruns_differing'].values())}, "
+        f"{k3['ms']['generation batch']:.2f} ms per generation batch, {k3['ms']['DGM step']:.3f} "
+        f"per DGM step; phase {rest['phase_s']:.1f} s; total {time.perf_counter() - t_start:.0f} s")
     log(smi)  # nvidia-smi: card name, power limit
     log(json.dumps({"kernels": [kernel, bwd_kernel] + la_kernels + [sb_kernel, sbb_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -18,6 +18,12 @@ other shape the generic ones (``ops/window_attention.py::variant``,
 ``ops/swin_block.py::variant``); a configuration outside the envelope
 raises before any launch.
 
+``--mask-vis DIR`` also writes the reference's per-category qualitative
+dumps (``evaluation/mask_vis.py::mask_vis_categories``: JPEGs of each pair
+and its mask heatmaps, a flip GIF) from the same forward's full-resolution
+``flow_b``, ``mask_f`` and ``mask_b``, the per-category counts carried
+across batches.
+
 Runs on ``cuda`` (raises without a card) unless ``--device cpu``.
 """
 
@@ -41,10 +47,13 @@ from dmhomo_torch.models.estimator import build_estimator, upsample_outputs
 
 
 @torch.inference_mode()
-def eval_forward(model, patch: torch.Tensor, pt_set: torch.Tensor, full_hw) -> torch.Tensor:
-    """One eval batch: estimator -> full-resolution view -> point errors (B,)."""
+def eval_forward(model, patch: torch.Tensor, pt_set: torch.Tensor, full_hw,
+                 keep_outputs: bool = False):
+    """One eval batch: estimator -> full-resolution view -> point errors (B,);
+    with ``keep_outputs``, (errors, the full-resolution outputs)."""
     full = upsample_outputs(model(patch), full_hw)
-    return point_matching_error(pt_set, full["flow_f"], full["flow_b"])
+    errors = point_matching_error(pt_set, full["flow_f"], full["flow_b"])
+    return (errors, full) if keep_outputs else errors
 
 
 def main(argv=None):
@@ -62,6 +71,9 @@ def main(argv=None):
     parser.add_argument("--category-set", choices=("eval", "test"), default="eval",
                         help="'eval' = hem_evaluate.py lists (default); 'test' = the "
                         "test() twin's lists ('0000030' under SF)")
+    parser.add_argument("--mask-vis", type=str, default=None, metavar="DIR",
+                        help="dump per-category qualitative panels/GIFs "
+                        "(HEM/evaluate.py::mask_vis)")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
@@ -78,14 +90,22 @@ def main(argv=None):
     device = next(model.parameters()).device
 
     ds = CAHomoTestDataset(args.test_data, crop_size=cfg.crop_size)
-    errs, names = [], []
+    errs, names, vis_counts = [], [], {}
     for batch in iterate_batches(ds, args.batch_size):
         # one batch shape throughout: pad the tail, keep its valid rows
         batch, n_valid = pad_batch(batch, args.batch_size)
-        e = eval_forward(model, torch.from_numpy(batch["imgs_gray_patch"]).to(device),
-                         torch.from_numpy(batch["pt_set"]).to(device), cfg.ori_size)
+        e, full = eval_forward(model, torch.from_numpy(batch["imgs_gray_patch"]).to(device),
+                               torch.from_numpy(batch["pt_set"]).to(device), cfg.ori_size,
+                               keep_outputs=True)
         errs.extend(e.cpu().numpy()[:n_valid].tolist())
         names.extend(batch["video_names"][:n_valid])
+        if args.mask_vis:
+            from dmhomo_torch.evaluation.mask_vis import mask_vis_categories
+
+            mask_vis_categories({k: v[:n_valid] for k, v in batch.items()},
+                                {k: full[k][:n_valid].cpu().numpy()
+                                 for k in ("flow_b", "mask_f", "mask_b")},
+                                args.mask_vis, counts=vis_counts, device=device)
 
     cats = TEST_CATEGORIES_TESTFN if args.category_set == "test" else TEST_CATEGORIES
     report = category_report(

@@ -41,13 +41,16 @@
 // 2).  The LayerNorm statistics are read from L2 in two extra passes over
 // the tile.  Pass 1 keeps the tile's ek and v in shared memory, accumulates
 // its share of the diagonal blocks of E in registers over several tiles,
-// and adds them (and s) to a zeroed fp32 buffer with one global atomicAdd
-// per element per block.  Pass 2 needs no reduction: one tile per block,
+// and writes them (and s) to the block's own slot of a partials buffer.  Pass 2 needs no reduction: one tile per block,
 // context rebuilt in each block's prologue from the 16.5 KB of (E, s); the
 // output tile goes through shared memory so that its stores are coalesced
 // in either layout.
 //
-// In both, the sum order of E and s changes from run to run (atomics), and
+// In both dtypes pass 1 uses no atomics: every block (bf16: every warp, for
+// each batch row its tiles meet) writes its partial (E, s) to a slot of its
+// own, and a second launch (linear_attention_reduce_kernel*) sums each batch
+// row's slots in a fixed order, so reruns give the same bits.  The slots
+// are the caller's scratch, sized by dmh_linear_attention_pass1_partials.
 // x and out are addressed through element strides, so the UNet's NCHW
 // activations (token stride 1) are read and written in place.
 
@@ -65,6 +68,7 @@ constexpr int HD = HEADS * DH;          // 128
 constexpr int WCOLS = 3 * HD;           // row length of w_qkv
 constexpr int CTX = HEADS * DH * DH;    // diagonal blocks of E / context
 constexpr int SUMS = CTX + HD;          // per batch: E blocks, then s
+constexpr int HSLOT = DH * DH + DH;     // one head's partial: its E block, then its s
 constexpr int TILE = 64;                // tokens per tile
 constexpr int KC = 32;                  // channels staged per step
 constexpr int THREADS = 256;
@@ -220,7 +224,7 @@ template <typename T, bool PRENORM, bool COMPUTE_STATS>
 __global__ void __launch_bounds__(THREADS, 2)
 linear_attention_pass1_kernel(const T* __restrict__ x, Strides sx, const float* __restrict__ w,
                               const float* __restrict__ g, float* mean, float* rstd,
-                              float* __restrict__ sums, int N, int C, int tiles_per_block,
+                              float* __restrict__ partials, int N, int C, int tiles_per_block,
                               int blocks_per_batch) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);
@@ -282,14 +286,29 @@ linear_attention_pass1_kernel(const T* __restrict__ x, Strides sx, const float* 
       for (int t = 0; t < n_valid; ++t) s_acc += eks[t * HD + tid];
     __syncthreads();
   }
-  float* out = sums + (long long)b * SUMS;
+  // the block's slot: every element written by one thread
+  float* out = partials + (long long)blockIdx.x * SUMS;
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      atomicAdd(out + h * DH * DH + (dg * 4 + a) * DH + eg * 4 + c, e_acc[a * 4 + c]);
-  if (tid < HD) atomicAdd(out + CTX + tid, s_acc);
+    for (int c = 0; c < 4; ++c) out[h * DH * DH + (dg * 4 + a) * DH + eg * 4 + c] = e_acc[a * 4 + c];
+  if (tid < HD) out[CTX + tid] = s_acc;
 }
+
+// sums[b] = the blocks_per_batch slots of batch row b, summed in block order
+__global__ void __launch_bounds__(THREADS)
+linear_attention_reduce_kernel(const float* __restrict__ partials, float* __restrict__ sums,
+                               int B, int blocks_per_batch) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= (long long)B * SUMS) return;
+  const long long b = i / SUMS;
+  const float* p = partials + b * blocks_per_batch * SUMS + i % SUMS;
+  float s = 0.0f;
+  for (int j = 0; j < blocks_per_batch; ++j) s += p[(long long)j * SUMS];
+  sums[i] = s;
+}
+
+int reduce_blocks(int B) { return (int)(((long long)B * SUMS + THREADS - 1) / THREADS); }
 
 template <typename T, bool PRENORM>
 __global__ void __launch_bounds__(THREADS)
@@ -378,22 +397,37 @@ linear_attention_pass2_kernel(const T* __restrict__ x, Strides sx, const float* 
   }
 }
 
-template <typename T, bool PRENORM, bool COMPUTE_STATS>
-int pass1(const void* x, Strides sx, const float* w, const float* g, float* mean, float* rstd,
-          float* sums, int B, int N, int C, cudaStream_t stream) {
+// The fp32 pass 1's tiles per block and blocks per batch row.
+void fp32_grid(int B, int N, int* tiles_per_block, int* blocks_per_batch) {
   const int n_tiles = (N + TILE - 1) / TILE;
   const long long total = (long long)B * n_tiles;
   const int per = (int)((total + TARGET_BLOCKS - 1) / TARGET_BLOCKS);
-  const int tiles_per_block = per < 1 ? 1 : per;
-  const int blocks_per_batch = (n_tiles + tiles_per_block - 1) / tiles_per_block;
+  *tiles_per_block = per < 1 ? 1 : per;
+  *blocks_per_batch = (n_tiles + *tiles_per_block - 1) / *tiles_per_block;
+}
+
+long long fp32_partials(int B, int N) {
+  int tiles_per_block = 0, blocks_per_batch = 0;
+  fp32_grid(B, N, &tiles_per_block, &blocks_per_batch);
+  return (long long)B * blocks_per_batch * SUMS;
+}
+
+template <typename T, bool PRENORM, bool COMPUTE_STATS>
+int pass1(const void* x, Strides sx, const float* w, const float* g, float* mean, float* rstd,
+          float* sums, float* partials, int B, int N, int C, cudaStream_t stream) {
+  int tiles_per_block = 0, blocks_per_batch = 0;
+  fp32_grid(B, N, &tiles_per_block, &blocks_per_batch);
   const size_t smem = P1_FLOATS * sizeof(float);
   auto kernel = linear_attention_pass1_kernel<T, PRENORM, COMPUTE_STATS>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<B * blocks_per_batch, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), sx, w, g, mean, rstd, sums, N, C, tiles_per_block,
+      static_cast<const T*>(x), sx, w, g, mean, rstd, partials, N, C, tiles_per_block,
       blocks_per_batch);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  linear_attention_reduce_kernel<<<reduce_blocks(B), THREADS, 0, stream>>>(partials, sums, B,
+                                                                          blocks_per_batch);
   return (int)cudaGetLastError();
 }
 
@@ -413,11 +447,13 @@ int pass2(const void* x, Strides sx, const float* w, const float* g, float* mean
 
 template <typename T>
 int pass1_dispatch(const void* x, Strides sx, const float* w, const float* g, float* mean,
-                   float* rstd, int compute_stats, float* sums, int B, int N, int C,
-                   cudaStream_t s) {
-  if (g == nullptr) return pass1<T, false, false>(x, sx, w, g, mean, rstd, sums, B, N, C, s);
-  if (compute_stats) return pass1<T, true, true>(x, sx, w, g, mean, rstd, sums, B, N, C, s);
-  return pass1<T, true, false>(x, sx, w, g, mean, rstd, sums, B, N, C, s);
+                   float* rstd, int compute_stats, float* sums, float* partials, int B, int N,
+                   int C, cudaStream_t s) {
+  if (g == nullptr)
+    return pass1<T, false, false>(x, sx, w, g, mean, rstd, sums, partials, B, N, C, s);
+  if (compute_stats)
+    return pass1<T, true, true>(x, sx, w, g, mean, rstd, sums, partials, B, N, C, s);
+  return pass1<T, true, false>(x, sx, w, g, mean, rstd, sums, partials, B, N, C, s);
 }
 
 
@@ -564,10 +600,11 @@ __device__ __forceinline__ float div_rn(float a, float b, float rb) {
 
 // The block's weights for channels c0 .. c1-1 (c1 - c0 even): row r of ws
 // (rows ld apart) holds round(g[c] W[c][col(r)]) (W alone without prenorm),
-// zeros from C on; with u_s, u_s[r] += sum_c g[c] W[c][col(r)] (fp32; u_s
-// zeroed by the caller).  ws == NULL: u alone.  Threads split the rows and,
-// with fewer rows than threads, the channels; a warp reads neighbouring
-// columns.
+// zeros from C on; with u_s, u_s[r] = sum_c g[c] W[c][col(r)] (fp32), the
+// threads' shares of a row added in the order of their parts.  ws == NULL:
+// u alone.  Threads split the rows and, with fewer rows than threads, the
+// channels; a warp reads neighbouring columns.  Every thread of the block
+// calls it (with u_s it synchronizes).
 template <bool PRENORM, typename Col>
 __device__ void stage_weights(bf16* ws, int ld, float* u_s, const float* __restrict__ w,
                               const float* __restrict__ g, int rows, int c0, int c1, int C,
@@ -584,7 +621,11 @@ __device__ void stage_weights(bf16* ws, int ld, float* u_s, const float* __restr
     u = fmaf(g1, w1, u);
     if (ws) *reinterpret_cast<uint32_t*>(ws + r * ld + c - c0) = pack(w0 * g0, w1 * g1);
   }
-  if (PRENORM && u_s) atomicAdd(u_s + r, u);
+  if (PRENORM && u_s)
+    for (int p = 0; p < parts; ++p) {
+      if (part == p) u_s[r] = p == 0 ? u : u_s[r] + u;
+      __syncthreads();
+    }
 }
 
 // Stage channels c0 .. c0+kc-1 of tokens t0 .. t0+63 of batch row b as rows
@@ -672,8 +713,8 @@ template <bool PRENORM, bool STATS, bool ALIGNED, int HG>
 __global__ void __launch_bounds__(NTHREADS, 2)
 linear_attention_pass1_kernel_tc(const bf16* __restrict__ x, Strides sx,
                                  const float* __restrict__ w, const float* __restrict__ g,
-                                 float* mean, float* rstd, float* __restrict__ sums, int B,
-                                 int N, int C, int Cp, int kc, int nch, int stages,
+                                 float* mean, float* rstd, float* __restrict__ partials,
+                                 int B, int N, int C, int Cp, int kc, int nch, int stages,
                                  int stream) {
   constexpr int WPH = 8 / HG;   // warps per head
   constexpr int TW = T / WPH;   // tokens per warp
@@ -711,9 +752,6 @@ linear_attention_pass1_kernel_tc(const bf16* __restrict__ x, Strides sx,
     cp_async_commit();
   };
   for (int s = 0; s < stages - 1; ++s) fetch(s);  // x flies while the weights are made
-  if (PRENORM)
-    for (int r = tid; r < R; r += NTHREADS) u_s[r] = 0.0f;
-  __syncthreads();
   auto col = [&](int r) {
     const int h = hg * HG + r / 64;  // row r: head h, k (r % 64 < 32) or v, d = r % 32
     return HD + ((r % 64) / DH) * HD + h * DH + r % DH;
@@ -830,10 +868,12 @@ linear_attention_pass1_kernel_tc(const bf16* __restrict__ x, Strides sx,
       mean[(long long)b * N + t0 + tid] = mean_s[tid];
       rstd[(long long)b * N + t0 + tid] = rstd_s[tid];
     }
-    // the block's share of batch row b is complete: add it to the sums
+    // the block's share of batch row b is complete: each warp writes its
+    // (E_h, s_h) to its own slot, (head group, block + b, warp); every
+    // element of the slot by one lane
     if (flat + 1 == last || (flat + 1) % n_tiles == 0) {
-      float* out = sums + (long long)b * SUMS;
-      const int h = hg * HG + hl;
+      float* out = partials +
+                   ((long long)(hg * (gridDim.x + B - 1) + blockIdx.x + b) * 8 + warp) * HSLOT;
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
@@ -841,7 +881,7 @@ linear_attention_pass1_kernel_tc(const bf16* __restrict__ x, Strides sx,
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const int d = 16 * mi + (lane >> 2) + 8 * (q >> 1), e = 8 * ni + 2 * (lane & 3) + (q & 1);
-            atomicAdd(out + h * DH * DH + d * DH + e, e_acc[mi][ni][q]);
+            out[d * DH + e] = e_acc[mi][ni][q];
             e_acc[mi][ni][q] = 0.0f;
           }
 #pragma unroll
@@ -849,13 +889,39 @@ linear_attention_pass1_kernel_tc(const bf16* __restrict__ x, Strides sx,
           float v = s_acc[mi][qr];
           v += __shfl_xor_sync(0xffffffffu, v, 1);
           v += __shfl_xor_sync(0xffffffffu, v, 2);
-          if ((lane & 3) == 0) atomicAdd(out + CTX + h * DH + 16 * mi + (lane >> 2) + 8 * qr, v);
+          if ((lane & 3) == 0) out[DH * DH + 16 * mi + (lane >> 2) + 8 * qr] = v;
           s_acc[mi][qr] = 0.0f;
         }
       }
     }
   }
   cp_async_wait_oldest(2);  // no copy outlives the block
+}
+
+// sums[b] from pass 1's slots: for batch row b, the blocks k whose tile
+// ranges meet it (k_lo .. k_hi of each head group's G blocks) and the
+// head's warps, summed in that order.  The block holding flat tile f is
+// ceil((f + 1) G / total) - 1, as pass 1 splits the total tiles.
+__global__ void __launch_bounds__(NTHREADS)
+linear_attention_reduce_kernel_tc(const float* __restrict__ partials, float* __restrict__ sums,
+                                  int B, int n_tiles, int G, int hg) {
+  const long long i = (long long)blockIdx.x * NTHREADS + threadIdx.x;
+  if (i >= (long long)B * SUMS) return;
+  const int b = (int)(i / SUMS), e = (int)(i % SUMS);
+  const int h = e < CTX ? e / (DH * DH) : (e - CTX) / DH;
+  const int off = e < CTX ? e % (DH * DH) : DH * DH + (e - CTX) % DH;
+  const int wph = 8 / hg, group = h / hg, hl = h % hg;
+  const long long total = (long long)B * n_tiles;
+  const long long f0 = (long long)b * n_tiles, f1 = f0 + n_tiles - 1;
+  const long long k_lo = ((f0 + 1) * G + total - 1) / total - 1;
+  const long long k_hi = ((f1 + 1) * G + total - 1) / total - 1;
+  const float* p = partials + off;
+  float s = 0.0f;
+  for (long long k = k_lo; k <= k_hi; ++k) {
+    const long long slot = ((long long)group * (G + B - 1) + k + b) * 8 + hl * wph;
+    for (int t = 0; t < wph; ++t) s += p[(slot + t) * HSLOT];
+  }
+  sums[i] = s;
 }
 
 // Pass 2.  Warp w holds tokens 16 (w % 4) .. +16 of each tile and heads
@@ -897,9 +963,6 @@ linear_attention_pass2_kernel_tc(const bf16* __restrict__ x, Strides sx,
     cp_async_commit();
   };
   for (int s = 0; s < stages - 1; ++s) fetch(s);
-  if (PRENORM)
-    for (int r = tid; r < HD; r += NTHREADS) u_s[r] = 0.0f;
-  __syncthreads();
   auto col = [](int r) { return r; };
   if (!stream || PRENORM)
     stage_weights<PRENORM>(stream ? nullptr : ws, wld, u_s, w, g, HD, 0, Cp, C, col);
@@ -1072,33 +1135,71 @@ bool plan_ok(int pass, int C, int Cp, int hg, int kc, int stages, int stream) {
          smem_bytes(pass, Cp, hg, kc, stages, stream) <= SMEM_LIMIT;
 }
 
-template <bool PRENORM, bool STATS, bool ALIGNED, int HG>
-int pass1(const void* x, Strides sx, const float* w, const float* g, float* mean, float* rstd,
-          float* sums, int B, int N, int C, int Cp, int kc, int stages, int wstream,
-          cudaStream_t stream) {
-  auto kernel = linear_attention_pass1_kernel_tc<PRENORM, STATS, ALIGNED, HG>;
-  const int smem = smem_bytes(1, Cp, HG, kc, stages, wstream);
+// One bf16 pass-1 call: its arguments, the partials' capacity, and where
+// the launch goes (the grid and the partials it needs are computed first).
+struct Pass1Call {
+  const void* x;
+  Strides sx;
+  const float* w;
+  const float* g;
+  float* mean;
+  float* rstd;
+  float* sums;
+  float* partials;
+  long long n_partials;
+  int B, N, C, Cp, kc, stages, wstream;
+  cudaStream_t stream;
+  long long* needed;  // non-null: report the partials' floats, launch nothing
+};
+
+// Blocks per head group of pass 1: the card's resident blocks over the
+// groups, at most one per tile.
+template <typename K>
+int pass1_grid(K kernel, int smem, int B, int N, int groups, int* per_group) {
   int blocks = 0;
   const int err = resident_blocks(kernel, smem, &blocks);
   if (err) return err;
   const long long tiles = (long long)B * ((N + T - 1) / T);
+  *per_group = (int)std::max(1LL, std::min(tiles, (long long)(blocks / groups)));
+  return 0;
+}
+
+template <bool PRENORM, bool STATS, bool ALIGNED, int HG>
+int pass1(const Pass1Call& a) {
+  auto kernel = linear_attention_pass1_kernel_tc<PRENORM, STATS, ALIGNED, HG>;
+  const int smem = smem_bytes(1, a.Cp, HG, a.kc, a.stages, a.wstream);
   const int groups = 4 / HG;
-  const int per_group = (int)std::max(1LL, std::min(tiles, (long long)(blocks / groups)));
-  kernel<<<dim3(per_group, groups), NTHREADS, smem, stream>>>(
-      static_cast<const bf16*>(x), sx, w, g, mean, rstd, sums, B, N, C, Cp, kc,
-      (Cp + kc - 1) / kc, stages, wstream);
+  int per_group = 0;
+  const int err = pass1_grid(kernel, smem, a.B, a.N, groups, &per_group);
+  if (err) return err;
+  // a slot per warp, per (head group, block + batch row)
+  const long long needed = (long long)groups * (per_group + a.B - 1) * 8 * HSLOT;
+  if (a.needed) {
+    *a.needed = needed;
+    return 0;
+  }
+  if (a.n_partials < needed) return (int)cudaErrorInvalidValue;
+  kernel<<<dim3(per_group, groups), NTHREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.x), a.sx, a.w, a.g, a.mean, a.rstd, a.partials, a.B, a.N, a.C,
+      a.Cp, a.kc, (a.Cp + a.kc - 1) / a.kc, a.stages, a.wstream);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  linear_attention_reduce_kernel_tc<<<(unsigned)(((long long)a.B * SUMS + NTHREADS - 1) / NTHREADS),
+                                      NTHREADS, 0, a.stream>>>(a.partials, a.sums, a.B,
+                                                               (a.N + T - 1) / T, per_group, HG);
   return (int)cudaGetLastError();
 }
 
 template <bool PRENORM, bool STATS>
-int pass1_pick(int aligned, int hg, const void* x, Strides sx, const float* w, const float* g,
-               float* mean, float* rstd, float* sums, int B, int N, int C, int Cp, int kc,
-               int stages, int ws, cudaStream_t s) {
-  if (aligned)
-    return hg == 4 ? pass1<PRENORM, STATS, true, 4>(x, sx, w, g, mean, rstd, sums, B, N, C, Cp, kc, stages, ws, s)
-                   : pass1<PRENORM, STATS, true, 2>(x, sx, w, g, mean, rstd, sums, B, N, C, Cp, kc, stages, ws, s);
-  return hg == 4 ? pass1<PRENORM, STATS, false, 4>(x, sx, w, g, mean, rstd, sums, B, N, C, Cp, kc, stages, ws, s)
-                 : pass1<PRENORM, STATS, false, 2>(x, sx, w, g, mean, rstd, sums, B, N, C, Cp, kc, stages, ws, s);
+int pass1_pick(int aligned, int hg, const Pass1Call& a) {
+  if (aligned) return hg == 4 ? pass1<PRENORM, STATS, true, 4>(a) : pass1<PRENORM, STATS, true, 2>(a);
+  return hg == 4 ? pass1<PRENORM, STATS, false, 4>(a) : pass1<PRENORM, STATS, false, 2>(a);
+}
+
+int pass1_variant(int prenorm, int compute_stats, int aligned, int hg, const Pass1Call& a) {
+  if (!prenorm) return pass1_pick<false, false>(aligned, hg, a);
+  if (compute_stats) return pass1_pick<true, true>(aligned, hg, a);
+  return pass1_pick<true, false>(aligned, hg, a);
 }
 
 template <bool PRENORM, bool ALIGNED>
@@ -1135,15 +1236,19 @@ int blocks_per_sm(K kernel, int smem) {
 
 extern "C" {
 
-// Pass 1: adds (E blocks, s) of every batch into sums (B, 4096 + 128), which
-// the caller zeroes.  g == NULL: no prenorm.  Otherwise mean and rstd
+// Pass 1: writes (E blocks, s) of every batch into sums (B, 4096 + 128):
+// the blocks write their partials into `partials` (n_partials floats, at
+// least dmh_linear_attention_pass1_partials' count), a second launch sums
+// them in a fixed order.  g == NULL: no prenorm.  Otherwise mean and rstd
 // (B, N) fp32 are computed and written (compute_stats = 1) or read.
 int dmh_linear_attention_pass1(const void* x, long long sxb, long long sxn, long long sxc,
                                const float* w_qkv, const float* g, float* mean, float* rstd,
-                               int compute_stats, float* sums, int B, int N, int C, void* stream) {
+                               int compute_stats, float* sums, float* partials,
+                               long long n_partials, int B, int N, int C, void* stream) {
+  if (n_partials < fp32_partials(B, N)) return (int)cudaErrorInvalidValue;
   const Strides sx{sxb, sxn, sxc};
-  return pass1_dispatch<float>(x, sx, w_qkv, g, mean, rstd, compute_stats, sums, B, N, C,
-                               static_cast<cudaStream_t>(stream));
+  return pass1_dispatch<float>(x, sx, w_qkv, g, mean, rstd, compute_stats, sums, partials, B, N,
+                               C, static_cast<cudaStream_t>(stream));
 }
 
 // Pass 2: out (B, N, 128) through its element strides.  With g, mean and
@@ -1167,24 +1272,34 @@ int dmh_linear_attention_smem_bytes(int pass) {
 // and g as the fp32 pass takes them (g == NULL: no prenorm).  The plan: hg
 // heads per block (4 or 2), kc channels per ring slot (Cp, C padded to a
 // multiple of 16, with 4 heads), 2 or 3 slots, stream = weights made chunk
-// by chunk (else resident), aligned = the cp.async loader.  Adds (E blocks,
-// s) into sums as the fp32 pass 1 does.
+// by chunk (else resident), aligned = the cp.async loader.  Writes (E
+// blocks, s) into sums through partials as the fp32 pass 1 does.
 int dmh_linear_attention_pass1_bf16(const void* x, long long sxb, long long sxn, long long sxc,
                                     const float* w_qkv, const float* g, float* mean, float* rstd,
-                                    int compute_stats, float* sums, int B, int N, int C, int Cp,
-                                    int hg, int kc, int stages, int stream, int aligned,
-                                    void* stream_) {
+                                    int compute_stats, float* sums, float* partials,
+                                    long long n_partials, int B, int N, int C, int Cp, int hg,
+                                    int kc, int stages, int stream, int aligned, void* stream_) {
   if (!tc::plan_ok(1, C, Cp, hg, kc, stages, stream)) return (int)cudaErrorInvalidValue;
-  const Strides sx{sxb, sxn, sxc};
-  cudaStream_t s = static_cast<cudaStream_t>(stream_);
-  if (g == nullptr)
-    return tc::pass1_pick<false, false>(aligned, hg, x, sx, w_qkv, g, mean, rstd, sums, B, N, C,
-                                        Cp, kc, stages, stream, s);
-  if (compute_stats)
-    return tc::pass1_pick<true, true>(aligned, hg, x, sx, w_qkv, g, mean, rstd, sums, B, N, C,
-                                      Cp, kc, stages, stream, s);
-  return tc::pass1_pick<true, false>(aligned, hg, x, sx, w_qkv, g, mean, rstd, sums, B, N, C, Cp,
-                                     kc, stages, stream, s);
+  const tc::Pass1Call a{x, Strides{sxb, sxn, sxc}, w_qkv, g, mean, rstd, sums, partials,
+                        n_partials, B, N, C, Cp, kc, stages, stream,
+                        static_cast<cudaStream_t>(stream_), nullptr};
+  return tc::pass1_variant(g != nullptr, compute_stats, aligned, hg, a);
+}
+
+// Floats of the partials pass 1 needs for one call into *out: the fp32 pass
+// (bf16 = 0; the plan's arguments unused) or the bf16 pass of that plan and
+// variant (its grid follows the card's resident blocks).
+int dmh_linear_attention_pass1_partials(int bf16, int prenorm, int compute_stats, int B, int N,
+                                        int C, int Cp, int hg, int kc, int stages, int stream,
+                                        int aligned, long long* out) {
+  if (!bf16) {
+    *out = fp32_partials(B, N);
+    return 0;
+  }
+  if (!tc::plan_ok(1, C, Cp, hg, kc, stages, stream)) return (int)cudaErrorInvalidValue;
+  const tc::Pass1Call a{nullptr, Strides{0, 0, 0}, nullptr, nullptr, nullptr, nullptr, nullptr,
+                        nullptr, 0, B, N, C, Cp, kc, stages, stream, nullptr, out};
+  return tc::pass1_variant(prenorm, compute_stats, aligned, hg, a);
 }
 
 // bf16 pass 2 on tensor cores: out (B, N, 128) bf16 through its strides,

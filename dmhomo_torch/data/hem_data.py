@@ -89,8 +89,28 @@ def resize_linear_u8(img: np.ndarray, out_hw) -> np.ndarray:
     return ((out + 2) >> 2).clip(0, 255).astype(np.uint8)
 
 
+def read_image(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 in cv2.imread's BGR order: a PNG by
+    ``utils/codecs.py::read_png`` (no OpenCV), any other format by OpenCV,
+    imported here (the card's machine has none)."""
+    if path.lower().endswith(".png"):
+        from dmhomo_torch.utils.codecs import read_png
+
+        return np.ascontiguousarray(read_png(path)[..., ::-1])
+    import cv2
+
+    img = cv2.imread(path)
+    if img is None:
+        raise FileNotFoundError(path)
+    return img
+
+
 class CAHomoTestDataset:
-    """CAHomo test split: image pairs + 6 ground-truth matched points each."""
+    """CAHomo test split: image pairs + 6 ground-truth matched points each,
+    the items the JAX package's dataset gives (gray patch and full images,
+    the BGR pair in [0, 1], the points, the video name).  PNG pairs need no
+    OpenCV (:func:`read_image`); the resize is ``geometry/warp.py``'s
+    half-pixel bilinear (cv2.resize's INTER_LINEAR) on the CPU."""
 
     def __init__(self, data_dir: str, crop_size=(320, 576)):
         self.data_dir = data_dir
@@ -102,27 +122,29 @@ class CAHomoTestDataset:
         return len(self.pairs)
 
     def __getitem__(self, idx):
-        import cv2
+        from dmhomo_torch.geometry.warp import resize_bilinear
 
         line = self.pairs[idx]
         video_name = line.split("/")[0]
         names = line.split(" ")
         pt_name = names[0].split("/")[-1] + "_" + names[1].split("/")[-1] + ".npy"
-        img1 = cv2.imread(os.path.join(self.data_dir, "img", names[0]))
-        img2 = cv2.imread(os.path.join(self.data_dir, "img", names[1]))
+        img1 = read_image(os.path.join(self.data_dir, "img", names[0]))
+        img2 = read_image(os.path.join(self.data_dir, "img", names[1]))
         # the point files are pickled dicts written by the dataset's authors
         pt = np.load(os.path.join(self.data_dir, "pt", pt_name), allow_pickle=True).item()
         pt_set = np.asarray(pt["matche_pts"][:6], np.float32)  # (6, 2, 2)
 
-        g1 = normalize_gray(img1)
-        g2 = normalize_gray(img2)
-        ph, pw = self.crop_size
-        g1_rs = cv2.resize(g1, (pw, ph))[..., None]
-        g2_rs = cv2.resize(g2, (pw, ph))[..., None]
+        g = np.stack([normalize_gray(img1), normalize_gray(img2)])
+        with torch.no_grad():
+            patch = resize_bilinear(torch.from_numpy(g[..., 0]).permute(1, 2, 0)[None],
+                                    self.crop_size)[0].numpy()
         return {
-            "imgs_gray_patch": np.concatenate([g1_rs, g2_rs], axis=2),
+            "imgs_gray_full": np.concatenate([g[0], g[1]], axis=2),
+            "imgs_gray_patch": patch,
+            "imgs_rgb_full": np.concatenate([img1, img2], axis=2).astype(np.float32) / 255.0,
             "pt_set": pt_set,
             "video_names": video_name,
+            "ganhomo_mask": np.ones((img1.shape[0], img1.shape[1], 1), np.float32),
         }
 
 
@@ -388,3 +410,42 @@ class SyntheticHomoPairs:
             "imgs_rgb_full": np.concatenate([img1, img2], axis=2).astype(np.float32) / 255.0,
             "ganhomo_mask": np.ones((ph, pw, 1), np.float32),
         }
+
+
+def write_synthetic_cahomo(root: str, n_pairs: int, hw=(360, 640), seed: int = 0,
+                           videos=("0000011", "0000038", "0000085", "00000244",
+                                   "00000104")) -> list:
+    """A CAHomo-format test layout from a seed, no OpenCV needed:
+    ``root/test.txt``, PNG pairs under ``root/img/<video>/`` (smooth random
+    textures, the second a shifted copy with noise) and 6 matched points
+    each under ``root/pt/``.  Pair i takes video ``videos[i % len]`` (by
+    default one of each of the five scene categories).  Returns the lines
+    of test.txt."""
+    from dmhomo_torch.geometry.warp import resize_bilinear
+    from dmhomo_torch.utils.viz import png_bytes
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    os.makedirs(os.path.join(root, "pt"), exist_ok=True)
+    lines = []
+    for i in range(n_pairs):
+        vid = videos[i % len(videos)]
+        os.makedirs(os.path.join(root, "img", vid), exist_ok=True)
+        coarse = rng.uniform(0, 1, (h // 16 + 2, w // 16 + 2, 3)).astype(np.float32)
+        with torch.no_grad():
+            tex = resize_bilinear(torch.from_numpy(coarse)[None], (h + 8, w + 8))[0].numpy()
+        dx, dy = rng.integers(0, 8, 2)
+        img1 = tex[4:4 + h, 4:4 + w]
+        img2 = np.clip(tex[dy:dy + h, dx:dx + w] + rng.normal(0, 0.02, (h, w, 3)), 0, 1)
+        a, b = f"{vid}/{10000 + 2 * i}.png", f"{vid}/{10001 + 2 * i}.png"
+        for name, img in ((a, img1), (b, img2)):
+            with open(os.path.join(root, "img", name), "wb") as f:
+                f.write(png_bytes(img))
+        src = rng.uniform([0, 0], [w - 1, h - 1], (6, 2)).astype(np.float32)
+        pts = np.stack([src, src + np.array([4 - dx, 4 - dy], np.float32)], axis=1)
+        np.save(os.path.join(root, "pt", f"{a.split('/')[-1]}_{b.split('/')[-1]}.npy"),
+                {"matche_pts": pts}, allow_pickle=True)
+        lines.append(f"{a} {b}")
+    with open(os.path.join(root, "test.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return lines

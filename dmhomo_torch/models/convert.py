@@ -339,3 +339,90 @@ def load_dgm_checkpoint(model: torch.nn.Module, path: str, use_ema: bool = True)
     sd["classes_emb.weight"] = emb
     model.load_state_dict(sd, strict=True)
     return int(ckpt.get("step", 0))
+
+
+# BasesHomo ``Net`` keys with no counterpart in the port: the flow-basis
+# buffer (the port's BasesHomo regresses corner offsets and never reads it)
+# and ``subspace_block``, constructed (net.py:427) but never called.
+BASESHOMO_DEAD_KEYS: Tuple[str, ...] = (r"\.basis$", r"^basis", r"^subspace_block\.")
+
+
+def _bn_into(sd: Dict, dst: str, p: Dict, s: Dict) -> None:
+    sd[f"{dst}.weight"] = _t(p["scale"])
+    sd[f"{dst}.bias"] = _t(p["bias"])
+    sd[f"{dst}.running_mean"] = _t(s["mean"])
+    sd[f"{dst}.running_var"] = _t(s["var"])
+    sd[f"{dst}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+
+def baseshomo_state_dict_from_jax(params: Dict, batch_stats: Dict,
+                                  config=None) -> Dict[str, torch.Tensor]:
+    """JAX ``BasesHomoNet`` variables -> the port's (reference ``Net``) state
+    dict: the inverse of the JAX package's ``import_baseshomo_state_dict``."""
+    from dmhomo_torch.models.baseshomo import BasesHomoConfig
+
+    config = config or BasesHomoConfig()
+    sd: Dict[str, torch.Tensor] = {}
+    sf_p, sf_s = params["share_feature"], batch_stats["share_feature"]
+    for i, base in enumerate((0, 3, 6)):
+        _conv_into(sd, f"share_feature.layers.{base}", sf_p[f"conv{i}"])
+        _bn_into(sd, f"share_feature.layers.{base + 1}", sf_p[f"bn{i}"], sf_s[f"bn{i}"])
+    _conv_into(sd, "conv1", params["conv1"])
+    _bn_into(sd, "bn1", params["bn1"], batch_stats["bn1"])
+    for li, n_blocks in enumerate(config.layers):
+        for bi in range(n_blocks):
+            src, dst = f"layer{li + 1}_block{bi}", f"layer{li + 1}.{bi}"
+            bp, bs = params[src], batch_stats[src]
+            for j in (1, 2):
+                _conv_into(sd, f"{dst}.conv{j}", bp[f"conv{j}"])
+                _bn_into(sd, f"{dst}.bn{j}", bp[f"bn{j}"], bs[f"bn{j}"])
+            if "down_conv" in bp:
+                _conv_into(sd, f"{dst}.downsample.0", bp["down_conv"])
+                _bn_into(sd, f"{dst}.downsample.1", bp["down_bn"], bs["down_bn"])
+    for name in ("sp_layer3", "sp_layer4"):
+        bp, bs = params[name]["block"], batch_stats[name]["block"]
+        for ci in range(3):
+            _conv_into(sd, f"{name}.Block.conv{ci}.0", bp[f"conv{ci}"])
+            _bn_into(sd, f"{name}.Block.bn{ci}", bp[f"bn{ci}"], bs[f"bn{ci}"])
+    _conv_into(sd, "conv_last", params["conv_last"])
+    return sd
+
+
+def load_baseshomo_state_dict(model: torch.nn.Module, sd: Dict) -> None:
+    """Load a reference BasesHomo ``Net`` state dict into the port with
+    ``strict=True``: strips DDP's ``module.`` prefix and drops
+    :data:`BASESHOMO_DEAD_KEYS` (BatchNorm's ``num_batches_tracked`` is kept:
+    the port's BN has it)."""
+    pats = [re.compile(p) for p in BASESHOMO_DEAD_KEYS]
+    clean = {}
+    for k, v in sd.items():
+        k = k[len("module."):] if k.startswith("module.") else k
+        if not any(p.search(k) for p in pats):
+            clean[k] = v
+    model.load_state_dict(clean, strict=True)
+
+
+def module_state_dict_from_jax(params: Dict, batch_stats: Dict | None = None,
+                               prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A flax module's variables -> the state dict of a port module whose
+    submodules carry the flax names (``models/extras.py``): ``kernel`` of
+    rank 4 a conv weight (HWIO -> OIHW), of rank 2 a linear weight; ``scale``
+    the norm's weight; ``batch_stats`` mean / var its running statistics
+    (with ``num_batches_tracked``); every other leaf as it is."""
+    sd: Dict[str, torch.Tensor] = {}
+    stats = batch_stats or {}
+    for key, value in params.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, dict):
+            sd.update(module_state_dict_from_jax(value, stats.get(key), f"{name}."))
+        elif key == "kernel":
+            sd[f"{prefix}weight"] = _conv(value) if np.ndim(value) == 4 else _lin(value)
+        elif key == "scale":
+            sd[f"{prefix}weight"] = _t(value)
+        else:
+            sd[name] = _t(value)
+    for key in ("mean", "var"):
+        if key in stats and not isinstance(stats[key], dict):
+            sd[f"{prefix}running_{key}"] = _t(stats[key])
+            sd[f"{prefix}num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd

@@ -19,8 +19,9 @@ Two variants, picked by shape alone (:func:`variant`):
 
 * **tuned** (``csrc/linear_attention.cu``) at heads = 4, dim_head = 32, the
   sizes compiled in.  Only the four 32x32 diagonal blocks of E exist.
-  Pass 1 adds each block's share of (E, s) into a zeroed fp32 buffer with
-  atomics, so its sum order changes between runs.  bf16 runs on tensor
+  Pass 1 writes each block's share of (E, s) to a slot of its own (bf16:
+  each warp's) and a second launch sums the slots in a fixed order (no
+  atomics: reruns give the same bits).  bf16 runs on tensor
   cores; :func:`launch_plan` picks, from the shapes and strides, the loader
   (16-byte asynchronous copies where x has token stride 1 and 16-byte
   aligned rows, else element loads), the heads per block, the channels per
@@ -266,15 +267,18 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fn = lib.dmh_linear_attention_pass1
-    fn.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i32, ptr, i32, i32, i32, ptr]
+    fn.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i32, ptr, ptr, i64, i32, i32, i32, ptr]
     fn.restype = i32
     fn = lib.dmh_linear_attention_pass2
     fn.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
                    i32, i32, i32, ptr]
     fn.restype = i32
     fn = lib.dmh_linear_attention_pass1_bf16
-    fn.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i32, ptr,
+    fn.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i32, ptr, ptr, i64,
                    i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
+    fn.restype = i32
+    fn = lib.dmh_linear_attention_pass1_partials
+    fn.argtypes = [i32] * 12 + [ctypes.POINTER(i64)]
     fn.restype = i32
     fn = lib.dmh_linear_attention_pass2_bf16
     fn.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
@@ -416,29 +420,64 @@ def _takes_generic(heads, dim_head, generic: bool) -> bool:
     return generic or variant(heads, dim_head) == "generic"
 
 
+@functools.lru_cache(maxsize=None)
+def _tuned_partials(bf16: bool, prenorm: bool, compute_stats: bool, B: int, N: int, C: int,
+                    plan: tuple, aligned: bool) -> int:
+    out = ctypes.c_longlong()
+    err = _library().dmh_linear_attention_pass1_partials(
+        int(bf16), int(prenorm), int(compute_stats), B, N, C, *plan, int(aligned),
+        ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"linear attention pass 1 plan refused: cudaError {err}")
+    return out.value
+
+
+def pass1_partials(x: torch.Tensor, g, compute_stats: bool, stats=(), heads: int = HEADS,
+                   dim_head: int = DIM_HEAD, _generic: bool = False,
+                   plan: dict | None = None) -> int:
+    """Floats of the scratch a pass-1 call on x (B, N, C) writes its per-block
+    partials to before they are summed: the generic plan's ``partials``, or
+    for the tuned kernels the library's count (fp32: B x blocks per batch row
+    x (E, s); bf16: a slot of one head's (E_h, s_h) per warp, for each block
+    and batch row its tiles meet, the grid following the card's resident
+    blocks).  ``stats``: the given mean and rstd, if read; ``plan``: the bf16
+    call's :func:`launch_plan`, if made already."""
+    B, N, C = x.shape
+    if _takes_generic(heads, dim_head, _generic):
+        return generic_launch_plan(1, B, N, C, heads, dim_head)["partials"]
+    if x.dtype != torch.bfloat16:
+        return _tuned_partials(False, g is not None, compute_stats, B, N, C, (0,) * 5, False)
+    plan = plan or launch_plan(x, 1, stats)
+    return _tuned_partials(True, g is not None, compute_stats, B, N, C, _plan_args(plan),
+                           plan["loader"] == "aligned")
+
+
 def linear_attention_pass1(x, w_qkv, g, mean, rstd, compute_stats: bool, sums: torch.Tensor,
                            heads: int = HEADS, dim_head: int = DIM_HEAD,
                            _generic: bool = False) -> None:
     """Kernel A: (E blocks, s) of x into ``sums`` (B, heads*dim_head*(dim_head+1))
-    fp32: the tuned kernel adds them (the caller zeroes ``sums``), the
-    generic one writes them.  With ``g``, mean and rstd (B, N) fp32 are
-    computed and written (``compute_stats``) or read.  ``launches`` counts
-    each launch, ``generic`` those of the generic kernel."""
+    fp32, written whole (no need to zero it): the blocks write per-block
+    partials into a scratch of :func:`pass1_partials` floats, taken from the
+    caller's allocator on x's device (under a CUDA graph's capture, from the
+    graph's pool), and a second launch sums them in a fixed order.  With ``g``, mean and rstd (B,
+    N) fp32 are computed and written (``compute_stats``) or read.
+    ``launches`` counts each call (its two launches), ``generic`` those of
+    the generic kernel."""
     B, N, C = x.shape
     generic = _takes_generic(heads, dim_head, _generic)
     stats = () if g is None else (mean, rstd)
+    read = () if compute_stats else stats
+    plan = launch_plan(x, 1, read) if not generic and x.dtype == torch.bfloat16 else None
+    partials = torch.empty(pass1_partials(x, g, compute_stats, read, heads, dim_head, generic,
+                                          plan), dtype=torch.float32, device=x.device)
     args = (x.data_ptr(), *x.stride(), w_qkv.data_ptr(), None if g is None else g.data_ptr(),
             *(tuple(t.data_ptr() for t in stats) or (None, None)),
-            int(compute_stats), sums.data_ptr())
+            int(compute_stats), sums.data_ptr(), partials.data_ptr(), partials.numel())
     with torch.cuda.device(x.device):
         if generic:
-            n = generic_launch_plan(1, B, N, C, heads, dim_head)["partials"]
-            partials = torch.empty(n, dtype=torch.float32, device=x.device)
             err = _library_any().dmh_linear_attention_any_pass1(
-                *args, partials.data_ptr(), n, B, N, C, heads, dim_head,
-                int(x.dtype == torch.bfloat16), _stream(x))
-        elif x.dtype == torch.bfloat16:
-            plan = launch_plan(x, 1, () if compute_stats else stats)
+                *args, B, N, C, heads, dim_head, int(x.dtype == torch.bfloat16), _stream(x))
+        elif plan is not None:
             err = _library().dmh_linear_attention_pass1_bf16(
                 *args, B, N, C, *_plan_args(plan), int(plan["loader"] == "aligned"), _stream(x))
             linear_attention_pass1.elementwise += plan["loader"] == "elementwise"
@@ -519,10 +558,9 @@ def _forward(x, w_qkv, g, mean, rstd, heads, dim_head, generic=False):
     _check_cuda_args(x, w_qkv, heads, dim_head, g,
                      () if g is None else (("mean", mean), ("rstd", rstd)), generic)
     generic = _takes_generic(heads, dim_head, generic)
-    width = sums_width(heads, dim_head)
-    # the tuned pass 1 adds into its sums, the generic one writes them
-    sums = (torch.empty if generic else torch.zeros)((B, width), dtype=torch.float32,
-                                                      device=x.device)
+    # written whole by pass 1 (its partials are taken from this allocator too:
+    # a captured step's from the graph's pool)
+    sums = torch.empty((B, sums_width(heads, dim_head)), dtype=torch.float32, device=x.device)
     linear_attention_pass1(x, w_qkv, g, mean, rstd, g is not None and not given, sums,
                            heads, dim_head, generic)
     hd = heads * dim_head

@@ -190,3 +190,32 @@ def test_random_init_is_seeded():
     b = build_estimator(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
     for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
         torch.testing.assert_close(va, vb, rtol=0, atol=0, msg=k)
+
+
+@pytest.mark.slow
+def test_shipped_config_matches_jax_at_full_size():
+    """The shipped config (crop 320x576 -> 360x640, the params.json Swin
+    widths) against JAX on one pair, fp32: flows and basis weights within
+    1e-3 absolute, masks within 1e-4 (the tiny config's tolerances x 10:
+    the same summation-order noise over 16x more tokens per window level).
+    Marked slow: a full-size forward of both packages on the CPU."""
+    crop, ori = (320, 576), (360, 640)
+    jcfg = JaxEstimatorConfig(crop_size=crop, ori_size=ori, swin=JaxSwinConfig(crop_size=crop))
+    jmodel = JaxEstimator(jcfg)
+    variables = jax.jit(lambda key: jmodel.init(key, jnp.zeros((1, *crop, 2)), train=False))(
+        jax.random.PRNGKey(1))
+    rng = np.random.default_rng(1)
+    params = _perturb(jax.tree.map(np.asarray, variables["params"]), rng)
+    stats = _perturb(jax.tree.map(np.asarray, variables["batch_stats"]), rng)
+    patch = rng.normal(0, 1, (1, *crop, 2)).astype(np.float32)
+    jout = jax.jit(lambda v, x: jax_upsample(jmodel.apply(v, x, train=False), ori))(
+        {"params": params, "batch_stats": stats}, jnp.asarray(patch))
+    cfg = EstimatorConfig(ori_size=ori, swin=SwinConfig(crop_size=crop))
+    model = build_estimator(cfg, device="cpu")
+    model.load_state_dict(estimator_state_dict_from_jax(params, stats, cfg), strict=True)
+    with torch.no_grad():
+        full = upsample_outputs(model(torch.from_numpy(patch)), ori)
+    for key in ("flow_f", "flow_b", "mask_f", "mask_b", "mask_fusion"):
+        atol = 1e-3 if key.startswith("flow") else 1e-4
+        np.testing.assert_allclose(full[key].numpy(), np.asarray(jout[key]), atol=atol, rtol=0,
+                                   err_msg=key)

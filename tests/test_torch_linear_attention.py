@@ -35,6 +35,8 @@ where JAX is not installed:
   python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_linear_attention.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -426,6 +428,46 @@ def test_cuda_backward_at_unet_sites(cuda_device, site, dtype):
     for a, b in zip(*grads):
         err = float((a.float() - b.float()).abs().max() / b.float().abs().max())
         assert bool(torch.isfinite(a).all()) and err <= CUDA_GRAD_TOL[dtype], err
+
+
+def test_source_has_no_atomics():
+    """No atomic call or reduction-to-memory instruction in the tuned
+    kernels' code (comments aside): pass 1 writes per-block slots and its
+    reduction launches sum them in a fixed order."""
+    code = re.sub(r"//[^\n]*", "", la._SOURCE.read_text())
+    assert not re.search(r"\batomic[A-Z]\w*\s*\(|\bred\.|\batom\.", code)
+    for name in ("linear_attention_reduce_kernel", "linear_attention_reduce_kernel_tc"):
+        assert re.search(rf"\b{name}\s*(<<<|\()", code), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B, site", [(32, s) for s in sorted(set(UNET_SITES))]
+                         + [(50, (65536, 64)), (50, (1024, 512)), (3, (70001, 32))])
+def test_cuda_pass1_is_deterministic(cuda_device, B, site, dtype):
+    """Six calls of the tuned pass 1 and of the whole forward on one input
+    give the same bits: at the DGM training sites (microbatch 32), at
+    generation's batch (50) and where a block walks ragged tiles of several
+    batch rows; the sums stay the plain version's."""
+    N, C = site
+    gen = torch.Generator(device=cuda_device).manual_seed(N + C + B)
+    x = (1.5 * torch.randn(B, C, N, generator=gen, device=cuda_device) + 0.3).to(
+        getattr(torch, dtype)).transpose(1, 2)
+    w = torch.randn(C, 3 * la.HIDDEN, generator=gen, device=cuda_device) / C**0.5
+    g = 0.5 + torch.rand(C, generator=gen, device=cuda_device)
+    sums, outs = [], []
+    for _ in range(6):
+        s = torch.full((B, la.SUMS), float("nan"), device=cuda_device)
+        mean, rstd = (torch.empty((B, N), device=cuda_device) for _ in range(2))
+        la.linear_attention_pass1(x, w, g, mean, rstd, True, s)
+        sums.append(s)
+        outs.append(la.linear_attention(x, w, prenorm=(g,)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(s, sums[0]) for s in sums[1:])
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    want = la.linear_attention_pass1_reference(x, w, prenorm=(g,))
+    err = float((sums[0] - want).abs().max() / want.abs().max())
+    assert err <= TOL[dtype], err
 
 
 def test_breakdown_edits_apply():

@@ -184,3 +184,21 @@ def test_hem_eval_cli_on_cpu(tmp_path):
                         torch.from_numpy(batch["pt_set"]), ORI)
     assert errs.shape == (3,)
     assert report["RE"] == pytest.approx(float(errs.mean()), rel=1e-5)
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Every module of the JAX package has a file of the same path in the
+    port, but the two renamed ones (the weight importer, the platform
+    set-up), whose counterparts exist."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def modules(pkg):
+        base = os.path.join(root, pkg)
+        return {os.path.relpath(os.path.join(d, f), base) for d, _, fs in os.walk(base)
+                for f in fs if f.endswith(".py")}
+
+    renamed = {"models/import_torch.py": "models/convert.py", "utils/platform.py": "utils/device.py"}
+    port = modules("dmhomo_torch")
+    assert modules("dmhomo_tpu") - port == set(renamed)
+    assert set(renamed.values()) <= port
+

@@ -249,9 +249,10 @@ Phases, each printing its results; any failure exits non-zero:
     phases 1-2 and 28 alone.
 29. kernels 3 and 4 at any heads / dim_head (the generic variant,
     ``csrc/linear_attention_any.cu``, built in phase 2) and the unconditional
-    twin (``models/unet_uncond.py``, ``diffusion/uncond.py``): (a) the
-    library's registers and spills, no atomic instruction in its machine
-    code; the generic kernels against their plain versions over heads
+    twin (``models/unet_uncond.py``, ``diffusion/uncond.py``): (a) each
+    instantiation's registers and spills, its tensor-core instructions
+    (every bf16 pass > 0, every fp32 one 0) and no atomic instruction in the
+    library's machine code; the generic kernels against their plain versions over heads
     {1, 2, 3, 8, 16} x dim_head {8, 12, 24, 64, 128} (heads * dim_head <=
     1024), each twice (fp32 and bf16) with N in {256, 1024, 16384}, C in
     {64, 256, 512}, the three prenorm modes and both layouts cycling (LA_TOL),
@@ -272,8 +273,10 @@ Phases, each printing its results; any failure exits non-zero:
     ``DGMTrainer`` steps of the shipped config, every launch generic, one
     fp32 forward card vs CPU; (d) each generic kernel at the sites of (c)'s
     sampling paths (the twin B=16 fp32, the conditional B=50 bf16): errors,
-    the median of 5 bursts, the plain version's time and the bound.
-    ``--only-uncond`` runs phases 1-2 and 29 alone.
+    the median of 5 bursts, the plain version's time and the bound; and the
+    generic kernels forced at (4, 32) at the conditional generation's sites
+    beside the tuned kernels on the same inputs (a yardstick; the target is
+    within 2x).  ``--only-uncond`` runs phases 1-2 and 29 alone.
 30. the rest of the DGM trainer, under a temporary directory in ``build/``:
     (a) the shipped ``DGMTrainConfig()`` (bf16, 128 in microbatches of 32)
     eagerly and as a CUDA graph (``train_steps``, one call per step: the
@@ -4392,14 +4395,24 @@ def phase_la_any_kernels(dev, seed: int) -> dict:
     t0 = time.perf_counter()
     entry = None
     for line in la.build_log(generic=True).splitlines():
-        m = re.search(r"linear_attention_any_(pass1|pass2|reduce)_kernel(?:I(f|13__nv_bfloat16)"
-                      r"Lb([01])E(?:Lb([01])E)?)?", line)
+        m = re.search(r"linear_attention_any_(?:(pass[12])_(bf16|fp32)_kernelILi(\d+)E|"
+                      r"(prep|stats)_kernelI(f|13__nv_bfloat16)E|(reduce)_kernel)", line)
         if m:
-            entry = m.group(1) + ("" if m.group(2) is None else
-                                  f" {'fp32' if m.group(2) == 'f' else 'bf16'} prenorm={m.group(3)}"
-                                  + ("" if m.group(4) is None else f" stats={m.group(4)}"))
+            entry = (f"{m.group(1)} {m.group(2)} dim_head padded {m.group(3)}" if m.group(1) else
+                     f"{m.group(4)} {'fp32' if m.group(5) == 'f' else 'bf16'}" if m.group(4)
+                     else "reduce")
         elif entry and ("registers" in line or "spill" in line):
             log(f"[la-any-build] {entry}: {line.split(':', 1)[-1].strip()}")
+    # tensor cores: every bf16 pass-1 and pass-2 instantiation > 0, every fp32 one 0
+    from dmhomo_torch.ops.build import tensor_core_instructions
+
+    tensor = tensor_core_instructions(la.build_generic(), "linear_attention_any_")
+    for name, n in tensor.items():
+        log(f"[la-any-sass] {name[:90]}: {n} tensor-core instructions")
+    passes = {k: v for k, v in tensor.items() if "_pass1_" in k or "_pass2_" in k}
+    if (len(passes) != 16 or any(("_bf16_" in k) != (v > 0) for k, v in passes.items())):
+        raise SystemExit(f"generic linear attention: bf16 passes must run on tensor cores and "
+                         f"fp32 ones not: {tensor}")
     atomics = la.atomic_instructions_any()
     for name, n in atomics.items():
         log(f"[la-any-sass] {name[:90]}: {n} atomic instructions")
@@ -4472,7 +4485,7 @@ def phase_la_any_kernels(dev, seed: int) -> dict:
                 raise SystemExit("the forced generic or the tuned kernels miss the plain version")
     log(f"[la-any] {len(rows)} grid cases, worst {json.dumps(worst)}; "
         f"{time.perf_counter() - t0:.1f} s")
-    return {"worst": worst, "rows": rows, "atomics": atomics}
+    return {"worst": worst, "rows": rows, "atomics": atomics, "tensor_cores": tensor}
 
 
 def la_sites(model) -> int:
@@ -4996,7 +5009,66 @@ def generic_la_site_times(dev, seed: int) -> dict:
     for k, v in totals.items():
         log(f"[la-any-site] per UNet forward, {k}: {v['ms']:.3f} ms (bound {v['bound_ms']:.3f} "
             f"{v['bound_by']}, plain {v['plain_ms']:.3f})")
-    return {"rows": rows, "totals": totals}
+    return {"rows": rows, "totals": totals, "forced": forced_generic_times(dev, gen)}
+
+
+def forced_generic_times(dev, gen) -> dict:
+    """(d): the generic kernels forced at the tuned (4, 32) at the
+    conditional generation's sites (B = 2 * GEN_BS, bf16, 256², the UNet's
+    call), beside the tuned kernels on the same inputs, as a yardstick: per
+    UNet forward, the median of TIMING_BURSTS bursts each; the forced
+    output against the tuned one."""
+    import torch
+
+    from dmhomo_torch.models.unet import UNetConfig
+    from dmhomo_torch.ops import linear_attention as la
+
+    B = 2 * GEN_BS
+    ms = {"tuned1": 0.0, "tuned2": 0.0, "generic1": 0.0, "generic2": 0.0}
+    worst = 0.0
+    for site, hw, C in linear_attention_sites(UNetConfig(), GEN_SIZE):
+        N = hw * hw
+        x, w, g = _la_inputs(B, N, C, la.HIDDEN, "bfloat16", True, dev, gen)
+        mean = torch.empty((B, N), device=dev)
+        rstd = torch.empty_like(mean)
+        outs = {}
+        for kind in ("tuned", "generic"):
+            forced = kind == "generic"
+            sums = torch.empty((B, la.SUMS), device=dev)
+            out = torch.empty((B, la.HIDDEN, N), dtype=x.dtype, device=dev).transpose(1, 2)
+
+            def p1():
+                la.linear_attention_pass1(x, w, g, mean, rstd, True, sums, _generic=forced)
+
+            def p2():
+                la.linear_attention_pass2(x, w, g, mean, rstd, sums, out, _generic=forced)
+
+            ms1, _ = burst_ms(p1, iters=5)
+            ms2, _ = burst_ms(p2, iters=5)
+            p1()
+            p2()
+            ms[f"{kind}1"] += ms1
+            ms[f"{kind}2"] += ms2
+            outs[kind] = out
+            log(f"[la-any-forced] {site} N={N} C={C} B={B} bf16 {kind} kernels at (4, 32): pass1 "
+                f"{ms1:.3f} ms pass2 {ms2:.3f} ms")
+        torch.cuda.synchronize()
+        worst = max(worst, rel_err(outs["generic"], outs["tuned"]))
+        del x, w, g, mean, rstd, outs
+        torch.cuda.empty_cache()
+    res = {f"pass{p}": {"ms": ms[f"generic{p}"], "tuned_ms": ms[f"tuned{p}"],
+                        "ratio": ms[f"generic{p}"] / ms[f"tuned{p}"]} for p in (1, 2)}
+    res["rel_err_vs_tuned"] = worst
+    for p in (1, 2):
+        r = res[f"pass{p}"]
+        log(f"[la-any-forced] per UNet forward, pass{p}: generic forced {r['ms']:.3f} ms, tuned "
+            f"{r['tuned_ms']:.3f} ms ({r['ratio']:.2f}x; target within 2x: "
+            f"{'met' if r['ratio'] <= 2 else 'not met'})")
+    if not worst <= 2 * LA_TOL["bfloat16"]:
+        raise SystemExit(f"forced generic kernels at (4, 32) disagree with the tuned ones: {worst}")
+    log(f"[la-any-forced] forced vs tuned output, worst rel err {worst:.3g} "
+        f"(tol {2 * LA_TOL['bfloat16']:g})")
+    return res
 
 
 def phase_uncond(dev, seed: int) -> dict:
@@ -5068,6 +5140,9 @@ def generic_la_entries(u: dict) -> list:
                                 "unit": (f"one conditional UNet forward at B={2 * GEN_BS}, "
                                          "bf16, 256x256")},
             "atomic_instructions": u["grid"]["atomics"],
+            "tensor_core_instructions": {k: v for k, v in u["grid"]["tensor_cores"].items()
+                                         if f"_pass{p}_" in k},
+            "forced_at_tuned_shape": u["sites"]["forced"][f"pass{p}"],
         })
     return out
 

@@ -28,13 +28,19 @@ Two variants, picked by shape alone (:func:`variant`):
   ring slot and the number of slots.  fp32 runs the CUDA-core kernels.
 * **generic** (``csrc/linear_attention_any.cu``) at every other shape of
   the envelope: 1 <= heads <= 16, 1 <= dim_head <= 128, heads * dim_head <=
-  1024, C <= 1024, any N, B <= 65535.  Pass 1 runs over (token chunk,
-  head, batch) and writes each chunk's (E_h, s_h) to a scratch buffer; a
-  second launch sums the chunks in a fixed order (no atomics: reruns give
-  the same bits).  Pass 2 runs over (token tile, head, batch), each block
-  rebuilding context_h in shared memory.  fp32 products on CUDA cores in
-  both dtypes.  :func:`generic_launch_plan` gives its grids and shared
-  memory; the private ``_generic=True`` forces it at (4, 32).
+  1024, C <= 1024, any N, B <= 65535.  A block holds a group of heads whose
+  columns, dim_head padded to 16, 32, 64 or 128, make 128: an x tile staged
+  once serves the group, E and s stay in registers across a chunk of tiles.
+  Pass 1 (after small launches that prepare round(diag(g) W) and g . W in
+  its scratch and, with a prenorm, the LayerNorm statistics, once per call)
+  runs over (token chunk, head group, batch) and
+  writes each chunk's (E_h, s_h) to a slot of the scratch; a second launch
+  sums the chunks in a fixed order (no atomics: reruns give the same bits).
+  Pass 2 runs persistent blocks per head group, each rebuilding its
+  group's context once per batch row.  bf16 runs every product on tensor
+  cores (``mma.sync`` fed by ``ldmatrix``), fp32 on CUDA cores.
+  :func:`generic_launch_plan` gives grids, shared memory and the scratch's
+  size; the private ``_generic=True`` forces it at (4, 32).
 
 A shape outside the envelope raises ``ValueError`` before any launch.
 :func:`linear_attention` runs :func:`linear_attention_reference` for CPU
@@ -183,43 +189,89 @@ def variant(heads: int, dim_head: int) -> str:
 
 # the generic variant's plan constants, as csrc/linear_attention_any.cu has them
 ANY_THREADS = 256
-ANY_KC = 16  # channels staged per step
-ANY_TARGET_BLOCKS = 132 * 4  # pass 1's blocks in all, about four per SM
+ANY_GROUP = 128  # padded head columns (heads x padded dim_head) a block holds
+ANY_TILE = 64  # tokens per tile (pass 2 at padded dim_head 128: twice that)
+ANY_KC = {"bfloat16": 64, "float32": 32}  # channels per ring slot
+ANY_TARGET_BLOCKS = 132 * 8  # pass 1's blocks in all, about eight waves of one per SM
+ANY_TARGET_PASS2 = 132 * 2  # pass 2's persistent blocks in all
+ANY_PREP_ALIGN = 64  # floats: the prepared weights start on this boundary of the scratch
+
+
+def _any_dim_head_padded(dim_head: int) -> int:
+    return next(d for d in (16, 32, 64, 128) if dim_head <= d)
+
+
+def _any_tile(pass_: int, dp: int) -> int:
+    return 2 * ANY_TILE if pass_ == 2 and dp == 128 else ANY_TILE
+
+
+def _any_smem(pass_: int, fp32: bool, dp: int, cp: int, resident: bool, stages: int) -> int:
+    """Dynamic shared memory of a generic block, as the library's smem_bytes."""
+    T, es = _any_tile(pass_, dp), 4 if fp32 else 2
+    kc = ANY_KC["float32" if fp32 else "bfloat16"]
+    slot = kc * (T + (4 if fp32 else 8)) * es + 2 * T * 4  # x rows, mean, rstd
+    if pass_ == 1:
+        R = 2 * ANY_GROUP
+        w_res = cp * R * 4 if fp32 else R * (cp + 8) * 2
+        w_slot = kc * R * 4 if fp32 else R * (kc + 8) * 2
+        ekv = 2 * T * ANY_GROUP * 4 if fp32 else R * (T + 8) * 2
+        return (w_res if resident else 0) + stages * (slot + (0 if resident else w_slot)) + ekv + R * 4
+    R = ANY_GROUP
+    w_res = cp * R * 4 if fp32 else R * (cp + 8) * 2
+    w_str = kc * R * 4 if fp32 else R * (kc + 8) * 2
+    tile = (R * (T + 4) + 16) * 4 if fp32 else R * (T + 8) * 2  # eq / output, rows = columns
+    ctx = R * dp * 4 if fp32 else R * (dp + 8) * 2
+    return (w_res if resident else w_str) + stages * slot + tile + ctx + R * 4
 
 
 @functools.lru_cache(maxsize=None)
 def generic_launch_plan(pass_: int, B: int, N: int, C: int, heads: int, dim_head: int) -> dict:
     """How a generic launch of ``pass_`` goes, from the shapes alone, as
-    ``csrc/linear_attention_any.cu`` computes it: ``grid`` (token chunks
-    (pass 1) or tiles (pass 2), heads, batch), ``threads``, dynamic shared
-    memory ``smem`` (bytes), ``tile`` tokens per tile, ``tiles_per_chunk``,
-    ``partials`` (pass 1's scratch floats: one (E_h, s_h) slot per chunk,
-    head and batch; 0 for pass 2) and ``dim_head_padded`` (a multiple of 4).
-    Each thread projects 4 tokens x 4 columns of the head's 2 (pass 1) or 1
-    (pass 2) padded dim_head columns; the tile holds 256 threads' tokens, at
-    most 256."""
-    dhp = -(-dim_head // 4) * 4
-    cols = 2 * dhp if pass_ == 1 else dhp
-    groups_t = min(64, ANY_THREADS // (cols // 4))
-    tile = 4 * groups_t
+    ``csrc/linear_attention_any.cu`` computes it.  A block holds a group of
+    ``heads_per_group`` heads, 128 / ``dim_head_padded`` (dim_head padded to
+    16, 32, 64 or 128): ``grid`` is (token chunks, head groups, batch) for
+    pass 1 and (persistent blocks per group, head groups, 1) for pass 2;
+    ``tile`` tokens per tile; ``tiles_per_chunk`` (pass 2: the most tiles a
+    block takes); ``partials``, pass 1's scratch floats: one (E_h, s_h) slot
+    per chunk, head and batch, then u = g . W and the prepared weights of
+    every group (0 for pass 2).  Per dtype (bf16 unsuffixed, ``_fp32``):
+    ``smem`` bytes, ``resident`` (the block's weights staged once, else one
+    channel step per ring slot) and ``stages`` (ring slots); the first of
+    (resident, 3), (resident, 2), (streamed, 3), (streamed, 2) that fits."""
+    dp = _any_dim_head_padded(dim_head)
+    hg = ANY_GROUP // dp
+    groups = -(-heads // hg)
+    cp = -(-C // 16) * 16
+    tile = _any_tile(pass_, dp)
     n_tiles = -(-N // tile)
-    stats = 2 * tile + ANY_THREADS
+    fit = {}
+    for fp32 in (False, True):
+        fit[fp32] = next(((res, st) for res in (True, False) for st in (3, 2)
+                          if _any_smem(pass_, fp32, dp, cp, res, st) <= SMEM_LIMIT), (False, 2))
     if pass_ == 1:
-        want = min(max(1, -(-ANY_TARGET_BLOCKS // (B * heads))), n_tiles)
+        want = min(max(1, -(-ANY_TARGET_BLOCKS // (B * groups))), n_tiles)
         per = -(-n_tiles // want)
-        chunks = -(-n_tiles // per)
-        partials = B * heads * chunks * (dim_head * dim_head + dim_head)
-        floats = ANY_KC * tile + ANY_KC * cols + 2 * tile * dhp + dhp * dhp + cols + stats
+        grid = (-(-n_tiles // per), groups, B)
+        slots = B * heads * grid[0] * (dim_head * dim_head + dim_head)
+        partials = (-(-slots // ANY_PREP_ALIGN) * ANY_PREP_ALIGN + groups * 2 * ANY_GROUP
+                    + groups * cp * 2 * ANY_GROUP)
     else:
-        per, chunks, partials = 1, n_tiles, 0
-        floats = ANY_KC * tile + ANY_KC * cols + dhp * dhp + tile * (dhp + 1) + cols + stats
-    return {"grid": (chunks, heads, B), "threads": ANY_THREADS, "smem": 4 * floats,
-            "tile": tile, "tiles_per_chunk": per, "partials": partials,
-            "dim_head_padded": dhp, "variant": "generic"}
+        total = B * n_tiles
+        g = min(-(-ANY_TARGET_PASS2 // groups), total)
+        grid, per, partials = (g, groups, 1), -(-total // g), 0
+    plan = {"grid": grid, "threads": ANY_THREADS, "tile": tile, "tiles_per_chunk": per,
+            "partials": partials, "dim_head_padded": dp, "heads_per_group": hg,
+            "variant": "generic"}
+    for fp32, suffix in ((False, ""), (True, "_fp32")):
+        res, st = fit[fp32]
+        plan.update({f"smem{suffix}": _any_smem(pass_, fp32, dp, cp, res, st),
+                     f"resident{suffix}": int(res), f"stages{suffix}": st})
+    return plan
 
 
 _ANY_PLAN_KEYS = ("grid_x", "grid_y", "grid_z", "threads", "smem", "tile", "tiles_per_chunk",
-                  "partials", "dim_head_padded")
+                  "partials", "dim_head_padded", "heads_per_group", "resident", "stages",
+                  "smem_fp32", "resident_fp32", "stages_fp32")
 
 
 def library_plan_any(pass_: int, B: int, N: int, C: int, heads: int, dim_head: int) -> dict:

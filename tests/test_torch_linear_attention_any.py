@@ -12,13 +12,16 @@ the JAX package's.
   ``blockdiag_linear_attention`` at two such shapes, and
   ``LinearAttentionFunction`` against autograd of the plain version;
 * the variant picked by shape, the generic plan (its shared memory within
-  a block's, its grid covering the tokens), the envelope's ``ValueError``\\ s
-  and a source free of atomics;
+  a block's in both dtypes, its head groups and grid covering the heads and
+  tokens, the scratch sized for the slots and the prepared weights), also
+  at the envelope's edges, the envelope's ``ValueError``\\ s, a source free
+  of atomics, and the breakdown tool's sites equal to the UNet's;
 * on the card (``gpu``; skips here): the generic kernels against their
-  plain versions over the grid, the generic variant forced at (4, 32)
-  against the tuned kernels, reruns bit-identical, no atomic instruction in
-  the library's machine code, and the library's plan equal to
-  :func:`generic_launch_plan`.
+  plain versions over the grid (dim_head 1-128, C 3-512, N 1-4099), the
+  generic variant forced at (4, 32) against the tuned kernels, reruns
+  bit-identical in both dtypes, no atomic instruction in the library's
+  machine code, tensor-core instructions in every bf16 pass and none in
+  fp32, and the library's plan equal to :func:`generic_launch_plan`.
 
 JAX is imported inside the tests that use it, so that the card's tests run
 where JAX is not installed:
@@ -198,29 +201,60 @@ def test_variant_by_shape(heads, dim_head, want):
     assert la.variant(heads, dim_head) == want
 
 
+def _check_generic_plan(p, pass_, B, N, C, heads, dim_head):
+    """A generic plan fits a block's shared memory in both dtypes, its head
+    groups of 128 padded columns cover the heads, its grid covers the
+    tokens without an empty chunk (pass 1) or block (pass 2), and pass 1's
+    scratch holds a slot per chunk, head and batch, then u and the
+    prepared weights of every group."""
+    assert p["smem"] <= la.SMEM_LIMIT and p["smem_fp32"] <= la.SMEM_LIMIT
+    dp = p["dim_head_padded"]
+    assert dp in (16, 32, 64, 128) and dim_head <= dp and (dp == 16 or dp // 2 < dim_head)
+    assert p["heads_per_group"] * dp == la.ANY_GROUP and p["threads"] == 256
+    gx, groups, gz = p["grid"]
+    assert (groups - 1) * p["heads_per_group"] < heads <= groups * p["heads_per_group"]
+    assert p["tile"] == (128 if pass_ == 2 and dp == 128 else 64)
+    n_tiles = -(-N // p["tile"])
+    for key in ("stages", "stages_fp32"):
+        assert p[key] in (2, 3)
+    if pass_ == 1:
+        assert gz == B
+        assert gx * p["tiles_per_chunk"] >= n_tiles > (gx - 1) * p["tiles_per_chunk"]
+        slots = B * heads * gx * dim_head * (dim_head + 1)
+        cp = -(-C // 16) * 16
+        prep = groups * 2 * la.ANY_GROUP * (1 + cp)
+        assert slots + prep <= p["partials"] < slots + la.ANY_PREP_ALIGN + prep
+    else:
+        assert gz == 1 and 1 <= gx <= B * n_tiles and p["partials"] == 0
+        assert gx * p["tiles_per_chunk"] >= B * n_tiles > gx * (p["tiles_per_chunk"] - 1)
+
+
 @pytest.mark.parametrize("pass_", [1, 2])
 @pytest.mark.parametrize("heads, dim_head", [(1, 1), (1, 5), (3, 24), (4, 32), (8, 64),
                                              (16, 64), (8, 128), (2, 127), (16, 8)])
 def test_generic_plans_fit_shared_memory(heads, dim_head, pass_):
-    """Each generic plan fits a block's shared memory (dim_head = 128 holds a
-    64 KB fp32 E or context), covers the tokens and the padded columns with
-    its 256 threads, and gives pass 1 one scratch slot per chunk, head and
-    batch."""
+    """Each generic plan fits a block's shared memory (at C = 1024 the
+    weights stream by channel steps), covers the tokens and sizes the
+    scratch (:func:`_check_generic_plan`)."""
     for B, N, C in ((1, 1, 1), (50, 65536, 64), (16, 1024, 1024), (128, 4097, 512)):
         p = la.generic_launch_plan(pass_, B, N, C, heads, dim_head)
-        assert p["smem"] <= la.SMEM_LIMIT
-        dhp = p["dim_head_padded"]
-        assert dhp % 4 == 0 and dim_head <= dhp < dim_head + 4
-        cols = (2 if pass_ == 1 else 1) * dhp
-        assert (p["tile"] // 4) * (cols // 4) <= p["threads"] == 256 and p["tile"] <= 256
-        chunks, gheads, gb = p["grid"]
-        assert (gheads, gb) == (heads, B)
-        assert chunks * p["tiles_per_chunk"] * p["tile"] >= N
-        assert (chunks - 1) * p["tiles_per_chunk"] * p["tile"] < N  # no empty chunk
-        if pass_ == 1:
-            assert p["partials"] == B * heads * chunks * dim_head * (dim_head + 1)
-        else:
-            assert p["tiles_per_chunk"] == 1 and p["partials"] == 0
+        _check_generic_plan(p, pass_, B, N, C, heads, dim_head)
+
+
+@pytest.mark.parametrize("pass_", [1, 2])
+@pytest.mark.parametrize("heads, dim_head", [(1, 1), (1, 5), (2, 127), (16, 64), (8, 128)])
+def test_generic_plans_at_the_edges(heads, dim_head, pass_):
+    """The envelope's edge shapes at C 1, 3, 24, 1024 and N 1, 17, 65536
+    (B 1 and 50): every plan fits, covers the tokens and sizes the scratch;
+    the weights are resident at C <= 256 in bf16 pass 1 and stream at C =
+    1024 in pass 1."""
+    for C in (1, 3, 24, 1024):
+        for N in (1, 17, 65536):
+            for B in (1, 50):
+                p = la.generic_launch_plan(pass_, B, N, C, heads, dim_head)
+                _check_generic_plan(p, pass_, B, N, C, heads, dim_head)
+                if pass_ == 1:
+                    assert p["resident"] == (C <= 256) and p["resident_fp32"] == (C <= 144)
 
 
 @pytest.mark.parametrize("heads, dim_head, shape, match", [
@@ -278,6 +312,18 @@ def test_chip_smoke_grid_covers_the_envelope():
                             torch.zeros((C, 3 * h * d)), h, d, generic=True)
 
 
+def test_breakdown_sites_are_the_unets():
+    """``linear_attention_breakdown --generic`` times the UNet's eight sites,
+    as ``chip_smoke.py`` lists them, at both of its image sizes."""
+    import chip_smoke
+    from dmhomo_torch.models.unet import UNetConfig
+    from dmhomo_torch.ops.linear_attention_breakdown import GENERIC_PATHS, unet_sites
+
+    for _, _, size in GENERIC_PATHS:
+        want = [(hw * hw, C) for _, hw, C in chip_smoke.linear_attention_sites(UNetConfig(), size)]
+        assert unet_sites(size) == want
+
+
 def test_cpu_tensors_take_the_plain_version():
     rng = np.random.default_rng(5)
     x, w, g = (torch.from_numpy(a) for a in _inputs(rng, 1, 40, 8, 3 * 24))
@@ -299,7 +345,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-GPU_GRID = [(h, d) for h in (1, 2, 3, 8, 16) for d in (8, 12, 24, 64, 128) if h * d <= 1024]
+GPU_GRID = [(h, d) for h in (1, 2, 3, 8, 16) for d in (1, 5, 8, 12, 24, 64, 127, 128)
+            if h * d <= 1024]
 
 
 def _card_inputs(rng, B, N, C, hd, dtype, channel_major, dev):
@@ -317,8 +364,8 @@ def test_cuda_generic_matches_plain(cuda_device, heads, dim_head):
     launch of each pass, within the tuned kernels' tolerances of the plain
     version; each pass alone against its plain version."""
     i = GPU_GRID.index((heads, dim_head))
-    N = (1, 100, 1000, 4099)[i % 4]
-    C = (16, 64, 257, 512)[(i // 2) % 4]
+    N = (1, 17, 100, 1000, 4099)[i % 5]
+    C = (3, 16, 64, 257, 512)[(i // 2) % 5]
     dtype = ("float32", "bfloat16")[i % 2]
     prenorm = ("none", "gain", "stats")[i % 3]
     rng = np.random.default_rng(i)
@@ -374,10 +421,11 @@ def test_cuda_forced_generic_matches_tuned(cuda_device, N, C, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("heads, dim_head", [(8, 64), (3, 24)])
-def test_cuda_generic_reruns_bit_identical(cuda_device, heads, dim_head):
+def test_cuda_generic_reruns_bit_identical(cuda_device, heads, dim_head, dtype):
     rng = np.random.default_rng(heads)
-    x, w, g = _card_inputs(rng, 8, 16384, 64, heads * dim_head, "float32", True, cuda_device)
+    x, w, g = _card_inputs(rng, 8, 16384, 64, heads * dim_head, dtype, True, cuda_device)
     first = la.linear_attention(x, w, heads, dim_head, prenorm=(g,))
     for _ in range(3):
         assert torch.equal(la.linear_attention(x, w, heads, dim_head, prenorm=(g,)), first)
@@ -390,10 +438,26 @@ def test_cuda_generic_sass_has_no_atomics(cuda_device):
 
 
 @pytest.mark.gpu
+def test_cuda_generic_bf16_runs_on_tensor_cores(cuda_device):
+    """Every bf16 pass-1 and pass-2 instantiation of the generic library has
+    tensor-core (HMMA / HGMMA) instructions in its machine code; every fp32
+    one has none (TF32 is never used)."""
+    from dmhomo_torch.ops.build import tensor_core_instructions
+
+    found = tensor_core_instructions(la.build_generic(), "linear_attention_any_")
+    for p in ("pass1", "pass2"):
+        bf16 = {k: v for k, v in found.items() if f"{p}_bf16" in k}
+        fp32 = {k: v for k, v in found.items() if f"{p}_fp32" in k}
+        assert len(bf16) == len(fp32) == 4, found  # dim_head padded to 16, 32, 64, 128
+        assert all(v > 0 for v in bf16.values()) and not any(fp32.values()), found
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("pass_", [1, 2])
-@pytest.mark.parametrize("heads, dim_head", [(1, 1), (3, 24), (8, 64), (8, 128), (16, 8)])
+@pytest.mark.parametrize("heads, dim_head", [(1, 1), (1, 5), (3, 24), (8, 64), (8, 128),
+                                             (2, 127), (16, 8), (16, 64)])
 def test_cuda_library_plan_is_the_python_plan(cuda_device, pass_, heads, dim_head):
-    for B, N, C in ((1, 1, 1), (16, 16384, 64), (50, 1024, 512)):
+    for B, N, C in ((1, 1, 1), (16, 16384, 64), (50, 1024, 512), (3, 17, 1024)):
         want = la.generic_launch_plan(pass_, B, N, C, heads, dim_head)
         got = la.library_plan_any(pass_, B, N, C, heads, dim_head)
         assert got == {**want, "partials": want["partials"] % 2**31}

@@ -526,6 +526,25 @@ def burst_ms(fn, iters: int, bursts: int = TIMING_BURSTS, warmup: int = 1):
     return float(np.median(times)), times
 
 
+def graph_ms(fn, iters: int) -> float:
+    """ms per call of ``fn`` captured once as a CUDA graph and replayed (the
+    median of bursts of CUDA-event timed replays): the device's time for the
+    call's launches without the host's work between them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = burst_ms(graph.replay, iters)[0]
+    del graph
+    return ms
+
+
 def spread(times) -> str:
     return f"{min(times):.4f}-{max(times):.4f}"
 
@@ -3675,6 +3694,16 @@ def generic_kernel_checks(dev, seed: int) -> dict:
         raise SystemExit(f"atomic instructions in the generic kernels: {atomics}")
     log(f"[generic-sass] atomic instructions in {len(atomics)} generic kernels' machine code: "
         f"{sum(atomics.values())}")
+    # the whole block's products: bf16 on tensor cores, every fp32 instantiation not
+    tensor = sb.generic_tensor_core_instructions()
+    for (kernel, dtype), n in sorted(tensor.items()):
+        log(f"[generic-sass] whole block {kernel} {dtype}: {n} tensor-core instructions")
+    wrong = {k: n for k, n in tensor.items()
+             if (k[1] == "bfloat16" and k[0] in ("gemm", "weights") and n == 0)
+             or (k[1] == "float32" and n > 0)}
+    if wrong or ("gemm", "float32") not in tensor or ("weights", "float32") not in tensor:
+        raise SystemExit(f"generic whole block: bf16 products must run on tensor cores and fp32 "
+                         f"ones not: {tensor}")
 
     chk = _GenericChecks(dev, torch.Generator(device=dev).manual_seed(seed))
     gen, note = chk.gen, chk.note
@@ -4195,10 +4224,12 @@ def _wa_inputs(key, dev, gen):
 def generic_site_times(dev, seed: int, w4: dict) -> dict:
     """Phase 28 (d): each generic kernel at every shape phase 28 (c)'s paths
     gave it (their counters' keys): the median of 5 bursts of CUDA-event
-    timed calls, its plain version, its yardstick (SDPA at N = 16 for the
-    window attention, forward or forward + backward; the port's unfused
-    SwinBlock for the whole block) and its bound; per eval forward and per
-    training step, each shape weighted by its launches there."""
+    timed calls (the whole block: the median of 3, its ``ms``, and beside
+    it, as ``graph_ms``, the median of 3 bursts of the call replayed as a
+    CUDA graph, without the host's work), its plain version, its yardstick (SDPA at N = 16 for the window attention, forward
+    or forward + backward; the port's unfused SwinBlock for the whole block)
+    and its bound; per eval forward and per training step, each shape
+    weighted by its launches there."""
     import torch
     import torch.nn.functional as F
 
@@ -4277,13 +4308,16 @@ def generic_site_times(dev, seed: int, w4: dict) -> dict:
                     return block(xt)
             b_ms, b_by = block_bound(x, params, mask)
         ms, times = burst_ms(fn, 3)
+        # beside it, the call's launches replayed as a graph: at the step's
+        # small shapes a call's host work outlasts them
+        g_ms = graph_ms(fn, 3)
         plain_ms = burst_ms(plain, 1)[0]
         lib_ms = burst_ms(lib, 2)[0]
         rows.append({"kernel": "swin_block_" + ("bwd" if backward else "fwd"), "where": where,
                      "B": B, "H": H, "W": W, "C": C, "heads": heads, "dtype": dtype,
-                     "masked": masked, "per": per, "ms": ms, "spread": spread(times),
-                     "plain_ms": plain_ms, "unfused_ms": lib_ms, "bound_ms": b_ms,
-                     "bound_by": b_by})
+                     "masked": masked, "per": per, "ms": ms, "graph_ms": g_ms,
+                     "spread": spread(times), "plain_ms": plain_ms, "unfused_ms": lib_ms,
+                     "bound_ms": b_ms, "bound_by": b_by})
 
     ev, tr = w4["auto"]["eval_shapes"], w4["auto"]["train"]["by_shape"]
     for key, per in ev["window_attention"].items():
@@ -4306,14 +4340,16 @@ def generic_site_times(dev, seed: int, w4: dict) -> dict:
             "launches": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
             "bound_by": set()})
         t["launches"] += r["per"]
-        for k in ("ms", "plain_ms", "bound_ms"):
-            t[k] += r[k] * r["per"]
+        for k in ("ms", "graph_ms", "plain_ms", "bound_ms"):
+            if k in r:
+                t[k] = t.get(k, 0.0) + r[k] * r["per"]
         t["library_ms"] += r.get("library_ms", r.get("unfused_ms")) * r["per"]
         t["bound_by"].add(r["bound_by"])
         log(f"[generic-time] {r['kernel']} {r['where']} "
             + " ".join(f"{k}={r[k]}" for k in ("Bn", "B", "H", "W", "C", "heads", "nW",
                                                "dtype", "masked") if k in r)
-            + f" x{r['per']:g}: {r['ms']:.4f} ms (bursts {r['spread']}), plain "
+            + f" x{r['per']:g}: {r['ms']:.4f} ms (bursts {r['spread']})"
+            + (f", {r['graph_ms']:.4f} as a graph" if "graph_ms" in r else "") + ", plain "
             f"{r['plain_ms']:.4f}, {'SDPA' if 'library_ms' in r else 'unfused'} "
             f"{r.get('library_ms', r.get('unfused_ms')):.4f}, bound {r['bound_ms']:.4f} "
             f"({r['bound_by']})")
@@ -4324,7 +4360,9 @@ def generic_site_times(dev, seed: int, w4: dict) -> dict:
         per = ("eval forward (B=32, fp32)" if where == "eval"
                else "training step (B=32 in 4 microbatches, the step's dtypes)")
         log(f"[generic-time] {kernel} per {per}: "
-            f"{t['launches']:g} launches, {t['ms']:.3f} ms, plain {t['plain_ms']:.3f}, yardstick "
+            f"{t['launches']:g} launches, {t['ms']:.3f} ms"
+            + (f" ({t['graph_ms']:.3f} as a graph)" if "graph_ms" in t else "")
+            + f", plain {t['plain_ms']:.3f}, yardstick "
             f"{t['library_ms']:.3f}, bound {t['bound_ms']:.3f} ({t['bound_by']})")
     log(f"[generic] (d) done in {time.perf_counter() - t0:.1f} s")
     return {"totals": out, "rows": rows}
@@ -6793,6 +6831,8 @@ def main(argv=None):
                 g[where] = {"launches": t["launches"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                             "library_ms": t["library_ms"], "unit": units[where]}
+                if "graph_ms" in t:  # the whole block: its calls replayed as a graph
+                    g[where]["graph_ms"] = t["graph_ms"]
         entry["generic"] = g
     w4a, w4f = generic["w4"]["auto"], generic["w4"]["fused_block"]
     log(f"[summary] window 4 (phase 28): eval {w4a['pairs_per_s']:.2f} / {w4f['pairs_per_s']:.2f} "

@@ -41,10 +41,12 @@ an MLP of 1-4 C); the generic one (``csrc/swin_block_any.cu``) at every other
 shape of the envelope: any window ws <= 12 dividing H and W, C = heads x hd
 with hd <= 64 and C <= 384, any MLP width 1..4 C, any shift < ws.  It runs
 the same function as a fixed sequence of launches (the forward five, the
-backward thirteen: :func:`generic_forward_plan`,
-:func:`generic_backward_plan`), every intermediate in device memory at the
-plain version's precision, still without atomics.  A shape outside the
-envelope raises before any launch.
+backward eleven: :func:`generic_forward_plan`,
+:func:`generic_backward_plan`): the weights rounded and laid out once per
+call, then products that each own a tile of token rows and every output
+column (bf16 on tensor cores, fp32 on CUDA cores), every intermediate in
+device memory at the plain version's precision, still without atomics.  A
+shape outside the envelope raises before any launch.
 
 Parameters come in the port's layout: LayerNorm gains and biases (C,), the
 ``nn.Linear`` weights (out, in) and biases, all fp32, and the (heads, N, N)
@@ -63,12 +65,13 @@ import ctypes
 import functools
 import math
 import re
+import subprocess
 from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-from dmhomo_torch.ops.build import (CSRC, atomic_instructions, build_library,
+from dmhomo_torch.ops.build import (CSRC, atomic_instructions, build_library, nvcc,
                                     tensor_core_instructions)
 from dmhomo_torch.ops.window_attention import (
     HEAD_DIMS,
@@ -502,17 +505,33 @@ def variant(window_size: int, C: int, heads: int, hidden: int) -> str:
 
 
 # the generic variant's launches, in order (csrc/swin_block_any.cu)
-GENERIC_FORWARD = ("qkv", "attention", "proj", "fc1", "fc2")
-GENERIC_BACKWARD = ("qkv", "attention", "proj", "fc1", "dm1", "dn2", "ln2", "dao",
-                    "attention_bwd", "dn1", "ln1", "weights", "reduce")
+# ("proj_fc1": the projection, then LN2 and fc1 on the same rows, one launch)
+GENERIC_FORWARD = ("prep", "qkv", "attention", "proj_fc1", "fc2")
+GENERIC_BACKWARD = ("prep", "qkv", "attention", "proj_fc1", "dm1", "dn2", "dao",
+                    "attention_bwd", "dn1", "weights", "reduce")
+# the products with the LayerNorm backward fused after them (dn2: LN2, dn1: LN1)
+GENERIC_LNB = ("dn2", "dn1")
 # its scratch buffers, in the order the library lays them out in one allocation
-GENERIC_FORWARD_SCRATCH = ("qkv", "ao", "h", "gm")
-GENERIC_SCRATCH = ("n1", "qkv", "ao", "h", "n2", "m1", "gm", "dy", "dn", "dh", "dao", "dqkv",
-                   "wpart", "lnpart", "bpart")
-GEMM_TILE = 64  # rows and columns of a product's output tile
+# ("w": the prepared weights)
+GENERIC_FORWARD_SCRATCH = ("w", "qkv", "ao", "h", "gm")
+GENERIC_SCRATCH = ("w", "n1", "qkv", "ao", "h", "n2", "m1", "gm", "dy", "dn", "dh", "dao",
+                   "dqkv", "wpart", "lnpart", "bpart")
 ANY_THREADS = 256
-LN_MAX_BLOCKS = SMS * 8  # the LayerNorm rows' blocks at most
-ANY_WEIGHT_BLOCKS_PER_SM = 4  # the weight products' splits aim at
+LN_MAX_BLOCKS = SMS * 8  # the blocks of a product with the fused LayerNorm backward at most
+PREP_MAX_BLOCKS = SMS * 8  # the preparing launch's blocks at most
+ANY_WEIGHT_BLOCKS_PER_SM = 16  # the weight products' splits aim at
+WEIGHT_TILE = 64  # a weight product's output tile side
+# a product block: bf16 64 rows x 64 columns a chunk, ring stages 32 deep;
+# fp32 4096 outputs a chunk (4 x 4 a thread), ring stages 32 deep (16 where
+# 32 does not fit)
+TC_ROWS, TC_COLS, TC_DEPTH = 64, 64, 32
+F_OUTPUTS, F_DEPTH = 4096, 32
+GEMM_BLOCKS_PER_SM = 4  # the products' launch bounds
+
+
+def _row_lanes(C: int) -> int:
+    """Lanes that share a LayerNorm row of C values (at most 12 a lane)."""
+    return 32 if C > 192 else 16 if C > 96 else 8
 
 
 def _align(nbytes: int) -> int:
@@ -527,6 +546,55 @@ def _offsets(names, sizes) -> tuple:
     return scratch, offset
 
 
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _gemm_tile(products, bf16: bool, M: int, lnb_c: int = 0) -> dict:
+    """The block of a launch of chained products ((depth K, width N) each)
+    over M rows: rows, columns a chunk, ring stage depth, dynamic shared
+    memory (the deepest product's staged rows, a two-stage weight ring, the
+    rows' image indices and, with the fused LayerNorm backward of C = lnb_c
+    columns, each row group's partials).  fp32: the chunk whose padded work
+    an SM takes, in whole waves of the blocks it holds, is least, among
+    those that let an SM hold two blocks where any does, ring stages 32
+    deep where that fits as well, else 16."""
+    extra = ANY_THREADS // _row_lanes(lnb_c) * 2 * lnb_c * 4 if lnb_c else 0
+
+    def smem(bm, bn, kc):
+        if bf16:
+            return max(bm * (_up(K, 16) + 8) * 2 for K, _ in products) + 2 * kc * (bn + 8) * 2 \
+                + bm * 8 + extra
+        return max(bm * (_up(_up(K, 4), 8) + 4) * 4 for K, _ in products) + 2 * kc * bn * 4 \
+            + bm * 8 + extra
+
+    if bf16:
+        return {"rows": TC_ROWS, "cols": TC_COLS, "stage_depth": TC_DEPTH,
+                "smem": smem(TC_ROWS, TC_COLS, TC_DEPTH)}
+    best = None
+    for kc in (F_DEPTH, F_DEPTH // 2):
+        for bn in (32, 64, 128, 256, 512):
+            bm = F_OUTPUTS // bn
+            b = smem(bm, bn, kc)
+            if b > SMEM_PER_BLOCK:
+                continue
+            per_sm = min(GEMM_BLOCKS_PER_SM, SMEM_PER_SM // (b + SMEM_RESERVED))
+            waves = -(-(-(-M // bm)) // (SMS * per_sm))
+            key = (per_sm < 2, sum(waves * per_sm * bm * _up(N, bn) for _, N in products))
+            if best is None or key < best[0]:
+                best = (key, {"rows": bm, "cols": bn, "stage_depth": kc, "smem": b})
+    return best[1]
+
+
+def _prepared(C: int, hidden: int, bf16: bool, itemsize: int) -> list:
+    """The prepared weight matrices (K, N, padded K, padded N, bytes): the
+    forward's four (each W transposed), then the backward's own four."""
+    dims = ((C, 3 * C), (C, C), (C, hidden), (hidden, C), (C, hidden), (hidden, C), (C, C),
+            (3 * C, C))
+    return [(k, n, _up(k, 16 if bf16 else 4), _up(n, 8),
+             _up(k, 16 if bf16 else 4) * _up(n, 8) * itemsize) for k, n in dims]
+
+
 @functools.lru_cache(maxsize=None)
 def _generic_plan(B: int, H: int, W: int, C: int, heads: int, hidden: int, ws: int,
                   itemsize: int, backward: bool) -> dict:
@@ -534,52 +602,64 @@ def _generic_plan(B: int, H: int, W: int, C: int, heads: int, hidden: int, ws: i
     N = ws * ws
     Bn = M // N
     hd = C // heads
+    bf16 = itemsize == 2
     att_f = generic_launch_plan(Bn, N, hd, heads, False)
     att_b = generic_launch_plan(Bn, N, hd, heads, True)
-    blocks = min(-(-M // 64), LN_MAX_BLOCKS)
-    ln_rows = -(-M // blocks)
-    ln_blocks = -(-M // ln_rows)
     # the weight products: w2 (C x hidden), w1 (hidden x C), wp (C x C), wq (3C x C),
     # each with a ones column for its bias vector
     jobs = ((C, hidden), (hidden, C), (C, C), (3 * C, C))
-    tiles = [-(-n // GEMM_TILE) * -(-(k + 1) // GEMM_TILE) for n, k in jobs]
+    tiles = [-(-n // WEIGHT_TILE) * -(-(k + 1) // WEIGHT_TILE) for n, k in jobs]
     splits = max(1, min(SMS * ANY_WEIGHT_BLOCKS_PER_SM // sum(tiles), -(-M // 256)))
     tokens_per_split = -(-M // splits)
     splits = -(-M // tokens_per_split)
     elems = [n * (k + 1) for n, k in jobs] + [2 * C, 2 * C, heads * N * N]
     reduce_blocks = -(-sum(elems) // (ANY_THREADS // 32))
+    mats = _prepared(C, hidden, bf16, itemsize)[:8 if backward else 4]
+    prep_elems = sum(kp * np_ for _, _, kp, np_, _ in mats)
+    depth = {"qkv": C, "proj": C, "fc1": C, "fc2": hidden, "dm1": C, "dn2": hidden, "dao": C,
+             "dn1": 3 * C}
+    width = {"qkv": 3 * C, "proj": C, "fc1": hidden, "fc2": C, "dm1": hidden, "dn2": C,
+             "dao": C, "dn1": C}
+    chains = {"proj_fc1": ("proj", "fc1")}
 
-    def gemm(nout):
-        return {"grid": (-(-M // GEMM_TILE), -(-nout // GEMM_TILE), 1), "threads": ANY_THREADS,
-                "smem": 0}
+    def gemm(name):
+        products = [(depth[n], width[n]) for n in chains.get(name, (name,))]
+        t = _gemm_tile(products, bf16, M, C if name in GENERIC_LNB else 0)
+        tiles = -(-M // t["rows"])
+        per = 1
+        if name in GENERIC_LNB:  # at most LN_MAX_BLOCKS blocks, each consecutive tiles
+            per = -(-tiles // min(tiles, LN_MAX_BLOCKS))
+        return {"grid": (-(-tiles // per), 1, 1), "threads": ANY_THREADS, "smem": t["smem"],
+                "rows": t["rows"], "cols": t["cols"], "stage_depth": t["stage_depth"],
+                "products": products, "tiles_per_block": per}
 
     def att(p):
         return {"grid": p["grid"] + (1,), "threads": p["threads"], "smem": p["smem"],
                 "windows_per_block": p["windows_per_block"]}
 
     it = itemsize
-    launches = {"qkv": gemm(3 * C), "attention": att(att_f), "proj": gemm(C),
-                "fc1": gemm(hidden)}
+    launches = {"prep": {"grid": (min(-(-prep_elems // ANY_THREADS), PREP_MAX_BLOCKS), 1, 1),
+                         "threads": ANY_THREADS, "smem": 0, "matrices": len(mats)},
+                "qkv": gemm("qkv"), "attention": att(att_f), "proj_fc1": gemm("proj_fc1")}
+    w_bytes = sum(_align(b) for *_, b in mats)
     if not backward:
-        launches["fc2"] = gemm(C)
-        scratch, total = _offsets(GENERIC_FORWARD_SCRATCH, (it * M * 3 * C, it * M * C,
+        launches["fc2"] = gemm("fc2")
+        scratch, total = _offsets(GENERIC_FORWARD_SCRATCH, (w_bytes, it * M * 3 * C, it * M * C,
                                                            it * M * C, it * M * hidden))
     else:
-        ln = {"grid": (ln_blocks, 1, 1), "threads": ANY_THREADS, "smem": 0,
-              "rows_per_block": ln_rows}
         launches.update({
-            "dm1": gemm(hidden), "dn2": gemm(C), "ln2": ln, "dao": gemm(C),
-            "attention_bwd": dict(att(att_b), partials=att_b["partials"]), "dn1": gemm(C),
-            "ln1": ln,
+            "dm1": gemm("dm1"), "dn2": gemm("dn2"), "dao": gemm("dao"),
+            "attention_bwd": dict(att(att_b), partials=att_b["partials"]), "dn1": gemm("dn1"),
             "weights": {"grid": (max(tiles), splits, 4), "threads": ANY_THREADS, "smem": 0,
                         "tokens_per_split": tokens_per_split},
             "reduce": {"grid": (reduce_blocks, 1, 1), "threads": ANY_THREADS, "smem": 0},
         })
         f = 4
-        sizes = (it * M * C, it * M * 3 * C, it * M * C, it * M * C, it * M * C,
+        sizes = (w_bytes, it * M * C, it * M * 3 * C, it * M * C, it * M * C, it * M * C,
                  f * M * hidden, it * M * hidden, it * M * C, f * M * C, f * M * C,
                  it * M * C, it * M * 3 * C, f * splits * sum(n * (k + 1) for n, k in jobs),
-                 f * 2 * 2 * ln_blocks * C, f * att_b["partials"] * heads * N * N)
+                 f * 2 * C * (launches["dn2"]["grid"][0] + launches["dn1"]["grid"][0]),
+                 f * att_b["partials"] * heads * N * N)
         scratch, total = _offsets(GENERIC_SCRATCH, sizes)
     return {"variant": "generic", "windows": Bn, "window_tokens": N, "tokens": M,
             "launches": launches, "scratch": scratch, "scratch_bytes": total, "atomics": 0}
@@ -592,18 +672,21 @@ def generic_forward_plan(x: torch.Tensor, num_heads: int, hidden: int,
     (``GENERIC_FORWARD``, in order) its grid (x, y, z), threads and dynamic
     shared memory (the attention's windows per block too), the scratch (name
     -> (byte offset, bytes) in one buffer, ``GENERIC_FORWARD_SCRATCH``) and
-    its size; ``variant`` ``"generic"``."""
+    its size; ``variant`` ``"generic"``.  A description of the library's
+    planner, held to it by :func:`generic_library_plan`: the wrappers size
+    their scratch from the library's own layout entry point."""
     B, H, W, C = x.shape
     return _generic_plan(B, H, W, C, num_heads, hidden, window_size, x.element_size(), False)
 
 
 def generic_backward_plan(x: torch.Tensor, num_heads: int, hidden: int,
                           window_size: int) -> dict:
-    """The generic backward's thirteen launches (``GENERIC_BACKWARD``) as
-    :func:`generic_forward_plan` gives the forward's, with the LayerNorm
-    rows' rows per block, the weight products' tokens per split, the
-    attention's dbias slabs (``partials``) and the scratch
-    (``GENERIC_SCRATCH``); ``atomics`` 0: the library holds none."""
+    """The generic backward's eleven launches (``GENERIC_BACKWARD``) as
+    :func:`generic_forward_plan` gives the forward's, with the tiles a block
+    of dn2 and dn1 (the LayerNorm backward fused) takes, the weight
+    products' tokens per split, the attention's dbias slabs (``partials``)
+    and the scratch (``GENERIC_SCRATCH``); ``atomics`` 0: the library holds
+    none."""
     B, H, W, C = x.shape
     return _generic_plan(B, H, W, C, num_heads, hidden, window_size, x.element_size(), True)
 
@@ -657,17 +740,61 @@ def forward_tensor_core_instructions() -> dict:
     return out
 
 
+GENERIC_KERNELS = ("prep", "gemm", "weights", "attention_any_fwd", "attention_any_bwd", "reduce")
+
+
 def generic_atomic_instructions() -> dict:
     """Atomic instructions in the generic library's machine code, per kernel
-    (the products, the LayerNorm rows, the weight products, the window
+    (the preparing launch, the products, the weight products, the window
     attention's forward and backward, the reduction): any one fails
     ``chip_smoke.py``."""
     found = atomic_instructions(build_generic(), "_any_")
-    for part in ("gemm", "ln_bwd", "weights", "attention_any_fwd", "attention_any_bwd",
-                 "reduce"):
+    for part in GENERIC_KERNELS:
         if not any(part in n for n in found):
             raise RuntimeError(f"the generic {part} kernel is not in the library's machine code")
     return found
+
+
+_TEMPLATE_DTYPES = {"float": "float32", "__nv_bfloat16": "bfloat16"}
+
+
+def generic_instantiation(signature: str) -> tuple:
+    """``(kernel, dtype)`` of a generic kernel's demangled signature: its
+    name in ``GENERIC_KERNELS`` and its first template argument as a dtype
+    (``"none"`` for a kernel that is no template).  Raises on any other
+    kernel or template argument, so that no instantiation goes unchecked."""
+    for kernel in GENERIC_KERNELS:
+        m = re.search(rf"{kernel}_kernel(<?)", signature)
+        if m is None:
+            continue
+        if not m.group(1):
+            return kernel, "none"
+        arg = re.match(r"\s*([\w:]+)\s*[,>]", signature[m.end():])
+        if arg is None or arg.group(1) not in _TEMPLATE_DTYPES:
+            raise RuntimeError(f"unclassified instantiation {signature} in the generic library")
+        return kernel, _TEMPLATE_DTYPES[arg.group(1)]
+    raise RuntimeError(f"unexpected kernel {signature} in the generic library")
+
+
+def generic_tensor_core_instructions() -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in the generic library's
+    machine code per kernel instantiation: ``(kernel, dtype)`` -> count over
+    ``GENERIC_KERNELS``.  The bf16 products (``gemm``, ``weights``) run on
+    tensor cores; every fp32 instantiation, and every kernel but the
+    products, on CUDA cores (TF32 off)."""
+    found = tensor_core_instructions(build_generic(), "_any_")
+    tool = Path(nvcc()).with_name("cu++filt")
+    proc = subprocess.run([str(tool)], input="\n".join(found), capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cu++filt failed ({proc.returncode}): {proc.stderr}")
+    out = {}
+    for signature, n in zip(proc.stdout.splitlines(), found.values()):
+        kernel, dtype = generic_instantiation(signature)
+        out[(kernel, dtype)] = out.get((kernel, dtype), 0) + n
+    missing = [k for k in ("gemm", "weights") if (k, "bfloat16") not in out]
+    if missing:
+        raise RuntimeError(f"the generic {missing} kernels are not in the library's machine code")
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -886,7 +1013,7 @@ def _forward(x, params, mask, num_heads, window_size, shift, generic=False):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if generic:
-            nbytes = generic_forward_plan(x, num_heads, hidden, window_size)["scratch_bytes"]
+            nbytes = _generic_layout(B, H, W, C, num_heads, hidden, window_size, bf16, 0)["bytes"]
             scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
             err = _library_any().dmh_swin_block_any_fwd(
                 x.data_ptr(), y.data_ptr(), _pointers(params),
@@ -912,7 +1039,7 @@ def swin_block_backward(x: torch.Tensor, params, mask: "torch.Tensor | None", dy
 
     CUDA tensors go through the hand-written kernels of the shape's variant
     (``_generic`` forces the generic one): five launches planned by
-    :func:`backward_plan` at the tuned shapes, thirteen elsewhere
+    :func:`backward_plan` at the tuned shapes, eleven elsewhere
     (``launches`` counts each backward, ``launches_by_variant`` by
     variant); CPU tensors through :func:`swin_block_backward_reference`.
     """
@@ -933,7 +1060,7 @@ def swin_block_backward(x: torch.Tensor, params, mask: "torch.Tensor | None", dy
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if generic:
-            nbytes = generic_backward_plan(x, num_heads, hidden, window_size)["scratch_bytes"]
+            nbytes = _generic_layout(B, H, W, C, num_heads, hidden, window_size, bf16, 1)["bytes"]
             scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
             err = _library_any().dmh_swin_block_any_bwd(
                 x.data_ptr(), dy.data_ptr(), dx.data_ptr(), _pointers(params),

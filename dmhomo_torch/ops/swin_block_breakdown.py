@@ -2,6 +2,9 @@
 
   python -m dmhomo_torch.ops.swin_block_breakdown [--direction bwd|fwd] [--source PATH ...]
                                                   [--whole] [--iters 10]
+  python -m dmhomo_torch.ops.swin_block_breakdown --generic --whole [--source PATH ...]
+                                                  [--rounds 2]
+  python -m dmhomo_torch.ops.swin_block_breakdown --generic --launches
 
 Builds copies of a ``swin_block.cu`` source (this checkout's by default, or
 earlier revisions' given by ``--source``) with one part of the backward
@@ -16,6 +19,20 @@ training step's (B=8, each block at its step dtype; 320 launches a step:
 meaningless; the difference of its time to the unchanged source's is the
 cost of the removed part, where the parts overlap less than fully.
 ``--whole`` times each source unchanged only, to compare sources.
+
+``--generic --whole [--source PARENT.cu NEW.cu ...] [--rounds 2]`` times
+revisions of the generic library (``dmhomo_torch/csrc/swin_block_any.cu``,
+the default source; each built beside ``csrc/`` for the window-attention
+header it includes) at the window-4 sites: the six levels above with 4x4
+windows and an MLP of 3C, the eval forward at B=32 in fp32 (40 launches)
+and the training step at B=8 with each level at its step dtype, forward
+(320 launches) and backward (160), half of each shifted by 2 with a mask,
+each shape weighted by its launches.  The sources run in turns (A, B, B, A
+per round) in one process; each revision's scratch is the size its own
+layout entry point reports.  ``--generic --launches`` splits this
+checkout's generic block at the same sites into its launches
+(``GENERIC_FORWARD`` / ``GENERIC_BACKWARD``): each launch's device time by
+torch.profiler over 5 calls, per site and weighted by launches.
 
 Two designs are known by their source: the five-kernel backward (the copies
 skip one launch each, or drop the recompute kernel's attention, MLP or
@@ -43,7 +60,7 @@ from pathlib import Path
 import torch
 
 from dmhomo_torch.ops import swin_block as sb
-from dmhomo_torch.ops.build import nvcc
+from dmhomo_torch.ops.build import CSRC, nvcc
 from dmhomo_torch.ops.window_attention import _scale_io
 
 B = B_TRAIN = 8  # a training microbatch
@@ -178,7 +195,8 @@ def _build(item, workdir: Path) -> Path:
     cu, so = workdir / f"v{i}.cu", workdir / f"v{i}.so"
     cu.write_text(text)
     proc = subprocess.run([nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(so), str(cu)],
+                           "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC), "-o",
+                           str(so), str(cu)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
@@ -294,6 +312,160 @@ def _forward_main(name: str, lib, label: str, iters: int) -> None:
           flush=True)
 
 
+GENERIC_WS = 4  # the params.json window the generic sites come from
+
+
+def _bind_any(so: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(so))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.dmh_swin_block_any_fwd.argtypes = [ptr] * 5 + [ctypes.c_longlong] + [i32] * 8 + [
+        f32, i32, ptr]
+    lib.dmh_swin_block_any_bwd.argtypes = [ptr] * 7 + [ctypes.c_longlong] + [i32] * 8 + [
+        f32, f32, i32, ptr]
+    lib.dmh_swin_block_any_scratch_layout.argtypes = [i32] * 9 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    return lib
+
+
+def _any_scratch_bytes(lib, B, H, W, C, heads, hidden, bf16: int, backward: int) -> int:
+    """The scratch a revision's own layout entry point asks for (its total
+    is the largest offset it writes)."""
+    out = (ctypes.c_longlong * 32)()
+    if lib.dmh_swin_block_any_scratch_layout(B, H, W, C, heads, hidden, GENERIC_WS, bf16,
+                                             backward, out):
+        raise RuntimeError("the library refuses the shape")
+    return max(out)
+
+
+def _generic_inputs(B, H, W, C, heads, dtype, shift, gen):
+    """x, dy, the 13 parameters (an MLP of 3C) and the mask of a window-4 site."""
+    dev = torch.device("cuda")
+    N, hidden = GENERIC_WS * GENERIC_WS, 3 * C
+    x = torch.randn(B, H, W, C, generator=gen, device=dev).to(dtype)
+    dy = torch.randn(B, H, W, C, generator=gen, device=dev).to(dtype)
+    shapes = {"g1": (C,), "b1": (C,), "wq": (3 * C, C), "bq": (3 * C,), "bias": (heads, N, N),
+              "wp": (C, C), "bp": (C,), "g2": (C,), "b2": (C,), "w1": (hidden, C),
+              "c1": (hidden,), "w2": (C, hidden), "c2": (C,)}
+    params = [0.1 * torch.randn(shapes[n], generator=gen, device=dev) + (n in ("g1", "g2"))
+              for n in sb.PARAM_NAMES]
+    mask = None
+    if shift:
+        nW = (H // GENERIC_WS) * (W // GENERIC_WS)
+        mask = torch.where(torch.rand(nW, N, N, generator=gen, device=dev) < 0.3, -100.0, 0.0)
+    return x, dy, params, mask
+
+
+def time_generic(lib, B, H, W, C, heads, dtype, shift, backward: bool, gen, iters: int) -> float:
+    """ms per generic forward or backward call of ``lib`` at one window-4 shape."""
+    dev = torch.device("cuda")
+    hidden = 3 * C
+    x, dy, params, mask = _generic_inputs(B, H, W, C, heads, dtype, shift, gen)
+    bf16 = int(dtype == torch.bfloat16)
+    nbytes = _any_scratch_bytes(lib, B, H, W, C, heads, hidden, bf16, int(backward))
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    pp = (ctypes.c_void_p * 13)(*(t.data_ptr() for t in params))
+    hd = C // heads
+    stream = torch.cuda.current_stream().cuda_stream
+    mp = mask.data_ptr() if mask is not None else None
+    if backward:
+        dx = torch.empty_like(x)
+        grads = [torch.empty_like(t) for t in params]
+        gp = (ctypes.c_void_p * 13)(*(t.data_ptr() for t in grads))
+        args = (x.data_ptr(), dy.data_ptr(), dx.data_ptr(), pp, mp, gp, scratch.data_ptr(),
+                nbytes, B, H, W, C, heads, hidden, GENERIC_WS, shift, _scale_io(hd, dtype),
+                hd**-0.5, bf16, stream)
+        fn = lib.dmh_swin_block_any_bwd
+    else:
+        y = torch.empty_like(x)
+        args = (x.data_ptr(), y.data_ptr(), pp, mp, scratch.data_ptr(), nbytes, B, H, W, C,
+                heads, hidden, GENERIC_WS, shift, _scale_io(hd, dtype), bf16, stream)
+        fn = lib.dmh_swin_block_any_fwd
+
+    def run():
+        if fn(*args) != 0:
+            raise RuntimeError("launch failed")
+
+    run()
+    torch.cuda.synchronize()
+    return _ms(run, iters)
+
+
+def generic_whole(sources, rounds: int, iters: int) -> None:
+    """Times each revision of the generic library as it is, A B B A per
+    round, at the window-4 sites; prints each shape and, per round, kernel 5
+    per eval forward and per step and kernel 6 per step."""
+    copies = {str(src): Path(src).read_text() for src in sources}
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(copies)) as pool:
+        libs = list(pool.map(lambda item: _build(item, Path(tmp)), enumerate(copies.values())))
+        order = list(zip(copies, libs))
+        order = [o for _ in range(rounds) for o in order + order[::-1]]
+        totals = {}
+        for name, so in order:
+            lib = _bind_any(so)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            t = {"kernel 5 per eval forward": 0.0, "kernel 5 per step": 0.0,
+                 "kernel 6 per step": 0.0}
+            for (H, W, C, heads, eval_n, step_n, dtype), lv in zip(FWD_LEVELS, LEVELS):
+                for shift in (0, GENERIC_WS // 2):
+                    for key, B, dt, n, bwd in (
+                            ("kernel 5 per eval forward", EVAL_B, torch.float32, eval_n, False),
+                            ("kernel 5 per step", B_TRAIN, dtype, step_n, False),
+                            ("kernel 6 per step", B_TRAIN, dtype, lv[4], True)):
+                        ms = time_generic(lib, B, H, W, C, heads, dt, shift, bwd, gen, iters)
+                        t[key] += ms * n / 2
+                        print(f"{Path(name).name} ({name}): {'backward' if bwd else 'forward'} "
+                              f"{H}x{W} C={C} h={heads} ws={GENERIC_WS} B={B} {str(dt)[6:]} "
+                              f"shift={shift}: {ms:.4f} ms", flush=True)
+                    torch.cuda.empty_cache()
+            totals.setdefault(name, []).append(t)
+        for name, ts in totals.items():
+            for key in ts[0]:
+                print(f"{name}: {key}, per round {', '.join(f'{v[key]:.3f}' for v in ts)} ms",
+                      flush=True)
+
+
+def generic_launches() -> None:
+    """Each launch of this checkout's generic block at the window-4 sites:
+    its device time per call (torch.profiler over 5 calls after one), per
+    site, and summed per eval forward and per step, weighted by launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    totals = {}
+    for (H, W, C, heads, eval_n, step_n, sdt), lv in zip(FWD_LEVELS, LEVELS):
+        for shift in (0, GENERIC_WS // 2):
+            for tag, B, dt, n, bwd in (("eval forward", EVAL_B, torch.float32, eval_n, False),
+                                       ("step, kernel 5", B_TRAIN, sdt, step_n, False),
+                                       ("step, kernel 6", B_TRAIN, sdt, lv[4], True)):
+                x, dy, params, mask = _generic_inputs(B, H, W, C, heads, dt, shift, gen)
+                kw = dict(num_heads=heads, window_size=GENERIC_WS, shift=shift)
+                names = sb.GENERIC_BACKWARD if bwd else sb.GENERIC_FORWARD
+                call = ((lambda: sb.swin_block_backward(x, params, mask, dy, **kw)) if bwd
+                        else (lambda: sb.swin_block(x, params, mask, **kw)))
+                call()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        call()
+                    torch.cuda.synchronize()
+                events = [e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA and "_any_" in e.name]
+                if len(events) != 5 * len(names):
+                    raise RuntimeError(f"{len(events)} kernels in 5 calls, not 5 x {len(names)}")
+                ms = dict.fromkeys(names, 0.0)
+                for i, e in enumerate(events):
+                    ms[names[i % len(names)]] += e.device_time / 1e3 / 5
+                print(f"{tag} {H}x{W} C={C} h={heads} B={B} {str(dt)[6:]} shift={shift}: "
+                      + " ".join(f"{k} {v:.4f}" for k, v in ms.items()) + " ms", flush=True)
+                t = totals.setdefault(tag, dict.fromkeys(names, 0.0))
+                for k, v in ms.items():
+                    t[k] += v * n / 2
+    for tag, t in totals.items():
+        print(f"per {tag}: {sum(t.values()):.3f} ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in t.items()), flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--direction", choices=("bwd", "fwd"), default="bwd")
@@ -302,12 +474,27 @@ def main(argv=None) -> None:
     ap.add_argument("--whole", action="store_true",
                     help="time each source unchanged, without the copies with parts removed")
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--generic", action="store_true",
+                    help="with --whole: revisions of the generic library at the window-4 sites")
+    ap.add_argument("--rounds", type=int, default=2, help="--generic: rounds of A, B, B, A")
+    ap.add_argument("--launches", action="store_true",
+                    help="with --generic: this checkout's block split into its launches")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(smi, flush=True)
+    if args.generic and args.launches:
+        generic_launches()
+        return
+    if args.generic:
+        if not args.whole:
+            raise SystemExit("--generic takes --whole (whole revisions, no copies with parts "
+                             "removed)")
+        generic_whole([sb._SOURCE_ANY] if args.source == [sb._SOURCE] else args.source,
+                      args.rounds, args.iters)
+        return
     copies = []  # (source, name of the copy, text)
     for source in args.source:
         src = source.read_text()

@@ -18,7 +18,8 @@ the generic variant (``csrc/swin_block_any.cu``).
   to max(1, largest), dx 1e-4 in fp32); the generic variant forced at a
   shipped shape against the tuned kernels; the same bits from two runs; no
   atomic instruction in the library; the plans as the library computes them
-  (skip here).
+  (skip here); tensor-core instructions in every bf16 product
+  instantiation's machine code and none in any fp32 one.
 
 JAX is imported inside the tests that use it, so that the card's tests run
 where JAX is not installed:
@@ -202,8 +203,10 @@ def test_variant_by_shape(ws, C, heads, hidden, want):
     (1, 1, 1, 1, 1, 1, 1),
 ])
 def test_generic_plans(B, H, W, C, heads, hidden, ws, dtype):
-    """The forward's five launches and the backward's thirteen: product
-    grids cover every token row and output column, the attention's plan is
+    """The forward's five launches and the backward's eleven: the preparing
+    launch covers every prepared weight, each product launch (one product,
+    or a chain) covers every token row in tiles that fit the card (bf16: 64
+    rows x 64 columns; fp32: 4096 outputs a chunk), the attention's plan is
     the window attention's, the scratch holds every buffer at its size."""
     x = torch.empty(B, H, W, C, dtype=dtype)
     f = sb.forward_plan(x, heads, hidden, ws)
@@ -211,20 +214,40 @@ def test_generic_plans(B, H, W, C, heads, hidden, ws, dtype):
     assert tuple(f["launches"]) == sb.GENERIC_FORWARD
     assert tuple(b["launches"]) == sb.GENERIC_BACKWARD and b["atomics"] == 0
     M, N, it = B * H * W, ws * ws, x.element_size()
+    bf16 = dtype == torch.bfloat16
     assert f["tokens"] == M and f["windows"] * N == M
-    widths = {"qkv": 3 * C, "proj": C, "fc1": hidden, "fc2": C, "dm1": hidden, "dn2": C,
-              "dao": C, "dn1": C}
+    products = {"qkv": [(C, 3 * C)], "proj_fc1": [(C, C), (C, hidden)], "fc2": [(hidden, C)],
+                "dm1": [(C, hidden)], "dn2": [(hidden, C)], "dao": [(C, C)], "dn1": [(3 * C, C)]}
     for plan in (f, b):
         for name, k in plan["launches"].items():
-            if name in widths:
-                gx, gy, gz = k["grid"]
-                assert gx * 64 >= M > (gx - 1) * 64 and gy * 64 >= widths[name] and gz == 1
-            assert 0 <= k["smem"] <= sb.SMEM_PER_BLOCK
+            assert 0 <= k["smem"] <= sb.SMEM_PER_BLOCK and k["threads"] == 256
+            if name not in products:
+                continue
+            gx, gy, gz = k["grid"]
+            rows, cols = k["rows"], k["cols"]
+            assert [tuple(p) for p in k["products"]] == products[name] and gy == gz == 1
+            if name not in sb.GENERIC_LNB:  # a tile a block
+                assert gx * rows >= M > (gx - 1) * rows and k["tiles_per_block"] == 1
+            assert (rows, cols) == (64, 64) if bf16 else rows * cols == sb.F_OUTPUTS
+    for plan, n_mats in ((f, 4), (b, 8)):
+        mats = sb._prepared(C, hidden, bf16, it)[:n_mats]
+        assert plan["launches"]["prep"]["matrices"] == n_mats
+        assert plan["scratch"]["w"][1] == sum(sb._align(m[4]) for m in mats)
+        elems = sum(kp * np_ for _, _, kp, np_, _ in mats)
+        gx = plan["launches"]["prep"]["grid"][0]
+        assert gx == min(-(-elems // 256), sb.PREP_MAX_BLOCKS)
+        for k, n, kp, np_, nbytes in mats:
+            assert kp >= k and np_ >= n and kp % (16 if bf16 else 4) == 0 and np_ % 8 == 0
+            assert nbytes == kp * np_ * it
     att = sb.generic_launch_plan(M // N, N, C // heads, heads, True)
     assert b["launches"]["attention_bwd"]["grid"][:2] == att["grid"]
     assert b["launches"]["attention_bwd"]["partials"] == att["partials"]
-    ln = b["launches"]["ln1"]
-    assert ln["grid"][0] * ln["rows_per_block"] >= M and ln["grid"][0] <= sb.LN_MAX_BLOCKS
+    for name in sb.GENERIC_LNB:  # the fused LayerNorm backward: consecutive tiles a block
+        k = b["launches"][name]
+        tiles = -(-M // k["rows"])
+        assert k["grid"][0] <= sb.LN_MAX_BLOCKS
+        assert k["grid"][0] * k["tiles_per_block"] >= tiles > (k["grid"][0] - 1) * k[
+            "tiles_per_block"]
     tps, splits = b["launches"]["weights"]["tokens_per_split"], b["launches"]["weights"]["grid"][1]
     assert splits * tps >= M > (splits - 1) * tps
     need = {"qkv": it * M * 3 * C, "ao": it * M * C, "h": it * M * C, "gm": it * M * hidden}
@@ -361,6 +384,41 @@ def test_cuda_generic_is_deterministic(cuda_device, dtype):
 def test_cuda_generic_library_has_no_atomics(cuda_device):
     found = sb.generic_atomic_instructions()
     assert all(n == 0 for n in found.values()), found
+
+
+@pytest.mark.parametrize("signature, want", [
+    ("void (anonymous namespace)::swin_block_any_gemm_kernel<__nv_bfloat16>("
+     "(anonymous namespace)::GemmLaunch<__nv_bfloat16>)", ("gemm", "bfloat16")),
+    ("void (anonymous namespace)::swin_block_any_weights_kernel<float>("
+     "(anonymous namespace)::WeightArgs)", ("weights", "float32")),
+    ("void wa_any::window_attention_any_fwd_kernel<float, 4>(const float*)",
+     ("attention_any_fwd", "float32")),
+    ("void wa_any::window_attention_any_reduce_kernel(wa_any::Segments)", ("reduce", "none")),
+    ("void swin_block_any_gemm_kernel<4, float>(Args)", None),
+    ("void swin_block_any_gemm_kernel<Pair<float>>(Args)", None),
+    ("void swin_block_any_other_kernel<float>(Args)", None),
+])
+def test_generic_instantiation_by_template_argument(signature, want):
+    """The SASS check's (kernel, dtype) of a demangled signature: an
+    instantiation it cannot classify raises, so none escapes the check."""
+    if want is None:
+        with pytest.raises(RuntimeError):
+            sb.generic_instantiation(signature)
+    else:
+        assert sb.generic_instantiation(signature) == want
+
+
+@pytest.mark.gpu
+def test_cuda_generic_tensor_core_instructions(cuda_device):
+    """The generic library's SASS: every bf16 product instantiation (the
+    row-tile products and the weight products) has tensor-core instructions,
+    every fp32 instantiation none, and no kernel an atomic one."""
+    found = sb.generic_tensor_core_instructions()
+    for kernel in ("gemm", "weights"):
+        assert found[(kernel, "bfloat16")] > 0, found
+    assert all(n == 0 for (kernel, dtype), n in found.items() if dtype == "float32"), found
+    assert ("gemm", "float32") in found and ("weights", "float32") in found, found
+    assert all(n == 0 for n in sb.generic_atomic_instructions().values())
 
 
 @pytest.mark.gpu

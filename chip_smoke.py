@@ -3653,7 +3653,7 @@ def phase_generic(dev, pairs, batch, seed: int) -> dict:
     # nothing
     children = start_tiny_children(seed)
     try:
-        worst = generic_kernel_checks(dev, seed)
+        worst, wa_tc = generic_kernel_checks(dev, seed)
     finally:
         tiny = generic_tiny_train(*children)
     w4 = generic_window4(dev, pairs, batch, seed)
@@ -3662,12 +3662,14 @@ def phase_generic(dev, pairs, batch, seed: int) -> dict:
     phase_s = time.perf_counter() - t0
     log(f"[generic] phase 28 in {phase_s:.1f} s")
     return {"worst": worst, "tiny": tiny, "w4": w4, "main_path_worst": main_worst,
-            "times": times, "phase_s": phase_s}
+            "times": times, "phase_s": phase_s, "wa_tensor_cores": wa_tc}
 
 
-def generic_kernel_checks(dev, seed: int) -> dict:
+def generic_kernel_checks(dev, seed: int) -> tuple:
     """Phase 28 (a): the generic libraries' registers and spills, no atomic
-    instruction in their machine code; every generic kernel against its plain
+    instruction in their machine code, tensor-core instructions in every bf16
+    instantiation of the generic window attention and none in an fp32 one
+    (returned beside the worst errors); every generic kernel against its plain
     version at the envelope's shapes (forward and backward, fp32 and bf16,
     +-mask), its plan against the library's, a second run bit-identical; the
     generic variant forced at a shipped shape against the tuned kernels."""
@@ -3683,10 +3685,11 @@ def generic_kernel_checks(dev, seed: int) -> dict:
         entry = None
         for line in log_text.splitlines():
             m = re.search(r"Function properties for \S*?((?:window_attention|swin_block)_any_"
-                          r"[a-z_]+_kernel)(?:I(f|13__nv_bfloat16)E)?", line)
+                          r"[a-z_]+_kernel)(?:I(f|13__nv_bfloat16)(?:Li(\d+)E)?E)?", line)
             if m:
-                entry = m.group(1) + {"f": "<float>", "13__nv_bfloat16": "<bf16>"}.get(
-                    m.group(2), "")
+                entry = m.group(1) + {"f": "<float", "13__nv_bfloat16": "<bf16"}.get(
+                    m.group(2), "") + (f", {m.group(3)}" if m.group(3) else "") + (
+                    ">" if m.group(2) else "")
             elif entry and ("registers" in line or "spill" in line):
                 log(f"[generic-build] {name} {entry}: {line.split(':', 1)[-1].strip()}")
     atomics = {**wa.atomic_instructions_by_kernel(generic=True), **sb.generic_atomic_instructions()}
@@ -3694,6 +3697,16 @@ def generic_kernel_checks(dev, seed: int) -> dict:
         raise SystemExit(f"atomic instructions in the generic kernels: {atomics}")
     log(f"[generic-sass] atomic instructions in {len(atomics)} generic kernels' machine code: "
         f"{sum(atomics.values())}")
+    # the window attention: every bf16 instantiation (one per padded head dim)
+    # on tensor cores, every fp32 one not
+    wa_tc = wa.tensor_core_instructions(generic=True)
+    log("[generic-sass] window attention tensor-core instructions: " + ", ".join(
+        f"{d} {dt} hd<={hdp}: {n}" for (d, dt, _, hdp), n in sorted(wa_tc.items(), key=str)))
+    if not wa_tc or any((n > 0) != (k[1] == "bfloat16") for k, n in wa_tc.items()) or {
+            k[:2] for k in wa_tc} != {(d, dt) for d in ("fwd", "bwd")
+                                      for dt in ("float32", "bfloat16")}:
+        raise SystemExit(f"generic window attention: every bf16 instantiation must run on "
+                         f"tensor cores and no fp32 one: {wa_tc}")
     # the whole block's products: bf16 on tensor cores, every fp32 instantiation not
     tensor = sb.generic_tensor_core_instructions()
     for (kernel, dtype), n in sorted(tensor.items()):
@@ -3801,7 +3814,8 @@ def generic_kernel_checks(dev, seed: int) -> dict:
         f"plain versions; worst {chk.worst_text('sb')}")
     chk.raise_on_fails("generic")
     log(f"[generic] (a) done in {time.perf_counter() - t0:.1f} s")
-    return {f"{k[0]} {k[1]}": v for k, v in chk.worst.items()}
+    return ({f"{k[0]} {k[1]}": v for k, v in chk.worst.items()},
+            {f"{d} {dt} hd<={hdp}": n for (d, dt, _, hdp), n in wa_tc.items()})
 
 
 def _tiny_held_batch(cfg, seed: int) -> dict:
@@ -6825,6 +6839,9 @@ def main(argv=None):
              "max_abs_err_main_path": {dt: max(gm[f"{e} {dt}"] for e in errs)
                                        for dt in ("float32", "bfloat16")},
              "library": "SDPA at N = 16" if window else "the port's unfused SwinBlock on the card"}
+        if window:  # per instantiation of the generic library, phase 28 (a)
+            g["tensor_core_instructions"] = {k: n for k, n in generic["wa_tensor_cores"].items()
+                                             if k.startswith(kname[-3:])}
         for where in ("forward", "step"):
             t = gt.get(f"{kname} per {where}")
             if t is not None:

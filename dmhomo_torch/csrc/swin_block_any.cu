@@ -101,8 +101,9 @@
 // epilogue) with little arithmetic each, overlapped only across the 2-4
 // blocks an SM holds; fp32 products also pay the CUDA cores' 67 TFLOP/s
 // where K reaches 96.  The window attention inside is generic kernels 1-2's
-// code, unchanged, and takes about a third of the eval forward and of the
-// backward at window 4.
+// code (a warp per window and head, bf16 on tensor cores), launched with
+// their own plan at the block's I/O dtype; the tensor-core and copy helpers
+// below come from the same header.
 //
 // No atomics.  The weight gradients and bias vectors are summed over fixed
 // ranges of tokens into per-split partials, the LayerNorm gains' and biases'
@@ -147,65 +148,15 @@ constexpr int PREP_MATS = 8;
 constexpr int PREP_MAX_BLOCKS = wa_any::SMS * 8;
 
 // ---------------------------------------------------------------------------
-// PTX helpers
+// PTX helpers: window_attention_any.cuh's
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy; src_bytes = 0 fills the destination with zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-// d += a . b, m16n8k16, bf16 inputs, fp32 accumulation
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a . b with the 16 products summed by the tensor core from zero and
-// the sum added in fp32, rounded to nearest.  Chaining the accumulator
-// through the tensor core, whose additions truncate, moved the sums off the
-// plain version's fp32 sums far enough to flip bf16 roundings downstream
-// (the 1x1-window dbias, a sum that cancels, left its tolerance).
-__device__ __forceinline__ void mma_add(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                        uint32_t b1) {
-  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  mma(s, a, b0, b1);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) d[q] += s[q];
-}
+using wa_any::cp_async16;
+using wa_any::cp_async_commit;
+using wa_any::cp_async_wait;
+using wa_any::ldsm_x4;
+using wa_any::ldsm_x4_trans;
+using wa_any::mma_add;
 
 // W consecutive values at p as fp32 (vec: one aligned vector load), else
 // the first `valid` of them and zeros
@@ -1121,8 +1072,8 @@ inline BlockPlan make_plan(int B, int H, int W, int C, int heads, int hidden, in
   p.Bn = static_cast<int>(p.M / p.N);
   p.nW = (H / ws) * (W / ws);
   p.hd = C / heads;
-  p.att_fwd = wa_any::make_plan(p.Bn, p.N, p.hd, heads, false);
-  p.att_bwd = wa_any::make_plan(p.Bn, p.N, p.hd, heads, true);
+  p.att_fwd = wa_any::make_plan(p.Bn, p.N, p.hd, heads, itemsize, false);
+  p.att_bwd = wa_any::make_plan(p.Bn, p.N, p.hd, heads, itemsize, true);
   // the prepared weights: (K, N) of each product's B
   const int mk[PREP_MATS] = {C, C, C, hidden, C, hidden, C, 3 * C};
   const int mn[PREP_MATS] = {3 * C, C, hidden, C, hidden, C, C, C};

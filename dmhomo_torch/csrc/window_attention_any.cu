@@ -59,7 +59,7 @@ extern "C" int dmh_window_attention_any_bwd(const void* qkv, const float* bias,
                                   static_cast<const float*>(gout), static_cast<float*>(dqkv),
                                   dbias, Bn, N, C, heads, nW, scale_io, scale, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const wa_any::Plan p = wa_any::make_plan(Bn, N, C / heads, heads, true);
+  const wa_any::Plan p = wa_any::make_plan(Bn, N, C / heads, heads, is_bf16 ? 2 : 4, true);
   if (p.partials == 1) return 0;
   wa_any::Segments ss{};
   const long long elems = static_cast<long long>(heads) * N * N;
@@ -68,18 +68,24 @@ extern "C" int dmh_window_attention_any_bwd(const void* qkv, const float* bias,
   return static_cast<int>(wa_any::launch_reduce(ss, s));
 }
 
-// The plan of a forward (backward = 0) or backward launch at these shapes,
-// into out[9]: grid x (chunks), grid y (heads), threads, dynamic shared
-// memory bytes, windows per round, windows per block, blocks per SM by shared
-// memory and threads, dbias partials, the staged slices' row stride.
-// Returns 0, or the error a launch would return.
+// The plans of a forward (backward = 0) or backward launch at these shapes,
+// fp32 I/O into out[0 .. 15) and bf16 into out[15 .. 30), each: grid x
+// (chunks), grid y (head groups), threads, dynamic shared memory bytes,
+// windows per stage, windows per block, blocks per SM by shared memory and
+// threads, dbias partials, heads per block, warps per head, stages, windows
+// a warp takes per stage, padded tokens, padded head dim, the staged slices'
+// row stride.  Returns 0, or the error a launch would return.
 extern "C" int dmh_window_attention_any_plan(int Bn, int N, int C, int heads, int backward,
                                              int* out) {
   if (!valid(Bn, N, C, heads, nullptr, 0)) return static_cast<int>(cudaErrorInvalidValue);
-  const wa_any::Plan p = wa_any::make_plan(Bn, N, C / heads, heads, backward != 0);
-  if (!wa_any::plan_fits(p)) return static_cast<int>(cudaErrorInvalidValue);
-  const int v[9] = {p.grid_x, p.grid_y, p.threads, p.smem, p.windows_per_round,
-                    p.windows_per_block, p.blocks_per_sm, p.partials, p.ld};
-  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  for (int item = 4, i = 0; item >= 2; item /= 2, ++i) {
+    const wa_any::Plan p = wa_any::make_plan(Bn, N, C / heads, heads, item, backward != 0);
+    if (!wa_any::plan_fits(p)) return static_cast<int>(cudaErrorInvalidValue);
+    const int v[wa_any::PLAN_FIELDS] = {
+        p.grid_x, p.grid_y, p.threads, p.smem, p.windows_per_stage, p.windows_per_block,
+        p.blocks_per_sm, p.partials, p.heads_per_block, p.warps_per_head, p.stages,
+        p.tasks_per_warp, p.padded_tokens, p.padded_hd, p.ld};
+    for (int j = 0; j < wa_any::PLAN_FIELDS; ++j) out[i * wa_any::PLAN_FIELDS + j] = v[j];
+  }
   return 0;
 }

@@ -603,8 +603,8 @@ def _generic_plan(B: int, H: int, W: int, C: int, heads: int, hidden: int, ws: i
     Bn = M // N
     hd = C // heads
     bf16 = itemsize == 2
-    att_f = generic_launch_plan(Bn, N, hd, heads, False)
-    att_b = generic_launch_plan(Bn, N, hd, heads, True)
+    att_f = generic_launch_plan(Bn, N, hd, heads, False, itemsize)
+    att_b = generic_launch_plan(Bn, N, hd, heads, True, itemsize)
     # the weight products: w2 (C x hidden), w1 (hidden x C), wp (C x C), wq (3C x C),
     # each with a ones column for its bias vector
     jobs = ((C, hidden), (hidden, C), (C, C), (3 * C, C))

@@ -22,8 +22,8 @@ cost of the removed part, where the parts overlap less than fully.
 
 ``--generic --whole [--source PARENT.cu NEW.cu ...] [--rounds 2]`` times
 revisions of the generic library (``dmhomo_torch/csrc/swin_block_any.cu``,
-the default source; each built beside ``csrc/`` for the window-attention
-header it includes) at the window-4 sites: the six levels above with 4x4
+the default source; each built with the ``window_attention_any.cuh`` beside
+it, its revision's, else with ``csrc/``'s) at the window-4 sites: the six levels above with 4x4
 windows and an MLP of 3C, the eval forward at B=32 in fp32 (40 launches)
 and the training step at B=8 with each level at its step dtype, forward
 (320 launches) and backward (160), half of each shifted by 2 with a mask,
@@ -395,8 +395,20 @@ def generic_whole(sources, rounds: int, iters: int) -> None:
     round, at the window-4 sites; prints each shape and, per round, kernel 5
     per eval forward and per step and kernel 6 per step."""
     copies = {str(src): Path(src).read_text() for src in sources}
+
+    def build(item, tmp):
+        # a source with a window-attention header beside it is built with
+        # that one (its revision's), any other with this checkout's
+        i, src = item
+        d = tmp / f"s{i}"
+        d.mkdir()
+        header = Path(src).parent / "window_attention_any.cuh"
+        if header.exists():
+            (d / header.name).write_text(header.read_text())
+        return _build((i, copies[src]), d)
+
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(copies)) as pool:
-        libs = list(pool.map(lambda item: _build(item, Path(tmp)), enumerate(copies.values())))
+        libs = list(pool.map(lambda item: build(item, Path(tmp)), enumerate(copies)))
         order = list(zip(copies, libs))
         order = [o for _ in range(rounds) for o in order + order[::-1]]
         totals = {}

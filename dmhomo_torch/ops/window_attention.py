@@ -284,37 +284,109 @@ def variant(N: int, hd: int) -> str:
 
 
 # the generic variant's plan constants, as csrc/window_attention_any.cuh has them
-ANY_THREADS = 256
-ANY_MAX_ROUND = 16  # windows a block stages per round at most
-ANY_ROUND_ELEMS = 1024  # a round's logits the rule of windows per round aims at
+ANY_THREADS = 256  # the most an attention block takes; the reduction's blocks
+ANY_MAX_WARPS = ANY_THREADS // 32
+ANY_GROUP_BYTES = 128  # q (k, v) bytes per token a head group aims at, N <= 16
+ANY_TASKS_PER_WARP = 2  # windows a warp takes per stage, N <= 16
+ANY_SMALL_SMEM = 65536  # the shared memory a block aims under, N <= 16
+_ANY_PLAN_KEYS = ("grid_x", "grid_y", "threads", "smem", "windows_per_stage",
+                  "windows_per_block", "blocks_per_sm", "partials", "heads_per_block",
+                  "warps_per_head", "stages", "tasks_per_warp", "padded_tokens", "padded_hd",
+                  "ld")
+
+
+def _any_pad_hd(hd: int, itemsize: int) -> int:
+    if itemsize == 4 and hd <= 4:
+        return 4
+    return next(p for p in (8, 16, 32, 64) if hd <= p)
+
+
+def _any_stage_ld(hdp: int, itemsize: int) -> int:
+    """Row stride (elements) of a staged slice: bf16 rows an odd number of
+    16-byte units (ldmatrix without bank conflicts); fp32 rows 4 floats past
+    a multiple of 8 (hd 4 and 64 unpadded)."""
+    if itemsize == 2:
+        return hdp if (hdp // 8) % 2 else hdp + 8
+    return hdp if hdp in (4, 64) else hdp + 4
+
+
+def _any_reg_cap(hdp: int, itemsize: int) -> int:
+    """Registers a thread may take under the kernels' launch bounds: blocks
+    of ``ANY_THREADS`` an SM promised three in bf16 and at hd <= 4 (80
+    registers, allocated 8 at a time), two in fp32 at hd 5-16 (128), one
+    above."""
+    blocks = 1 if hdp > 16 else 3 if itemsize == 2 or hdp <= 4 else 2
+    return 65536 // (ANY_THREADS * blocks) // 8 * 8 if blocks > 1 else 256
+
+
+def _any_tile_ld(np_: int, hdp: int, itemsize: int) -> int:
+    """Row stride (floats) of a backward warp's e32 / dsim tile."""
+    return np_ if itemsize == 4 and hdp == 64 and np_ > 128 else np_ + 4
 
 
 @functools.lru_cache(maxsize=None)
-def generic_launch_plan(Bn: int, N: int, hd: int, heads: int, backward: bool) -> dict:
+def generic_launch_plan(Bn: int, N: int, hd: int, heads: int, backward: bool,
+                        itemsize: int = 4) -> dict:
     """How a generic launch goes for Bn windows of N tokens and ``heads`` heads
-    of ``hd``, from the shapes alone, as ``csrc/window_attention_any.cuh``
-    computes it: ``grid`` (chunks of windows, heads), ``threads``, dynamic
-    shared memory ``smem`` (bytes: G windows' e tile and q, k, v (and gout)
-    slices in fp32), ``windows_per_round`` (G), ``windows_per_block``,
-    ``blocks_per_sm`` by shared memory and threads, the backward's dbias
-    ``partials`` (one slab per chunk; 0 for the forward) and ``ld``, the
-    slices' row stride in floats.  Any dtype: the tiles are fp32."""
-    G = max(1, min(ANY_MAX_ROUND, ANY_ROUND_ELEMS // (N * N)))
-    ld = hd + 1 if hd < MAX_HEAD_DIM else hd
-    if backward:
-        smem = 4 * G * (N * N + 4 * N * ld + 2 * N)
-    else:
-        smem = 4 * G * (N * N + 3 * N * ld + N)
-    per_sm = min(_smem_blocks(smem), 2048 // ANY_THREADS)
+    of ``hd`` in an I/O dtype of ``itemsize`` bytes, from the shapes alone, as
+    ``csrc/window_attention_any.cuh`` computes it.  A warp owns a (window,
+    head) pair whole; a block a group of ``heads_per_block`` heads (at N <=
+    16 their q columns of a token up to 128 bytes, or all heads where there
+    are at most 8 making at most twice that; one head above) and a chunk of
+    ``windows_per_block`` windows, walked a stage of
+    ``windows_per_stage`` (``warps_per_head`` x ``tasks_per_warp``) windows
+    at a time, ``stages`` slots (2: double-buffered).  The staged slices are
+    ``padded_tokens`` (N up to a multiple of 16) x ``ld`` elements, the head
+    dim padded to ``padded_hd``; the backward adds a warp's fp32 tile
+    (padded_tokens^2 and its rows' ds).  Halving the windows a warp takes,
+    then the warps a head, then the stages until the block fits 64 KB (N <=
+    16) or a block's 227 KB.  ``grid`` (chunks, head groups), ``threads``,
+    dynamic shared memory ``smem`` (bytes), ``blocks_per_sm`` by shared
+    memory, threads and the registers the launch bounds allow, the
+    backward's dbias ``partials`` (a slab per chunk and warp of a head; 0
+    for the forward)."""
+    np_ = -(-N // 16) * 16
+    hdp = _any_pad_hd(hd, itemsize)
+    ld = _any_stage_ld(hdp, itemsize)
+    small = np_ == 16
+    task = (4 if backward else 3) * np_ * ld * itemsize
+    scratch = 4 * (np_ * _any_tile_ld(np_, hdp, itemsize) + np_) if backward else 0
+    nh = min(max(1, ANY_GROUP_BYTES // (hd * itemsize)) if small else 1, ANY_MAX_WARPS)
+    if small and heads <= ANY_MAX_WARPS and heads <= 2 * nh:  # no group left half idle
+        nh = heads
+    nh = min(nh, heads)
+    groups = -(-heads // nh)
+    nh = -(-heads // groups)
+    R, tpw, stages = ANY_MAX_WARPS // nh, ANY_TASKS_PER_WARP if small else 1, 2
+    budget = ANY_SMALL_SMEM if small else SMEM_PER_BLOCK
+
+    def size():
+        return stages * R * tpw * nh * task + nh * R * scratch
+
+    while size() > budget:
+        if tpw > 1:
+            tpw = 1
+        elif R > 1:
+            R //= 2
+        elif stages > 1:
+            stages = 1
+        else:
+            break
+    smem = min(size(), SMEM_PER_BLOCK + 1)
+    threads = 32 * nh * R
+    per_sm = min(_smem_blocks(smem), 2048 // threads, 65536 // (_any_reg_cap(hdp, itemsize) * threads))
+    G = R * tpw
     rounds = -(-Bn // G)
-    chunks = SMS * per_sm * (1 if backward else FWD_WAVES) // heads
+    chunks = SMS * max(per_sm, 1) // groups
     chunks = max(1, min(chunks, rounds))
     per = -(-Bn // chunks)
     per = -(-per // G) * G
     chunks = -(-Bn // per)
-    return {"grid": (chunks, heads), "threads": ANY_THREADS, "smem": smem, "heads_per_block": 1,
-            "windows_per_round": G, "windows_per_block": per, "blocks_per_sm": per_sm,
-            "partials": chunks if backward else 0, "ld": ld, "variant": "generic"}
+    return {"grid": (chunks, groups), "threads": threads, "smem": smem,
+            "windows_per_stage": G, "windows_per_block": per, "blocks_per_sm": per_sm,
+            "partials": chunks * R if backward else 0, "heads_per_block": nh,
+            "warps_per_head": R, "stages": stages, "tasks_per_warp": tpw,
+            "padded_tokens": np_, "padded_hd": hdp, "ld": ld, "variant": "generic"}
 
 
 def launch_plan(qkv: torch.Tensor, num_heads: int, backward: bool = False,
@@ -334,7 +406,8 @@ def launch_plan(qkv: torch.Tensor, num_heads: int, backward: bool = False,
     Bn, N, C3 = qkv.shape
     C = C3 // 3
     if variant(N, C // num_heads) == "generic":
-        return generic_launch_plan(Bn, N, C // num_heads, num_heads, backward)
+        return generic_launch_plan(Bn, N, C // num_heads, num_heads, backward,
+                                   qkv.element_size())
     return _launch_plan(Bn, C, num_heads, 0 if mask is None else mask.shape[0],
                         qkv.element_size(), backward)
 
@@ -392,8 +465,6 @@ def _library() -> ctypes.CDLL:
 
 _PLAN_KEYS = ("grid_x", "grid_y", "threads", "smem", "heads_per_block", "windows_per_block",
               "blocks_per_sm", "partials")
-_ANY_PLAN_KEYS = ("grid_x", "grid_y", "threads", "smem", "windows_per_round",
-                  "windows_per_block", "blocks_per_sm", "partials", "ld")
 
 
 @functools.lru_cache(maxsize=None)
@@ -409,14 +480,15 @@ def _library_plan(Bn: int, C: int, heads: int, nW: int, bf16: bool, backward: bo
 
 
 @functools.lru_cache(maxsize=None)
-def _library_plan_any(Bn: int, N: int, C: int, heads: int, backward: bool) -> dict:
-    out = (ctypes.c_int * len(_ANY_PLAN_KEYS))()
+def _library_plan_any(Bn: int, N: int, C: int, heads: int, backward: bool, bf16: bool) -> dict:
+    n = len(_ANY_PLAN_KEYS)
+    out = (ctypes.c_int * (2 * n))()  # the fp32 plan, then the bf16 one
     err = _library_any().dmh_window_attention_any_plan(Bn, N, C, heads, int(backward), out)
     if err != 0:
         raise RuntimeError(f"window attention plan refused: cudaError {err}")
-    plan = dict(zip(_ANY_PLAN_KEYS, out))
+    plan = dict(zip(_ANY_PLAN_KEYS, out[n:] if bf16 else out[:n]))
     plan["grid"] = (plan.pop("grid_x"), plan.pop("grid_y"))
-    plan.update(heads_per_block=1, variant="generic")
+    plan["variant"] = "generic"
     return plan
 
 
@@ -428,7 +500,7 @@ def library_plan(qkv: torch.Tensor, num_heads: int, backward: bool = False,
     Bn, N, C3 = qkv.shape
     C = C3 // 3
     if _generic or variant(N, C // num_heads) == "generic":
-        return _library_plan_any(Bn, N, C, num_heads, backward)
+        return _library_plan_any(Bn, N, C, num_heads, backward, qkv.dtype == torch.bfloat16)
     return _library_plan(Bn, C, num_heads, 0 if mask is None else mask.shape[0],
                          qkv.dtype == torch.bfloat16, backward)
 
@@ -439,8 +511,10 @@ def tensor_core_instructions(generic: bool = False) -> dict:
     count (``mask`` None for the backward, whose mask is a runtime
     argument).  The bf16 kernels run their products on tensor cores, the
     fp32 ones on CUDA cores (TF32 off).  With ``generic``, the generic
-    library's kernels, keyed ``(direction, dtype, "generic", None)`` (none
-    uses tensor cores)."""
+    library's kernels, one instantiation per padded head dim, keyed
+    ``(direction, dtype, "generic", padded head dim)``: the same rule holds
+    (``mma.sync`` in every bf16 one, no tensor-core instruction in an fp32
+    one)."""
     out = {}
     lib = build_generic() if generic else build()
     for name, n in tensor_core_instructions_in(lib, "window_attention_").items():
@@ -472,18 +546,21 @@ def atomic_instructions_by_kernel(generic: bool = False) -> dict:
 # MASK> (fp32), window_attention_bwd_kernel<T, HD>
 _KERNEL_NAME = re.compile(
     r"window_attention_(fwd|bwd)(?:_rows)?_kernelI(f|13__nv_bfloat16)?Li(\d+)E(?:Lb([01])E)?")
-# the generic wa_any::window_attention_any_{fwd,bwd}_kernel<T>
-_ANY_KERNEL_NAME = re.compile(r"window_attention_any_(fwd|bwd)_kernelI(f|13__nv_bfloat16)E")
+# the generic wa_any::window_attention_any_{fwd,bwd}_kernel<T, padded hd> (before
+# the redesign <T> alone)
+_ANY_KERNEL_NAME = re.compile(
+    r"window_attention_any_(fwd|bwd)_kernelI(f|13__nv_bfloat16)(?:Li(\d+)E)?E")
 
 
 def kernel_key(name: str):
-    """(direction, dtype, hd, mask or None) of a kernel's mangled name (hd
-    ``"generic"`` for the generic variant's), or None for the dbias
+    """(direction, dtype, hd, mask or None) of a kernel's mangled name; for
+    the generic variant's, hd ``"generic"`` and its padded head dim in place
+    of the mask (None in a name without it); None for the dbias
     reductions."""
     m = _ANY_KERNEL_NAME.search(name)
     if m is not None:
         return (m.group(1), "bfloat16" if m.group(2) == "13__nv_bfloat16" else "float32",
-                "generic", None)
+                "generic", None if m.group(3) is None else int(m.group(3)))
     m = _KERNEL_NAME.search(name)
     if m is None:
         return None

@@ -218,9 +218,12 @@ def test_generic_plans(B, H, W, C, heads, hidden, ws, dtype):
     assert f["tokens"] == M and f["windows"] * N == M
     products = {"qkv": [(C, 3 * C)], "proj_fc1": [(C, C), (C, hidden)], "fc2": [(hidden, C)],
                 "dm1": [(C, hidden)], "dn2": [(hidden, C)], "dao": [(C, C)], "dn1": [(3 * C, C)]}
+    att_threads = {n: sb.generic_launch_plan(M // N, N, C // heads, heads, n == "attention_bwd",
+                                             it)["threads"] for n in ("attention", "attention_bwd")}
     for plan in (f, b):
         for name, k in plan["launches"].items():
-            assert 0 <= k["smem"] <= sb.SMEM_PER_BLOCK and k["threads"] == 256
+            assert 0 <= k["smem"] <= sb.SMEM_PER_BLOCK
+            assert k["threads"] == att_threads.get(name, 256)
             if name not in products:
                 continue
             gx, gy, gz = k["grid"]
@@ -239,7 +242,7 @@ def test_generic_plans(B, H, W, C, heads, hidden, ws, dtype):
         for k, n, kp, np_, nbytes in mats:
             assert kp >= k and np_ >= n and kp % (16 if bf16 else 4) == 0 and np_ % 8 == 0
             assert nbytes == kp * np_ * it
-    att = sb.generic_launch_plan(M // N, N, C // heads, heads, True)
+    att = sb.generic_launch_plan(M // N, N, C // heads, heads, True, it)
     assert b["launches"]["attention_bwd"]["grid"][:2] == att["grid"]
     assert b["launches"]["attention_bwd"]["partials"] == att["partials"]
     for name in sb.GENERIC_LNB:  # the fused LayerNorm backward: consecutive tiles a block

@@ -8,13 +8,17 @@ take: the generic variant (``csrc/window_attention_any.cu``).
   |value|) (dqkv, dbias), as ``tests/test_torch_window_attention*.py``
   hold the shipped shapes;
 * the variant a shape takes, the generic plan's arithmetic at the edges of
-  the envelope (N 1..144, hd 1..64), and the argument checks at those edges;
+  the envelope (N 1..144, hd 1..64, both dtypes), the whole block's
+  attention plan and dbias slabs taken from it, and the argument checks at
+  those edges;
 * on the card: the generic kernels vs the plain versions at N in 1, 4, 16,
-  49, 144 and hd in 4, 6, 8, 12, 64, both dtypes, with and without the
-  mask (1e-5 fp32, 3e-2 bf16; the backward relative to max(1, largest)); the
-  generic variant forced at a shipped shape against the tuned kernels; the
-  same bits from two runs; no atomic instruction in the generic library's
-  machine code; the plan as the library computes it (skip here).
+  49, 144 and hd in 1, 4, 6, 8, 12, 63, 64, both dtypes, with and without
+  the mask (1e-5 fp32, 3e-2 bf16; the backward relative to max(1,
+  largest)); the generic variant forced at a shipped shape against the
+  tuned kernels; the same bits from two runs; in the generic library's
+  machine code no atomic instruction, tensor-core instructions in every
+  bf16 instantiation and none in an fp32 one; the plan as the library
+  computes it (skip here).
 
 JAX is imported inside the tests that use it, so that the card's tests run
 where JAX is not installed:
@@ -90,24 +94,44 @@ def test_variant_by_shape(N, hd, want):
                                    (100, 64)])
 def test_generic_plan_fits_the_card(N, hd, backward):
     """Every shape of the envelope asks for no more shared memory than a
-    block may have; the chunks cover the windows in whole rounds."""
-    for Bn, heads in ((1, 1), (7, 3), (92160, 3), (2880, 24)):
-        p = wa.generic_launch_plan(Bn, N, hd, heads, backward)
-        assert 0 < p["smem"] <= wa.SMEM_PER_BLOCK and p["blocks_per_sm"] >= 1
-        G, per = p["windows_per_round"], p["windows_per_block"]
-        assert 1 <= G <= wa.ANY_MAX_ROUND and G == max(1, min(16, 1024 // (N * N)))
-        assert per % G == 0
-        chunks, h = p["grid"]
-        assert h == heads and chunks * per >= Bn > (chunks - 1) * per
-        assert p["partials"] == (chunks if backward else 0)
-        assert p["ld"] == (hd + 1 if hd < 64 else 64)
+    block may have (at N <= 16 no more than 64 KB): a warp's staged slices
+    of each stage's windows and heads, and in the backward its fp32 tile;
+    the chunks cover the windows in whole stages; a dbias slab per chunk and
+    warp of a head."""
+    for itemsize in (4, 2):
+        for Bn, heads in ((1, 1), (7, 3), (92160, 3), (2880, 24)):
+            p = wa.generic_launch_plan(Bn, N, hd, heads, backward, itemsize)
+            assert 0 < p["smem"] <= wa.SMEM_PER_BLOCK and p["blocks_per_sm"] >= 1
+            np_, hdp, ld = p["padded_tokens"], p["padded_hd"], p["ld"]
+            assert np_ % 16 == 0 and np_ - 16 < N <= np_
+            assert hdp in ((4, 8, 16, 32, 64) if itemsize == 4 else (8, 16, 32, 64))
+            assert hd <= hdp and (hdp == 4 or hdp // 2 < hd or hdp == 8)
+            assert ld >= hdp and (ld * itemsize) % 16 == 0
+            nh, R, tpw = p["heads_per_block"], p["warps_per_head"], p["tasks_per_warp"]
+            chunks, groups = p["grid"]
+            assert groups == -(-heads // nh) and (groups - 1) * nh < heads <= groups * nh
+            assert p["threads"] == 32 * nh * R <= wa.ANY_THREADS
+            G, per = p["windows_per_stage"], p["windows_per_block"]
+            assert G == R * tpw and per % G == 0
+            assert chunks * per >= Bn > (chunks - 1) * per
+            assert p["partials"] == (chunks * R if backward else 0)
+            task = (4 if backward else 3) * np_ * ld * itemsize
+            tile = 4 * (np_ * wa._any_tile_ld(np_, hdp, itemsize) + np_) if backward else 0
+            assert p["smem"] == p["stages"] * G * nh * task + nh * R * tile
+            if np_ == 16:
+                assert p["smem"] <= wa.ANY_SMALL_SMEM and nh * hd * itemsize <= max(
+                    2 * wa.ANY_GROUP_BYTES, hd * itemsize)
+            else:
+                assert nh == 1 and tpw == 1
 
 
 def test_generic_plan_at_the_edge():
-    """N = 144, hd = 64: the backward's tile and four slices fill a block's
-    227 KB (231,552 of 232,448 bytes); the forward's take 194,112."""
-    assert wa.generic_launch_plan(8, 144, 64, 1, True)["smem"] == 231552
-    assert wa.generic_launch_plan(8, 144, 64, 1, False)["smem"] == 194112
+    """N = 144, hd = 64: one warp a block, one stage in the backward; its
+    fp32 slices and tile fill a block's 227 KB (230,976 of 232,448 bytes)."""
+    for itemsize, backward, smem, stages in ((4, True, 230976, 1), (4, False, 221184, 2),
+                                             (2, True, 168768, 1), (2, False, 124416, 2)):
+        p = wa.generic_launch_plan(8, 144, 64, 1, backward, itemsize)
+        assert (p["smem"], p["stages"], p["threads"]) == (smem, stages, 32)
 
 
 @pytest.mark.parametrize("case, match", [
@@ -136,12 +160,59 @@ def test_envelope_argument_checks(case, match):
 def test_generic_kernel_names():
     assert wa.kernel_key("_ZN6wa_any31window_attention_any_fwd_kernelIfEEvPKT_") == (
         "fwd", "float32", "generic", None)
+    assert wa.kernel_key("_ZN6wa_any12_GLOBAL__N_131window_attention_any_bwd_kernelI13__nv_"
+                         "bfloat16Li8EEEvNS0_5KArgsE") == ("bwd", "bfloat16", "generic", 8)
+    assert wa.kernel_key("_ZN6wa_any12_GLOBAL__N_131window_attention_any_fwd_kernelIfLi4EEEvN"
+                         "S0_5KArgsE") == ("fwd", "float32", "generic", 4)
     assert wa.kernel_key(
         "_ZN6wa_any31window_attention_any_bwd_kernelI13__nv_bfloat16EEvPKT_") == (
         "bwd", "bfloat16", "generic", None)
     assert wa.kernel_key("_ZN6wa_any34window_attention_any_reduce_kernelENS_8SegmentsE") is None
     assert wa.kernel_key("_ZN12_GLOBAL__N_126window_attention_fwd_kernelIfLi8ELb1EEEv") == (
         "fwd", "float32", 8, True)
+
+
+def test_block_plan_takes_the_attention_plan():
+    """The generic whole block launches the window attention with the
+    attention's own plan at the block's dtype, and sizes its dbias slabs
+    from that plan's partials."""
+    from dmhomo_torch.ops import swin_block as sb
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, W, C, heads, ws in ((8, 160, 288, 24, 3, 4), (8, 40, 72, 96, 24, 4),
+                                      (2, 14, 21, 12, 2, 7), (1, 12, 12, 384, 6, 12)):
+            x = torch.empty(B, H, W, C, dtype=dtype)
+            N = ws * ws
+            Bn = B * H * W // N
+            f = sb.generic_forward_plan(x, heads, 3 * C, ws)
+            b = sb.generic_backward_plan(x, heads, 3 * C, ws)
+            for plan, name, bwd in ((f, "attention", False), (b, "attention", False),
+                                    (b, "attention_bwd", True)):
+                att = wa.generic_launch_plan(Bn, N, C // heads, heads, bwd, x.element_size())
+                k = plan["launches"][name]
+                assert k["grid"] == att["grid"] + (1,)
+                assert (k["threads"], k["smem"]) == (att["threads"], att["smem"])
+            att = wa.generic_launch_plan(Bn, N, C // heads, heads, True, x.element_size())
+            assert b["launches"]["attention_bwd"]["partials"] == att["partials"]
+            assert b["scratch"]["bpart"][1] == 4 * att["partials"] * heads * N * N
+
+
+def test_breakdown_copies_apply():
+    """``window_attention_breakdown --generic`` takes this checkout's header
+    apart: every removal it makes applies (each edit exactly where it
+    expects), the unchanged copy is the source itself."""
+    from dmhomo_torch.ops import window_attention_breakdown as wb
+
+    cu = (wa.CSRC / "window_attention_any.cu").read_text()
+    cuh = (wa.CSRC / "window_attention_any.cuh").read_text()
+    copies = wb.generic_variants(cu, cuh)
+    assert list(copies) == ["unchanged", "without the loads", "without the exp",
+                            "without the products", "fp32 forward a thread per query row",
+                            "without dbias"]
+    assert copies["unchanged"] == (cu, cuh)
+    for name, (c, h) in copies.items():
+        assert name == "unchanged" or h != cuh
+        assert c == cu or name == "without dbias"
 
 
 def test_source_has_no_atomics():
@@ -171,7 +242,7 @@ def _cuda_args(dev, seed, Bn, nW, N, h, hd, with_mask, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("with_mask", [False, True])
-@pytest.mark.parametrize("hd", [4, 6, 8, 12, 64])
+@pytest.mark.parametrize("hd", [1, 4, 6, 8, 12, 63, 64])
 @pytest.mark.parametrize("N", [1, 4, 16, 49, 144])
 def test_cuda_generic_matches_plain(cuda_device, N, hd, with_mask, dtype):
     h, nW = 2, 3
@@ -231,8 +302,21 @@ def test_cuda_generic_library_has_no_atomics(cuda_device):
     found = wa.atomic_instructions_by_kernel(generic=True)
     assert found and all(n == 0 for n in found.values()), found
     counts = wa.tensor_core_instructions(generic=True)
-    assert set(counts) == {(d, dt, "generic", None) for d in ("fwd", "bwd")
-                           for dt in ("float32", "bfloat16")}
+    assert {k[:3] for k in counts} == {(d, dt, "generic") for d in ("fwd", "bwd")
+                                       for dt in ("float32", "bfloat16")}
+
+
+@pytest.mark.gpu
+def test_cuda_generic_tensor_cores(cuda_device):
+    """The generic library's machine code: every bf16 instantiation of the
+    forward and the backward (one per padded head dim) has tensor-core
+    instructions, every fp32 one none, and no kernel an atomic."""
+    counts = wa.tensor_core_instructions(generic=True)
+    want = {(d, dt, "generic", hdp) for d in ("fwd", "bwd") for dt, hdps in (
+        ("float32", (4, 8, 16, 32, 64)), ("bfloat16", (8, 16, 32, 64))) for hdp in hdps}
+    assert set(counts) == want, counts
+    assert all((n > 0) == (k[1] == "bfloat16") for k, n in counts.items()), counts
+    assert all(n == 0 for n in wa.atomic_instructions_by_kernel(generic=True).values())
 
 
 @pytest.mark.gpu
@@ -240,5 +324,6 @@ def test_cuda_generic_library_has_no_atomics(cuda_device):
 def test_cuda_generic_plan_matches_library(cuda_device, backward):
     for Bn, N, hd, heads in ((4, 1, 4, 2), (92160, 16, 8, 3), (360, 16, 32, 3), (8, 144, 64, 1),
                              (45, 49, 12, 2)):
-        qkv = torch.empty(Bn, N, 3 * hd * heads)
-        assert wa.library_plan(qkv, heads, backward) == wa.launch_plan(qkv, heads, backward)
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = torch.empty(Bn, N, 3 * hd * heads, dtype=dtype)
+            assert wa.library_plan(qkv, heads, backward) == wa.launch_plan(qkv, heads, backward)

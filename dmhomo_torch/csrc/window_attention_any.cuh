@@ -53,7 +53,7 @@
 //    from float4 rows of q and k, e v and dsim k as each thread's keys' share
 //    of whole output rows, added over the four lanes of a row by a reduce-
 //    scatter of shuffles that leaves each lane a quarter of the row to store
-//    (float4s).  A thread per query row (F32_ROWS) measured slower.  The
+//    (float4s).  A thread per query row measured slower.  The
 //    forward unrolls a warp's two windows of a stage, so that one's loads and
 //    products overlap the other's.
 //  * The backward per pair: the logits once per (row, key): e32 (negated
@@ -101,11 +101,6 @@ constexpr int SMEM_RESERVED = 1024;  // bytes the card keeps per resident block
 constexpr int GROUP_BYTES = 128;  // q (k, v) bytes per token a head group aims at, N <= 16
 constexpr int TASKS_PER_WARP = 2;  // windows a warp takes per stage, N <= 16
 constexpr int SMALL_SMEM = 65536;  // the shared memory a block aims under, N <= 16
-// The fp32 forward at N <= 16 as a thread per query row (each half-warp one
-// of the warp's windows of a stage) instead of the warp tiles: measured
-// slower at the window-4 sites (ops/window_attention_breakdown.py --generic
-// times both), so off.
-constexpr bool F32_ROWS = false;
 constexpr int PLAN_FIELDS = 15;
 constexpr float CLIP = 60.0f;
 
@@ -956,62 +951,6 @@ __device__ __forceinline__ void backward_pair(const T* q, const T* k, const T* v
   __syncwarp();  // the tile free for the next pair
 }
 
-// fp32 forward at N <= 16, a thread per query row: lane l takes row l % 16
-// of the warp's window l / 16 of the stage (q, k, v its staged slices);
-// keys go one at a time, each k and v row read by the half-warp at once;
-// bm the row's bias (+ mask) in registers.
-template <int HDP>
-__device__ __forceinline__ void forward_row(const float* q, const float* k, const float* v,
-                                            float* out, const float (&bm)[16], const KArgs& a) {
-  constexpr int LD = stage_ld(HDP, 4);
-  const int row = threadIdx.x & 15, N = a.N;
-  float qr[HDP], acc[HDP];
-#pragma unroll
-  for (int d = 0; d < HDP; d += 4) {
-    const float4 x = ld4(q + row * LD + d);
-    qr[d] = x.x * a.scale_io, qr[d + 1] = x.y * a.scale_io;
-    qr[d + 2] = x.z * a.scale_io, qr[d + 3] = x.w * a.scale_io;
-    acc[d] = acc[d + 1] = acc[d + 2] = acc[d + 3] = 0.0f;
-  }
-  float s = 0.0f;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    if (j >= N) break;
-    float dot = 0.0f;
-#pragma unroll
-    for (int d = 0; d < HDP; d += 4) {
-      const float4 kk = ld4(k + j * LD + d);
-      dot = fmaf(qr[d], kk.x, dot);
-      dot = fmaf(qr[d + 1], kk.y, dot);
-      dot = fmaf(qr[d + 2], kk.z, dot);
-      dot = fmaf(qr[d + 3], kk.w, dot);
-    }
-    const float e = clipped_exp<false>(dot + bm[j]);
-    s += e;
-#pragma unroll
-    for (int d = 0; d < HDP; d += 4) {
-      const float4 vv = ld4(v + j * LD + d);
-      acc[d] = fmaf(e, vv.x, acc[d]);
-      acc[d + 1] = fmaf(e, vv.y, acc[d + 1]);
-      acc[d + 2] = fmaf(e, vv.z, acc[d + 2]);
-      acc[d + 3] = fmaf(e, vv.w, acc[d + 3]);
-    }
-  }
-  if (row >= N) return;
-  float* p = out + row * a.C;
-  if (a.vec == 4 && HDP % 4 == 0) {
-#pragma unroll
-    for (int d = 0; d < HDP; d += 4)
-      if (d + 4 <= a.hd)
-        *reinterpret_cast<float4*>(p + d) =
-            make_float4(acc[d] / s, acc[d + 1] / s, acc[d + 2] / s, acc[d + 3] / s);
-  } else {
-#pragma unroll
-    for (int d = 0; d < HDP; ++d)
-      if (d < a.hd) p[d] = acc[d] / s;
-  }
-}
-
 // Both kernels: block (chunk, head group) walks its windows a stage at a
 // time; warp w takes head w % nh and windows w / nh + R i of each stage.
 template <typename T, int HDP, bool BWD>
@@ -1074,8 +1013,6 @@ __device__ __forceinline__ void attention_blocks(const KArgs& a) {
   };
   zero_tiles(bm);
   if (chunks == 1 && active && !a.mask) load_bm(nullptr);
-  float brow[(!BWD && !kBf16<T> && F32_ROWS) ? 16 : 1];  // the row kernel's bias (+ mask) row
-  int rrow = -1;
   const auto window_of = [&](int slot) -> int {
     const unsigned q = quot(static_cast<unsigned>(slot), a.f_nper);
     return (slot - static_cast<int>(q) * a.n_per) * a.nW + static_cast<int>(q);
@@ -1151,35 +1088,7 @@ __device__ __forceinline__ void attention_blocks(const KArgs& a) {
       }
       return true;
     };
-    bool rows = false;  // the fp32 forward as a thread per query row
-    if constexpr (!BWD && !kBf16<T> && F32_ROWS) {
-      rows = chunks == 1;
-      if (active && rows) {  // a half-warp a window, a thread a row
-        const int i = lane >> 4, wl = r + a.R * i, row = lane & 15;
-        if (i < a.tpw && w0 + wl < end) {
-          const int w = window_of(w0 + wl);
-          const int mr = a.mask ? w % a.nW : 0;
-          if (mr != rrow) {  // the row's bias (+ mask) for this window's mask row
-            rrow = mr;
-#pragma unroll
-            for (int j = 0; j < 16; ++j) {
-              float b = 0.0f;
-              if (row < N && j < N) {
-                b = __ldg(bias_h + row * N + j);
-                if (a.mask) b += __ldg(a.mask + (static_cast<long long>(mr) * N + row) * N + j);
-              }
-              brow[j] = b;
-            }
-          }
-          const T* base = stage + cur * slot + (wl * a.nh + hl) * task_elems;
-          forward_row<HDP>(base, base + arr_elems, base + 2 * arr_elems,
-                           static_cast<T*>(a.out) + static_cast<long long>(w) * N * a.C +
-                               h * a.hd,
-                           brow, a);
-        }
-      }
-    }
-    if (active && !rows) {
+    if (active) {
       if constexpr (BWD) {  // one window at a time (registers)
 #pragma unroll 1
         for (int i = 0; i < a.tpw; ++i)

@@ -546,21 +546,19 @@ def atomic_instructions_by_kernel(generic: bool = False) -> dict:
 # MASK> (fp32), window_attention_bwd_kernel<T, HD>
 _KERNEL_NAME = re.compile(
     r"window_attention_(fwd|bwd)(?:_rows)?_kernelI(f|13__nv_bfloat16)?Li(\d+)E(?:Lb([01])E)?")
-# the generic wa_any::window_attention_any_{fwd,bwd}_kernel<T, padded hd> (before
-# the redesign <T> alone)
+# the generic wa_any::window_attention_any_{fwd,bwd}_kernel<T, padded hd>
 _ANY_KERNEL_NAME = re.compile(
-    r"window_attention_any_(fwd|bwd)_kernelI(f|13__nv_bfloat16)(?:Li(\d+)E)?E")
+    r"window_attention_any_(fwd|bwd)_kernelI(f|13__nv_bfloat16)Li(\d+)EE")
 
 
 def kernel_key(name: str):
     """(direction, dtype, hd, mask or None) of a kernel's mangled name; for
     the generic variant's, hd ``"generic"`` and its padded head dim in place
-    of the mask (None in a name without it); None for the dbias
-    reductions."""
+    of the mask; None for the dbias reductions."""
     m = _ANY_KERNEL_NAME.search(name)
     if m is not None:
         return (m.group(1), "bfloat16" if m.group(2) == "13__nv_bfloat16" else "float32",
-                "generic", None if m.group(3) is None else int(m.group(3)))
+                "generic", int(m.group(3)))
     m = _KERNEL_NAME.search(name)
     if m is None:
         return None

@@ -40,9 +40,7 @@ of each with a random 0 / -100 mask.  Its copies remove the loads (every
 stage copies its chunk's first windows again, which stay in cache), the
 exp (the clipped logit kept in its place), the products (every mma.sync
 and every FMA loop of a product) or dbias (no slab summed or written, no
-reduction launch); one more copy removes nothing: its fp32 forward takes
-a thread per query row (``F32_ROWS``), the design not shipped.  A source of
-an earlier design is timed whole.
+reduction launch).  A source of an earlier design is timed whole.
 Sources and copies run in turns, A B B A per round.
 """
 
@@ -278,9 +276,6 @@ def generic_variants(cu: str, cuh: str) -> dict:
              "for (int d = 0; d < (HDP < 0 ? 4 : 0); d += 4) {\n        const float4 bb", 1),
             ("for (int k = 16 * kq; k < 16 * kq + 16; k += 2) {",
              "for (int k = 16 * kq; k < 16 * kq + (HDP < 0 ? 16 : 0); k += 2) {", 1)],
-        # not a part removed: the other fp32 forward design at N <= 16
-        "fp32 forward a thread per query row": [("constexpr bool F32_ROWS = false;",
-                                                 "constexpr bool F32_ROWS = true;", 1)],
         "without dbias": [
             ("            db[j][2 * hr] += d0;\n            db[j][2 * hr + 1] += d1;\n", "", 1),
             ("} else if (row < N && key < N) {", "} else if (row < N && key < N && N < 0) {", 1),

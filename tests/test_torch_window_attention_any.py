@@ -158,15 +158,14 @@ def test_envelope_argument_checks(case, match):
 
 
 def test_generic_kernel_names():
-    assert wa.kernel_key("_ZN6wa_any31window_attention_any_fwd_kernelIfEEvPKT_") == (
-        "fwd", "float32", "generic", None)
+    assert wa.kernel_key("_ZN6wa_any12_GLOBAL__N_131window_attention_any_fwd_kernelIfLi64EEEvN"
+                         "S0_5KArgsE") == ("fwd", "float32", "generic", 64)
     assert wa.kernel_key("_ZN6wa_any12_GLOBAL__N_131window_attention_any_bwd_kernelI13__nv_"
                          "bfloat16Li8EEEvNS0_5KArgsE") == ("bwd", "bfloat16", "generic", 8)
     assert wa.kernel_key("_ZN6wa_any12_GLOBAL__N_131window_attention_any_fwd_kernelIfLi4EEEvN"
                          "S0_5KArgsE") == ("fwd", "float32", "generic", 4)
-    assert wa.kernel_key(
-        "_ZN6wa_any31window_attention_any_bwd_kernelI13__nv_bfloat16EEvPKT_") == (
-        "bwd", "bfloat16", "generic", None)
+    assert wa.kernel_key("_ZN6wa_any12_GLOBAL__N_131window_attention_any_bwd_kernelI13__nv_"
+                         "bfloat16Li16EEEvNS0_5KArgsE") == ("bwd", "bfloat16", "generic", 16)
     assert wa.kernel_key("_ZN6wa_any34window_attention_any_reduce_kernelENS_8SegmentsE") is None
     assert wa.kernel_key("_ZN12_GLOBAL__N_126window_attention_fwd_kernelIfLi8ELb1EEEv") == (
         "fwd", "float32", 8, True)
@@ -207,8 +206,7 @@ def test_breakdown_copies_apply():
     cuh = (wa.CSRC / "window_attention_any.cuh").read_text()
     copies = wb.generic_variants(cu, cuh)
     assert list(copies) == ["unchanged", "without the loads", "without the exp",
-                            "without the products", "fp32 forward a thread per query row",
-                            "without dbias"]
+                            "without the products", "without dbias"]
     assert copies["unchanged"] == (cu, cuh)
     for name, (c, h) in copies.items():
         assert name == "unchanged" or h != cuh

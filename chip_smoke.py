@@ -58,9 +58,9 @@ Phases, each printing its results; any failure exits non-zero:
     on phase 8's batch: one eager step on the batch already on the card
     under ``torch.cuda.set_sync_debug_mode('error')`` (any host sync fails
     it); then ``HEMTrainer.train_steps``, one call per step (the first runs
-    its step eagerly and captures the step as a CUDA graph; 2 more warm up;
-    10 timed replays, host clock around ``synchronize()``), and one call of
-    10 steps: step ms, pairs/s, peak memory (the graph's pool included); the
+    its step eagerly and captures the step as a CUDA graph; 1 more warms up;
+    5 timed replays, host clock around ``synchronize()``), and one call of
+    5 steps: step ms, pairs/s, peak memory (the graph's pool included); the
     launches per replay counted at capture must be phase 8's 160 + 160 (and
     its counts by shape), the wrappers' counters must not move on a replay,
     and a profiled replay must show as many device launches of each kernel,
@@ -79,7 +79,7 @@ Phases, each printing its results; any failure exits non-zero:
     the shipped UNet (B=50, the CFG-doubled batch of 25; prenorm folded;
     the UNet's NCHW layout), fp32 and bf16: errors against the stated
     tolerances, and CUDA-event times of each pass (the wrapper's call, its
-    bf16 weight preparation included; the median of 5 bursts of 5 calls,
+    bf16 weight preparation included; the median of 3 bursts of 5 calls,
     with their spread), its plain version and one cuBLAS
     ``x @ W_qkv`` (a yardstick only: no one PyTorch call computes linear
     attention), beside each pass's bound and the share of it reached; in
@@ -87,8 +87,8 @@ Phases, each printing its results; any failure exits non-zero:
     a failure if a site takes the element-wise loader.
 13. generation slice: ``dgm_sample``'s generate step at its defaults (bf16,
     bs 25, 32 DDIM steps, CFG 3, 256x256, seeded random weights) on
-    synthetic conditions (numpy, from ``--seed``): one warm-up batch, then 2
-    timed ones; images finite and in [0, 1], exactly 8 + 8 kernel launches
+    synthetic conditions (numpy, from ``--seed``): one warm-up batch, then 1
+    timed one; images finite and in [0, 1], exactly 8 + 8 kernel launches
     per UNet forward, none through the element-wise loader, fitted H within
     1e-2 px of the condition flow;
     samples/s, ms per batch and per DDIM step, peak memory.
@@ -171,7 +171,7 @@ Phases, each printing its results; any failure exits non-zero:
     (kernels 3 and 4 at the training shapes) against the plain version
     within LA_TOL, dx, dW and dg against ``torch.autograd.grad`` of the
     plain version (tolerances stated; in bf16 both beside their distance to the fp32 gradient at the
-    same inputs), CUDA-event times of the backward (the median of 5 bursts)
+    same inputs), CUDA-event times of the backward (the median of 3 bursts)
     and of the plain version's autograd backward (a yardstick only: it is
     not on the training path) beside the backward's bound.
 25. DGM training card vs CPU: one fp32 step of the full-width UNet at
@@ -180,19 +180,19 @@ Phases, each printing its results; any failure exits non-zero:
     gradient held against the CPU's own change when the conditions move by
     1e-7, then the clipped Adam update and the EMA.
 26. the data pipeline end to end, under a temporary directory in
-    ``build/``: (a) ``make_conditions --synthetic 100`` on the card at
-    360x640 -> 256 (the cache's shape, 20 per scene class; ms per condition
+    ``build/``: (a) ``make_conditions --synthetic 50`` on the card at
+    360x640 -> 256 (the cache's shape, 10 per scene class; ms per condition
     of the CLI and of ``build_conditions`` alone; the card against the CPU
     on the same raw pairs: images and rgb_flow 1e-5, the mask exact, the
-    flow 1e-4 px); (b) ``dgm_sample --conditions`` at its defaults, 4
+    flow 1e-4 px); (b) ``dgm_sample --conditions`` at its defaults, 2
     batches of 25, seeded random weights: 256 + 256 linear-attention
     launches per batch, none element-wise, the plain version made to raise,
     each fitted H within 1e-2 px of its condition's flow; (c)
-    ``make_samples``: 100 files that ``HEMTrainDataset`` reads (its host
+    ``make_samples``: 50 files that ``HEMTrainDataset`` reads (its host
     pipeline against ``device_build_patches`` on one sample); (d)
     ``HEMTrainConfig()`` streamed from the files as ``hem_train --samples``
     streams it (4 worker threads, prefetch 2, pinned): ``train_steps`` with
-    one loader batch per call, 3 warm-up then 10 timed steps; the loader
+    one loader batch per call, 2 warm-up then 5 timed steps; the loader
     alone with 0 and 4 workers; a profiled streamed step: idle share, 160 +
     160 window kernels per replay; a streamed step profiled in a fresh
     process (``--streamed-step-copies``): its host-to-device copies from
@@ -243,7 +243,7 @@ Phases, each printing its results; any failure exits non-zero:
     (phase 9's rule); (d) each generic kernel at every shape (c)'s paths
     gave it (the counters' keys), forward and backward, fp32 and bf16,
     against its plain version at (a)'s tolerances, reruns bit-identical;
-    then the median of 5 bursts, its plain version, its yardstick (SDPA at
+    then the median of 3 bursts, its plain version, its yardstick (SDPA at
     N = 16; the unfused SwinBlock) and bound, per eval forward and per
     training step.  (b)'s children run beside (a).  ``--only-generic`` runs
     phases 1-2 and 28 alone.
@@ -273,14 +273,14 @@ Phases, each printing its results; any failure exits non-zero:
     ``DGMTrainer`` steps of the shipped config, every launch generic, one
     fp32 forward card vs CPU; (d) each generic kernel at the sites of (c)'s
     sampling paths (the twin B=16 fp32, the conditional B=50 bf16): errors,
-    the median of 5 bursts, the plain version's time and the bound; and the
+    the median of 3 bursts, the plain version's time and the bound; and the
     generic kernels forced at (4, 32) at the conditional generation's sites
     beside the tuned kernels on the same inputs (a yardstick; the target is
     within 2x).  ``--only-uncond`` runs phases 1-2 and 29 alone.
 30. the rest of the DGM trainer, under a temporary directory in ``build/``:
     (a) the shipped ``DGMTrainConfig()`` (bf16, 128 in microbatches of 32)
     eagerly and as a CUDA graph (``train_steps``, one call per step: the
-    first an eager step and the capture, then 3 warm-up and 10 timed
+    first an eager step and the capture, then 2 warm-up and 5 timed
     replays): step ms of both, the idle share of a profiled replay, peak
     memory with the graph's pool, 32 + 32 linear-attention launches per
     replay (at capture and by name in the profile) and none generic or of
@@ -372,10 +372,15 @@ STEP_GRAD_TOL = 1e-3
 STEP_INPUT_NOISE = 1e-7
 STEP_NOISE_FACTOR = 10.0
 WARMUP_STEPS, TIMED_STEPS = 3, 10
+# graph replays timed by the host clock (phases 8b, 20b, 26d, 27a): the median of
+# REPLAY_TIMED after the first call (an eager step and the capture) and
+# REPLAY_WARMUP - 1 replays; a replay's spread is under 3% (474.3-485.1 ms in
+# phase 8b on an H100 80GB HBM3), so five timed replays give the median
+REPLAY_WARMUP, REPLAY_TIMED = 2, 5
 # DGM generation at dgm_sample's defaults: --bs 25 (CFG runs a doubled batch
 # of 50), 32 DDIM steps, 256x256, bf16 activations
 GEN_BS, GEN_STEPS, GEN_SIZE = 25, 32, 256
-GEN_TIMED_BATCHES = 2
+GEN_TIMED_BATCHES = 1  # after one warm-up batch (two timed read 4930.0 and 4928.6 ms on an H100)
 # linear-attention kernels vs plain, relative to the largest plain value
 # (stricter than relative to max(1, |ref|): the outputs are far below 1):
 # fp32 summation order (E and s are summed in the kernels' own fixed order);
@@ -398,7 +403,7 @@ SWIN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SWIN_UNFUSED_TOL = 1e-4
 SWIN_DX_TOL = 1e-4  # the whole-block backward's fp32 dx, absolute
 FUSED_FLOW_TOL_PX = 2e-3  # the fused_block estimator's flows vs phase 4's model
-TIMING_BURSTS = 5  # per-site kernel times: the median of this many bursts of calls
+TIMING_BURSTS = 3  # per-site kernel times: the median of this many bursts of calls
 # DGM training at DGMTrainConfig's shipped batch of 128: microbatches tried in
 # this order, then the last with remat
 DGM_MICROBATCHES = (32, 16)
@@ -418,6 +423,24 @@ DGM_CPU_SIZE, DGM_CPU_BATCH, DGM_CPU_ACCUM = 64, 4, 2
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class PhaseClock:
+    """One ``[time]`` line a phase: its own seconds and the script's total
+    so far, counted from the script's start."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.phases = {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.phases[name] = now - self.last
+        log(f"[time] {name}: {now - self.last:.1f} s (total {now - self.start:.1f} s)")
+        self.last = now
+
+    def total(self) -> float:
+        return time.perf_counter() - self.start
 
 
 # ---------------------------------------------------------------------------
@@ -771,9 +794,9 @@ def phase_kernels(shapes, dev, seed: int, step_shapes):
                 am = am.to(qkv.dtype)
                 ms = cuda_ms(lambda: window_attention(qkv, bias, mask, **kw), iters=20)
                 plain_ms = cuda_ms(lambda: window_attention_reference(qkv, bias, mask, **kw),
-                                   iters=5)
+                                   iters=2, warmup=1)
                 lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=am, scale=hd**-0.5), iters=10)
+                    q, k, v, attn_mask=am, scale=hd**-0.5), iters=5)
                 b_ms, b_by = bound(qkv, bias, mask)
                 r = {"level": s["level"], "Bn": Bn, "C": C, "heads": h, "hd": hd, "nW": nW,
                      "dtype": dtype, "mask": masked,
@@ -1013,8 +1036,8 @@ def phase_backward_kernels(shapes, dev, seed: int):
                     log(f"[bwd-kernel] SDPA yardstick kernels: {backend}")
                 ms = cuda_ms(lambda: window_attention_backward(*args, **kw), iters=10)
                 plain_ms = cuda_ms(lambda: window_attention_backward_reference(*args, **kw),
-                                   iters=3, warmup=1)
-                lib_ms = cuda_ms(sdpa, iters=5, warmup=1)
+                                   iters=2, warmup=1)
+                lib_ms = cuda_ms(sdpa, iters=3, warmup=1)
                 b_ms, b_by = bound(qkv, bias, mask, backward=True)
                 # launches_per_step: counted in phase 8's timed steps
                 r = {"level": s["level"], "Bn": Bn, "C": C, "heads": h, "hd": hd, "nW": nW,
@@ -1324,6 +1347,17 @@ def phase_linear_kernels(sites, dev, seed: int):
                 worst[(dtype, name)] = max(worst.get((dtype, name), 0.0), e)
             finite = bool(torch.isfinite(got).all()) and bool(torch.isfinite(sums).all())
             ok = finite and max(errs["out_rel"], errs["pass1_rel"], errs["pass2_rel"]) <= LA_TOL[dtype]
+            f64 = None
+            if dtype == "float32" and N == 65536:  # the checks nearest their tolerance
+                x64, w64, pn64 = x.double(), w.double(), (g.double(),)
+                sums64 = la.linear_attention_pass1_reference(x64, w64, prenorm=pn64)
+                f64 = log_float64("la-kernel", f"{site} N={N} B={B} fp32", float64_distances((
+                    ("out", got, want, la.linear_attention_pass2_reference(x64, w64, sums64,
+                                                                           prenorm=pn64)),
+                    ("pass1", sums, sums_ref, sums64),
+                    ("pass2", out, out_ref, la.linear_attention_pass2_reference(
+                        x64, w64, sums_ref.double(), prenorm=pn64)))))
+                del x64, w64, pn64, sums64
             sums_t = torch.zeros_like(sums)
             ms1, bursts1 = burst_ms(
                 lambda: la.linear_attention_pass1(x, w, g, mean, rstd, True, sums_t), iters=5)
@@ -1345,6 +1379,8 @@ def phase_linear_kernels(sites, dev, seed: int):
                  "plain1_ms": plain1, "plain2_ms": plain2, "gemm_ms": gemm,
                  "bound1_ms": b1, "bound1_by": by1, "bound2_ms": b2, "bound2_by": by2,
                  "share1": b1 / ms1, "share2": b2 / ms2}
+            if f64:
+                r["float64"] = f64
             plans = ""
             if dtype == "bfloat16":  # the tensor-core kernels' plans, as the UNet's call takes them
                 r["plan1"] = la.launch_plan(x, 1)
@@ -1674,8 +1710,8 @@ def phase_swin_kernels(shapes, dev, seed: int):
                     worst[dtype] = max(worst[dtype], err)
                     ms = cuda_ms(lambda: sb.swin_block(x, params, mask, **kw), iters=10)
                     plain_ms = cuda_ms(lambda: sb.swin_block_reference(x, params, mask, **kw),
-                                       iters=3, warmup=1)
-                    unfused_ms = cuda_ms(unfused, iters=5, warmup=1)
+                                       iters=2, warmup=1)
+                    unfused_ms = cuda_ms(unfused, iters=3, warmup=1)
                     b_ms, b_by = block_bound(x, params, mask)
                     del got, want
                 smem = sb.shared_memory_bytes(C, 3 * C, x.dtype)  # what the launch asks for
@@ -1869,8 +1905,8 @@ def phase_swin_bwd_kernels(shapes, dev, seed: int):
                 ms = cuda_ms(lambda: sb.swin_block_backward(x, params, mask, dy, **kw), iters=10)
                 plain_ms = cuda_ms(lambda: sb.swin_block_backward_reference(x, params, mask, dy,
                                                                             **kw),
-                                   iters=3, warmup=1)
-                unfused_ms = cuda_ms(unfused, iters=5, warmup=1)
+                                   iters=2, warmup=1)
+                unfused_ms = cuda_ms(unfused, iters=3, warmup=1)
                 b_ms, b_by = block_bwd_bound(x, params, mask)
                 plan = sb.backward_plan(x, h, params[10].shape[0], mask)
                 kplan = {k: {kk: v for kk, v in kern.items() if kk != "threads"}
@@ -2127,7 +2163,7 @@ def phase_train_graph(trainer, batch, eager: dict, want: dict, by_shape: dict, t
     counted = {fn.__name__: fn.launches for fn in LAUNCH_COUNTERS}
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
-    for step in range(WARMUP_STEPS + TIMED_STEPS):
+    for step in range(REPLAY_WARMUP + REPLAY_TIMED):
         t0 = time.perf_counter()
         out = trainer.train_steps([batch])
         loss = float(out["total"][0])
@@ -2142,7 +2178,7 @@ def phase_train_graph(trainer, batch, eager: dict, want: dict, by_shape: dict, t
     after = {fn.__name__: fn.launches - counted[fn.__name__] for fn in LAUNCH_COUNTERS}
     sg = trainer.step_graph
     peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved()
-    timed = times[WARMUP_STEPS:]
+    timed = times[REPLAY_WARMUP:]
     step_ms = float(np.median(timed))
     if not np.isfinite(losses).all():
         raise SystemExit(f"graph training loss not finite: {losses}")
@@ -2164,11 +2200,11 @@ def phase_train_graph(trainer, batch, eager: dict, want: dict, by_shape: dict, t
         f"by shape {json.dumps(shapes_seen)}")
 
     t0 = time.perf_counter()
-    out = trainer.train_steps([batch] * TIMED_STEPS)
+    out = trainer.train_steps([batch] * REPLAY_TIMED)
     last = float(out["total"][-1])
     torch.cuda.synchronize()
-    fused_ms = 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
-    log(f"[{tag}] train_steps of {TIMED_STEPS} steps in one call: {fused_ms:.2f} ms per step, "
+    fused_ms = 1e3 * (time.perf_counter() - t0) / REPLAY_TIMED
+    log(f"[{tag}] train_steps of {REPLAY_TIMED} steps in one call: {fused_ms:.2f} ms per step, "
         f"{1e3 * BATCH / fused_ms:.2f} training pairs/s (last loss {last:.5f})")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2532,6 +2568,35 @@ def rel_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max() / b.float().abs().max())
 
 
+def distance64(a, ref, floor: float = 0.0) -> float:
+    """max |a - ref| over max(floor, max |ref|), taken in float64: how far a
+    result is from ``ref``, a plain version evaluated in float64."""
+    return float((a.double() - ref).abs().max()) / max(floor, float(ref.abs().max()))
+
+
+def float64_distances(results, floor: float = 0.0) -> dict:
+    """For each (name, kernel's fp32 result, fp32 plain version's, plain
+    version in float64): both distances from the float64 evaluation, in the
+    measure of the check beside it (``floor`` 0 for rel_err, 1 for _rel), and
+    their ratio."""
+    out = {}
+    for name, got, plain, ref in results:
+        k, p = distance64(got, ref, floor), distance64(plain, ref, floor)
+        out[name] = {"kernel": k, "plain": p, "ratio": k / p if p else float("inf")}
+    return out
+
+
+def log_float64(tag: str, what: str, dist: dict) -> dict:
+    """Logs :func:`float64_distances`' result.  A kernel more than twice as
+    far from the float64 evaluation as the plain version is a fault of the
+    kernel: the line says so."""
+    for name, d in dist.items():
+        log(f"[{tag}] {what} {name} from the plain version in float64: kernel {d['kernel']:.3g}, "
+            f"fp32 plain {d['plain']:.3g} (kernel / plain {d['ratio']:.2f}"
+            f"{', over 2: a kernel fault' if d['ratio'] > 2 else ''})")
+    return dist
+
+
 def phase_la_backward(sites, dev, seed: int, B: int):
     """The Function's backward vs autograd of the plain version at every
     UNet site, B = the training microbatch, channel-major, prenorm."""
@@ -2691,7 +2756,7 @@ def phase_dgm_card_vs_cpu(dev, seed: int):
 # phase 26: the data pipeline end to end
 # ---------------------------------------------------------------------------
 
-PIPE_N = 100  # synthetic raw pairs at 360x640: 4 generation batches of GEN_BS
+PIPE_N = 50  # synthetic raw pairs at 360x640: 2 generation batches of GEN_BS
 PIPE_SRC_HW = (360, 640)
 COND_TOL = {"image": 1e-5, "rgb_flow": 1e-5, "flow": 1e-4}  # card vs CPU; the mask exact
 COND_CHANNELS = {"image": slice(0, 6), "mask": slice(6, 7), "rgb_flow": slice(7, 10),
@@ -2897,7 +2962,7 @@ def phase_pipeline(dev, seed: int, tmp: str):
     trainer.init_state(seed)
     before = {fn.__name__: fn.launches for fn in LAUNCH_COUNTERS}
     losses, times = [], []
-    for _ in range(WARMUP_STEPS + TIMED_STEPS):
+    for _ in range(REPLAY_WARMUP + REPLAY_TIMED):
         t0 = time.perf_counter()
         step_out = trainer.train_steps([next(stream)])
         torch.cuda.synchronize()
@@ -2909,7 +2974,7 @@ def phase_pipeline(dev, seed: int, tmp: str):
     want_step = {"window_attention": 40 * (BATCH // MICROBATCH),
                  "window_attention_backward": 40 * (BATCH // MICROBATCH),
                  "swin_block": 0, "swin_block_backward": 0}
-    step_ms = float(np.median(times[WARMUP_STEPS:]))
+    step_ms = float(np.median(times[REPLAY_WARMUP:]))
     if per_replay != want_step or eager != want_step or not np.isfinite(losses).all():
         raise SystemExit(f"streamed steps: launches per replay {per_replay}, by the eager first "
                          f"step {eager}, expected {want_step}; losses {losses}")
@@ -2937,7 +3002,7 @@ def phase_pipeline(dev, seed: int, tmp: str):
     log(f"[pipe-train] HEMTrainConfig() (bf16, B={cfg.train_batch_size}, grad_accum "
         f"{cfg.grad_accum}) from {n} files, loader with {PIPE_WORKERS} worker threads, prefetch "
         f"{PIPE_PREFETCH}, pinned: train_steps one call per step, first {times[0]:.1f} ms, "
-        f"steady {step_ms:.2f} ms (timed {', '.join(f'{t:.1f}' for t in times[WARMUP_STEPS:])}), "
+        f"steady {step_ms:.2f} ms (timed {', '.join(f'{t:.1f}' for t in times[REPLAY_WARMUP:])}), "
         f"{1e3 * cfg.train_batch_size / step_ms:.2f} training pairs/s; losses {losses[0]:.5f} "
         f"-> {losses[-1]:.5f}")
     log(f"[pipe-train] the loader alone (prefetch 0, pinned): {loader_ms[0]:.2f} ms per batch "
@@ -2954,11 +3019,11 @@ def phase_pipeline(dev, seed: int, tmp: str):
         raise SystemExit(f"the streamed replay: launches {device}, copies {copies}, compute "
                          f"streams {compute}")
     out["train"] = {"step_ms": step_ms, "pairs_per_s": 1e3 * cfg.train_batch_size / step_ms,
-                    "first_call_ms": times[0], "timed_ms": times[WARMUP_STEPS:],
+                    "first_call_ms": times[0], "timed_ms": times[REPLAY_WARMUP:],
                     "losses": losses, "idle": idle, "dev_ms": dev_ms, "copy_ms": copy_ms,
                     "copies": copies, "loader_ms_per_batch": loader_ms,
                     "launches_per_replay": per_replay,
-                    "replays": WARMUP_STEPS + TIMED_STEPS, "launches_eager": eager}
+                    "replays": REPLAY_WARMUP + REPLAY_TIMED, "launches_eager": eager}
     # the first call's step ran eagerly; every later call, the profiled one
     # included, replayed the graph
     out["train"]["launches"] = {k: eager[k] + v * out["train"]["replays"]
@@ -3000,18 +3065,18 @@ HEM_STEP_LAUNCHES = {"window_attention": 40 * (BATCH // MICROBATCH),
 
 def graph_step_times(trainer, batch):
     """``train_steps`` one call per step: the first (an eager step, then the
-    capture), WARMUP_STEPS - 1 more, TIMED_STEPS timed (host clock around
+    capture), REPLAY_WARMUP - 1 more, REPLAY_TIMED timed (host clock around
     ``synchronize()``).  Returns (median ms of the timed, all times)."""
     import torch
 
     times = []
-    for _ in range(WARMUP_STEPS + TIMED_STEPS):
+    for _ in range(REPLAY_WARMUP + REPLAY_TIMED):
         t0 = time.perf_counter()
         out = trainer.train_steps([batch])
         float(out["total"][0])
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-    return float(np.median(times[WARMUP_STEPS:])), times
+    return float(np.median(times[REPLAY_WARMUP:])), times
 
 
 def profile_replay(trainer, batch):
@@ -3085,7 +3150,7 @@ def phase_dp_one_rank(dev, batch, seed: int, tmp: str):
                              f"{eager_calls}")
         log(f"[dp-1] one-rank nccl group, shipped config B={BATCH} (bf16, microbatches of "
             f"{MICROBATCH}): graph step {group_ms:.2f} ms (timed "
-            f"{', '.join(f'{t:.1f}' for t in times[WARMUP_STEPS:])}), no group {no_group_ms:.2f} "
+            f"{', '.join(f'{t:.1f}' for t in times[REPLAY_WARMUP:])}), no group {no_group_ms:.2f} "
             f"ms (this phase, same card); {1e3 * BATCH / group_ms:.2f} pairs/s; idle "
             f"{100 * idle:.1f}%")
         n_grad = sum(p.numel() for p in tr.model.parameters())
@@ -3470,8 +3535,11 @@ def phase_dp_ranks(dev, seed: int, tmp: str):
     return out
 
 
-def phase_data_parallel(dev, batch, seed: int):
-    """Phase 27, under a temporary directory in ``build/``."""
+def phase_data_parallel(dev, batch, seed: int, beside=None):
+    """Phase 27, under a temporary directory in ``build/``.  ``beside``, if
+    given, starts child processes just before 27b (which times nothing with
+    one card) and returns them; they are stopped if 27b fails.  Returns
+    (the phase's results, what ``beside`` returned)."""
     import tempfile
 
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
@@ -3479,10 +3547,17 @@ def phase_data_parallel(dev, batch, seed: int):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="dp_", dir=build) as tmp:
         one = phase_dp_one_rank(dev, batch, seed, tmp)
-        ranks = phase_dp_ranks(dev, seed, tmp)
+        started = beside() if beside else None
+        try:
+            ranks = phase_dp_ranks(dev, seed, tmp)
+        except BaseException:
+            for proc in (started[0] if started else ()):
+                proc.kill()
+                proc.wait()
+            raise
     out = {"one_rank": one, "ranks": ranks, "phase_s": time.perf_counter() - t0}
     log(f"[dp-summary] " + json.dumps(out))
-    return out
+    return out, started
 
 
 
@@ -3561,6 +3636,21 @@ class _GenericChecks:
     def __init__(self, dev, gen):
         self.dev, self.gen = dev, gen
         self.fails, self.worst, self.noisy = [], {}, []
+        # fp32 results against the plain version evaluated in float64: by check,
+        # the case nearest its tolerance, and every case's kernel / plain ratio
+        self.edges, self.ratios = {}, {}
+
+    def float64(self, key, err, what, results):
+        """Distances from float64 of one fp32 case's results (name, kernel's,
+        fp32 plain version's, float64 plain version's), in _rel's measure:
+        each ratio kept under ``key``, the case kept if its error is the
+        largest of ``key`` so far."""
+        dist = float64_distances(results, floor=1.0)
+        for name, d in dist.items():
+            if d["plain"]:
+                self.ratios.setdefault(f"{key} {name}", []).append(d["ratio"])
+        if err > self.edges.get(key, {"rel_err": -1.0})["rel_err"]:
+            self.edges[key] = {"case": what, "rel_err": err, "distances": dist}
 
     def note(self, key, err, tol, what):
         self.worst[key] = max(self.worst.get(key, 0.0), err)
@@ -3604,6 +3694,10 @@ class _GenericChecks:
                   ATTN_TOL[dtype], what + " out")
         self.note(("wa_bwd", dtype), _rel(dqkv, w_dqkv), tols[0], what + " dqkv")
         self.note(("wa_dbias", dtype), _rel(dbias, w_dbias), tols[1], what + " dbias")
+        if dtype == "float32":
+            _, ref = wa.window_attention_backward_reference(
+                *(None if t is None else t.double() for t in (qkv, bias, mask, gout)), num_heads=h)
+            self.float64("wa_dbias", _rel(dbias, w_dbias), what, [("dbias", dbias, w_dbias, ref)])
 
     def block(self, x, params, mask, dy, kw, what):
         from dmhomo_torch.ops import swin_block as sb
@@ -3632,6 +3726,31 @@ class _GenericChecks:
             self.note(("sb_grads", dtype), _rel(g, w), t, f"{what} d{n}")
             if t > SWIN_TOL[dtype]:
                 self.noisy.append(f"{what} d{n} {_rel(g, w):.3g} (tol {t:.3g})")
+        if dtype == "float32":
+            _, ref = sb.swin_block_backward_reference(
+                x.double(), tuple(p.double() for p in params),
+                None if mask is None else mask.double(), dy.double(), **kw)
+            self.float64("sb_grads", max(_rel(g, w) for g, w in zip(grads, w_grads)), what,
+                         [(f"d{n}", g, w, r) for n, g, w, r
+                          in zip(sb.PARAM_NAMES, grads, w_grads, ref)])
+
+    def float64_edges(self) -> dict:
+        """Logs and returns, for the fp32 dbias and block gradients, the case
+        nearest its tolerance (each result's distance from the plain version
+        evaluated in float64, the kernel's and the fp32 plain version's) and,
+        over every fp32 case, the median and largest kernel / plain ratio of
+        each result.  A kernel more than twice as far as the plain version is
+        a fault of the kernel: the lines say so."""
+        for key, edge in self.edges.items():
+            log_float64("generic-wa" if key.startswith("wa") else "generic-sb",
+                        f"nearest its tolerance ({edge['rel_err']:.3g}): {edge['case']}",
+                        edge["distances"])
+        spread = {k: {"cases": len(v), "median": float(np.median(v)), "max": max(v)}
+                  for k, v in self.ratios.items()}
+        log("[generic] fp32 kernel / plain distance from float64 over every case, median and "
+            "largest: " + ", ".join(f"{k} {v['median']:.2f} / {v['max']:.2f} ({v['cases']})"
+                                    for k, v in spread.items()))
+        return {"nearest": self.edges, "ratios": spread}
 
     def worst_text(self, prefix: str) -> str:
         return ", ".join(f"{k[0]} {k[1]} {v:.3g}" for k, v in sorted(self.worst.items())
@@ -3644,16 +3763,17 @@ class _GenericChecks:
             raise SystemExit(f"{len(self.fails)} generic-kernel checks failed")
 
 
-def phase_generic(dev, pairs, batch, seed: int) -> dict:
+def phase_generic(dev, pairs, batch, seed: int, children=None) -> dict:
     """Phase 28: the generic window-attention and whole-block kernels (a)
     against their plain versions, (b) in ``hem_train --tiny``, (c) at the
-    shipped config with window 4, (d) timed per site."""
+    shipped config with window 4, (d) timed per site.  ``children``: (b)'s,
+    if ``start_tiny_children`` started them before the phase."""
     t0 = time.perf_counter()
     # (b)'s children take tens of seconds: they run beside (a), which times
-    # nothing
-    children = start_tiny_children(seed)
+    # nothing, and beside phase 27b where the script starts them there
+    children = children or start_tiny_children(seed)
     try:
-        worst, wa_tc = generic_kernel_checks(dev, seed)
+        worst, wa_tc, edges = generic_kernel_checks(dev, seed)
     finally:
         tiny = generic_tiny_train(*children)
     w4 = generic_window4(dev, pairs, batch, seed)
@@ -3662,7 +3782,7 @@ def phase_generic(dev, pairs, batch, seed: int) -> dict:
     phase_s = time.perf_counter() - t0
     log(f"[generic] phase 28 in {phase_s:.1f} s")
     return {"worst": worst, "tiny": tiny, "w4": w4, "main_path_worst": main_worst,
-            "times": times, "phase_s": phase_s, "wa_tensor_cores": wa_tc}
+            "times": times, "phase_s": phase_s, "wa_tensor_cores": wa_tc, "float64_edges": edges}
 
 
 def generic_kernel_checks(dev, seed: int) -> tuple:
@@ -3813,9 +3933,10 @@ def generic_kernel_checks(dev, seed: int) -> tuple:
         f"{[c for c, _ in GENERIC_WIDTHS]}, MLPs 2-4 C), forward and backward, against the "
         f"plain versions; worst {chk.worst_text('sb')}")
     chk.raise_on_fails("generic")
+    edges = chk.float64_edges()
     log(f"[generic] (a) done in {time.perf_counter() - t0:.1f} s")
     return ({f"{k[0]} {k[1]}": v for k, v in chk.worst.items()},
-            {f"{d} {dt} hd<={hdp}": n for (d, dt, _, hdp), n in wa_tc.items()})
+            {f"{d} {dt} hd<={hdp}": n for (d, dt, _, hdp), n in wa_tc.items()}, edges)
 
 
 def _tiny_held_batch(cfg, seed: int) -> dict:
@@ -3996,7 +4117,7 @@ def generic_tiny_train(procs, t0: float) -> dict:
         log(msg)
         out[tag] = r
     log(f"[generic] (b) done {time.perf_counter() - t0:.1f} s after its children started "
-        f"(they ran beside (a))")
+        f"(they ran beside (a), and beside phase 27b where started there)")
     return out
 
 
@@ -4237,7 +4358,7 @@ def _wa_inputs(key, dev, gen):
 
 def generic_site_times(dev, seed: int, w4: dict) -> dict:
     """Phase 28 (d): each generic kernel at every shape phase 28 (c)'s paths
-    gave it (their counters' keys): the median of 5 bursts of CUDA-event
+    gave it (their counters' keys): the median of 3 bursts of CUDA-event
     timed calls (the whole block: the median of 3, its ``ms``, and beside
     it, as ``graph_ms``, the median of 3 bursts of the call replayed as a
     CUDA graph, without the host's work), its plain version, its yardstick (SDPA at N = 16 for the window attention, forward
@@ -5061,7 +5182,53 @@ def generic_la_site_times(dev, seed: int) -> dict:
     for k, v in totals.items():
         log(f"[la-any-site] per UNet forward, {k}: {v['ms']:.3f} ms (bound {v['bound_ms']:.3f} "
             f"{v['bound_by']}, plain {v['plain_ms']:.3f})")
-    return {"rows": rows, "totals": totals, "forced": forced_generic_times(dev, gen)}
+    return {"rows": rows, "totals": totals, "forced": forced_generic_times(dev, gen),
+            "fp32_first_level": generic_la_fp32_first_level(dev, gen)}
+
+
+def generic_la_fp32_first_level(dev, gen) -> dict:
+    """(d): one fp32 call of each generic kernel at the conditional UNet's
+    first-level site (256², N = 65536, C 64) at (8, 64), B = 2, as the UNet
+    calls it (channel-major, prenorm, statistics computed by pass 1): each
+    pass against its plain version on the same inputs within LA_TOL, and
+    the kernel's and the fp32 plain version's distances from the plain
+    version evaluated in float64."""
+    import torch
+
+    from dmhomo_torch.models.unet import UNetConfig
+    from dmhomo_torch.ops import linear_attention as la
+
+    heads, dh = UNCOND_GENERIC
+    site, hw, C = linear_attention_sites(UNetConfig(), GEN_SIZE)[0]
+    B, N = 2, hw * hw
+    x, w, g = _la_inputs(B, N, C, heads * dh, "float32", True, dev, gen)
+    sums_ref = la.linear_attention_pass1_reference(x, w, heads, dh, (g,))
+    out_ref = la.linear_attention_pass2_reference(x, w, sums_ref, heads, dh, (g,))
+    sums = torch.empty_like(sums_ref)
+    mean = torch.empty((B, N), device=dev)
+    rstd = torch.empty_like(mean)
+    out = torch.empty((B, heads * dh, N), device=dev).transpose(1, 2)
+    c0 = (la.linear_attention_pass1.generic, la.linear_attention_pass2.generic)
+    la.linear_attention_pass1(x, w, g, mean, rstd, True, sums, heads, dh)
+    la.linear_attention_pass2(x, w, g, mean, rstd, sums_ref, out, heads, dh)
+    torch.cuda.synchronize()
+    launched = (la.linear_attention_pass1.generic - c0[0], la.linear_attention_pass2.generic - c0[1])
+    errs = {"pass1": rel_err(sums, sums_ref), "pass2": rel_err(out, out_ref)}
+    x64, w64, pn64 = x.double(), w.double(), (g.double(),)
+    what = f"{site} {hw}x{hw} N={N} C={C} B={B} ({heads}, {dh}) fp32"
+    f64 = log_float64("la-any-fp32", what, float64_distances((
+        ("pass1", sums, sums_ref, la.linear_attention_pass1_reference(x64, w64, heads, dh, pn64)),
+        ("pass2", out, out_ref, la.linear_attention_pass2_reference(x64, w64, sums_ref.double(),
+                                                                    heads, dh, pn64)))))
+    ok = max(errs.values()) <= LA_TOL["float32"] and launched == (1, 1)
+    log(f"[la-any-fp32] {what}: rel err pass1 {errs['pass1']:.3g} pass2 {errs['pass2']:.3g} (tol "
+        f"{LA_TOL['float32']:g}); generic launches {launched} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"generic kernels in fp32 at {what} disagree with their plain versions: "
+                         f"{errs}, launches {launched}")
+    del x, w, g, x64, w64, pn64, sums_ref, out_ref, sums, mean, rstd, out
+    torch.cuda.empty_cache()
+    return {p: {"rel_err": errs[p], "float64": f64[p]} for p in ("pass1", "pass2")}
 
 
 def forced_generic_times(dev, gen) -> dict:
@@ -5195,6 +5362,8 @@ def generic_la_entries(u: dict) -> list:
             "tensor_core_instructions": {k: v for k, v in u["grid"]["tensor_cores"].items()
                                          if f"_pass{p}_" in k},
             "forced_at_tuned_shape": u["sites"]["forced"][f"pass{p}"],
+            # one fp32 call at the conditional UNet's 256² site, B=2, (8, 64)
+            "fp32_first_level": u["sites"]["fp32_first_level"][f"pass{p}"],
         })
     return out
 
@@ -5205,13 +5374,15 @@ def generic_la_entries(u: dict) -> list:
 # ---------------------------------------------------------------------------
 
 DGMS_MICROBATCH = 32  # phase 22's fit of the shipped batch of 128
-DGMS_EAGER_STEPS = 3  # eager steps timed beside the graph's, after one warm-up
-DGMS_WARMUP, DGMS_TIMED = 3, 10  # graph replays: the median of 10 after 3
+DGMS_EAGER_STEPS = 2  # eager steps timed beside the graph's, after one warm-up
+# graph replays: the median of 5 after 2 (on an H100 80GB HBM3 10 timed
+# replays fell within 1726.6-1734.8 ms)
+DGMS_WARMUP, DGMS_TIMED = 2, 5
 DGMS_VS_EAGER_STEPS = 3  # fp32: the first eager, then two replays
 DGMS_EMA_STEPS = 16  # fp32 graph steps before the EMA check (an update every 10)
 SHARD_MODEL = 2
 SHARD_SPEED_WARMUP, SHARD_SPEED_TIMED = 2, 5
-DGMS_SPREAD_RUNS = 6  # 30e: fresh trainers per mode, and kernel 3 calls per dtype
+DGMS_SPREAD_RUNS = 4  # 30e: fresh trainers per mode, and kernel 3 calls per dtype
 DGMS_CHILD_S = 600  # a child's whole run; then it is killed and the phase fails
 PREVIEW_STEPS, PREVIEW_EVERY = 10, 5
 DGMS_TINY = ["--synthetic", "8", "--dim", "16", "--dim-mults", "1,2", "--image-size", "32"]
@@ -6410,12 +6581,15 @@ def main(argv=None):
     if args.mask_vis_child:
         print(json.dumps(mask_vis_child(args.mask_vis_child)), flush=True)
         return
-    t_start = time.perf_counter()
+    clock = PhaseClock()
 
     dev, name, smi = phase_device()
+    clock("1 device")
     phase_build()
+    clock("2 build")
     if args.only_data_parallel:
         phase_data_parallel(dev, synthetic_train_batch(BATCH, args.seed), args.seed)
+        clock("27 data parallel")
         log(smi)
         return
     if args.only_generic:
@@ -6423,14 +6597,17 @@ def main(argv=None):
 
         phase_generic(dev, eval_pairs(EstimatorConfig(), dev, BATCH, args.seed),
                       synthetic_train_batch(BATCH, args.seed), args.seed)
+        clock("28 generic HEM kernels")
         log(smi)
         return
     if args.only_uncond:
         uncond_summary(phase_uncond(dev, args.seed))
+        clock("29 linear attention at any shape, the twin")
         log(smi)
         return
     if args.only_dgm_steps:
         dgm_steps_summary(phase_dgm_steps(dev, args.seed), None)
+        clock("30 DGM trainer rest")
         log(smi)
         return
     if args.only_shard_params:
@@ -6445,9 +6622,11 @@ def main(argv=None):
         return
     if args.only_rest:
         phase_rest(dev, args.seed)
+        clock("31 the rest")
         log(smi)
         return
     wa_sass, wa_atomics = phase_window_sass()
+    clock("2b window-attention machine code")
 
     import torch
 
@@ -6461,22 +6640,30 @@ def main(argv=None):
     train_shapes = attention_shapes(model, MICROBATCH)
     expected = sum(s["plain_launches"] + s["masked_launches"] for s in shapes)
     results, worst, step_rows = phase_kernels(shapes, dev, args.seed, train_shapes)
+    clock("3 window-attention kernel vs plain")
     pairs = eval_pairs(model.config, dev, BATCH, args.seed)
     counts, forwards, _, batch_ms, peak = phase_slice(model, pairs, {"window-attention": wa_fwd})
+    clock("4 eval slice")
     launches = counts["window-attention"]
     if launches != expected * forwards:
         raise SystemExit(f"window attention launched {launches} times in {forwards} forwards, "
                          f"expected {expected} per forward")
     diffs = phase_card_vs_cpu(model, args.seed)
+    clock("5 eval card vs CPU")
     phase_profile(model, pairs, batch_ms)
+    clock("6 eval profile")
     del model
     torch.cuda.empty_cache()
 
     bwd_results, bwd_worst, sdpa_backend = phase_backward_kernels(train_shapes, dev, args.seed)
+    clock("7 window-attention backward vs plain")
     train = phase_train(dev, args.seed)
+    clock("8 training slice")
     step_diffs = phase_train_card_vs_cpu(dev, args.seed)
+    clock("9 training card vs CPU")
     dev_ms, idle, attn_ms = phase_train_profile(train["trainer"], train["batch"],
                                                 train["step_ms"])
+    clock("10 training profile")
     train_batch = train.pop("batch")
     per_step_launches = 40 * (BATCH // MICROBATCH)
     count_step_launches(step_rows, train["by_shape"]["fwd"], per_step_launches, "kernel-step")
@@ -6487,33 +6674,45 @@ def main(argv=None):
          "swin_block": 0, "swin_block_backward": 0},
         {"window_attention": train["by_shape"]["fwd"],
          "window_attention_backward": train["by_shape"]["bwd"]}, "graph-train")
+    clock("8b graph training slice")
     torch.cuda.empty_cache()
     graph["vs_eager"] = phase_graph_vs_eager(dev, train_batch, args.seed, "auto",
                                              "graph-vs-eager")
+    clock("8c graph vs eager")
 
     from dmhomo_torch.models.unet import UNetConfig
 
     phase_linear_build()
+    clock("11 linear-attention build")
     sites = linear_attention_sites(UNetConfig(), GEN_SIZE)
     la_results, la_worst = phase_linear_kernels(sites, dev, args.seed)
+    clock("12 linear-attention kernels vs plain")
     gen = phase_generate(dev, args.seed)
+    clock("13 generation slice")
     gen_diffs = phase_gen_card_vs_cpu(gen["gd"], gen["cond"], args.seed)
+    clock("14 generation card vs CPU")
     gen_dev_ms, gen_idle, gen_la_ms = phase_gen_profile(gen["gd"], gen["cond"], gen["step_ms"])
+    clock("15 generation profile")
     del gen["gd"]
     torch.cuda.empty_cache()
 
     phase_swin_build()
     sb_sass = phase_swin_fwd_sass()
     sb_results, sb_worst = phase_swin_kernels(shapes, dev, args.seed)
+    clock("16 whole-block kernel vs plain")
     sb_slice = phase_fused_slice(dev, pairs, args.seed, batch_ms)
+    clock("17 whole-block slice")
     sb_diffs = phase_card_vs_cpu(sb_slice.pop("model"), args.seed, tag="sb-card-vs-cpu")
+    clock("18 whole-block card vs CPU")
     torch.cuda.empty_cache()
 
     phase_swin_build("bwd", tag="sb-bwd-build")
     sbb_atomics = phase_swin_bwd_sass()
     sbb_results, sbb_worst = phase_swin_bwd_kernels(train_shapes, dev, args.seed)
+    clock("19 whole-block backward vs plain")
     sb_train = phase_train_fused(dev, train_batch, args.seed, train["step_ms"], train_shapes,
                                  sbb_results)
+    clock("20 whole-block training slice")
     sb_launches_step = {k: v // TIMED_STEPS for k, v in sb_train["launches"].items()}
     sb_graph = phase_train_graph(
         sb_train.pop("trainer"), train_batch,
@@ -6523,20 +6722,27 @@ def main(argv=None):
          "swin_block": sb_launches_step["fwd"], "swin_block_backward": sb_launches_step["bwd"]},
         {"swin_block": sb_train["by_shape"]["fwd"],
          "swin_block_backward": sb_train["by_shape"]["bwd"]}, "sb-graph-train")
+    clock("20b whole-block graph training slice")
     torch.cuda.empty_cache()
     sb_graph["vs_eager"] = phase_graph_vs_eager(dev, train_batch, args.seed, "fused_block",
                                                 "sb-graph-vs-eager")
+    clock("20c whole-block graph vs eager")
     sb_step_diffs = phase_train_card_vs_cpu(dev, args.seed, attn_impl="fused_block",
                                             tag="sb-train-card-vs-cpu")
+    clock("21 whole-block training card vs CPU")
     torch.cuda.empty_cache()
 
     dgm = phase_dgm_train(dev, args.seed)
+    clock("22 DGM training slice")
     dgm_prof = phase_dgm_profile(dgm)
+    clock("23 DGM training profile")
     for k in ("trainer", "gen", "batch"):
         del dgm[k]
     torch.cuda.empty_cache()
     la_bwd_rows, la_bwd_worst = phase_la_backward(sites, dev, args.seed, dgm["microbatch"])
+    clock("24 linear-attention backward vs plain")
     dgm_diffs = phase_dgm_card_vs_cpu(dev, args.seed)
+    clock("25 DGM training card vs CPU")
     torch.cuda.empty_cache()
 
     import tempfile
@@ -6545,14 +6751,23 @@ def main(argv=None):
     os.makedirs(build, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="pipeline_", dir=build) as tmp:
         pipe = phase_pipeline(dev, args.seed, tmp)
-    dp = phase_data_parallel(dev, train_batch, args.seed)
-    generic = phase_generic(dev, pairs, train_batch, args.seed)
+    clock("26 data pipeline")
+    # phase 28 (b)'s children run beside phase 27b where it times nothing (one card)
+    tiny = ((lambda: start_tiny_children(args.seed)) if torch.cuda.device_count() < DP_WORLD
+            else None)
+    dp, tiny_children = phase_data_parallel(dev, train_batch, args.seed, tiny)
+    clock("27 data parallel")
+    generic = phase_generic(dev, pairs, train_batch, args.seed, tiny_children)
+    clock("28 generic HEM kernels")
     torch.cuda.empty_cache()
     uncond = phase_uncond(dev, args.seed)
+    clock("29 linear attention at any shape, the twin")
     torch.cuda.empty_cache()
     dgm_steps = phase_dgm_steps(dev, args.seed)
+    clock("30 DGM trainer rest")
     torch.cuda.empty_cache()
     rest = phase_rest(dev, args.seed, pipe["warp_check"])
+    clock("31 the rest")
 
     # per-forward totals at the eval path's dtype (fp32) and launch mix
     main = [r for r in results if r["dtype"] == "float32"]
@@ -6780,7 +6995,7 @@ def main(argv=None):
         f"fwd+bwd {sbb_unfused_ms:.3f}; profiled {sb_train['kernel_ms']['bwd']:.2f}; atomic "
         f"instructions in its machine code {sum(sbb_atomics.values())}, so global atomics per "
         f"step {sbb_kernel['atomics_per_step']}); step "
-        f"card-vs-cpu {json.dumps(sb_step_diffs)}; total {time.perf_counter() - t_start:.0f} s")
+        f"card-vs-cpu {json.dumps(sb_step_diffs)}; total {clock.total():.0f} s")
     # the explicit backward per DGM training step: each site once per microbatch
     bwd_rows = [r for r in la_bwd_rows if r["dtype"] == "bfloat16"]
     bwd_step = {k: dgm["accum"] * sum(r[k] for r in bwd_rows)
@@ -6806,7 +7021,7 @@ def main(argv=None):
             f"{g['pairs_per_s']:.2f} pairs/s, idle {100 * g['idle']:.1f}%, peak "
             f"{g['peak_bytes'] / 2**30:.2f} GiB (reserved {g['reserved_bytes'] / 2**30:.2f}); "
             f"eager {g['eager_step_ms']:.2f} ms, idle {100 * g['eager_idle']:.1f}%; "
-            f"{g['fused_call_ms_per_step']:.2f} ms per step at {TIMED_STEPS} steps per call; "
+            f"{g['fused_call_ms_per_step']:.2f} ms per step at {REPLAY_TIMED} steps per call; "
             f"graph vs eager {json.dumps(g['vs_eager'])}")
     log("[graph-summary] " + json.dumps({"window": graph, "fused_block": sb_graph}))
     pt = pipe["train"]
@@ -6858,8 +7073,8 @@ def main(argv=None):
         f"{w4f['train']['step_ms']:.2f} ms eager, {w4a['train']['graph_step_ms']:.2f} / "
         f"{w4f['train']['graph_step_ms']:.2f} ms as a graph; phase {generic['phase_s']:.1f} s")
     log("[generic-summary] " + json.dumps(json_keys({
-        "worst": gw, "main_path_worst": gm, "tiny": generic["tiny"], "window4": generic["w4"], "totals": gt}),
-        default=str))
+        "worst": gw, "main_path_worst": gm, "tiny": generic["tiny"], "window4": generic["w4"],
+        "totals": gt, "float64_edges": generic["float64_edges"]}), default=str))
     # kernels 3 and 4 at any heads / dim_head (phase 29)
     for entry, g in zip(la_kernels, generic_la_entries(uncond)):
         entry["generic"] = g
@@ -6882,7 +7097,8 @@ def main(argv=None):
         f"{rest['warp_check']['gifs']} GIFs; kernel 3 {sum(k3['atomic_instructions'].values())} "
         f"atomic instructions, reruns differing {sum(k3['reruns_differing'].values())}, "
         f"{k3['ms']['generation batch']:.2f} ms per generation batch, {k3['ms']['DGM step']:.3f} "
-        f"per DGM step; phase {rest['phase_s']:.1f} s; total {time.perf_counter() - t_start:.0f} s")
+        f"per DGM step; phase {rest['phase_s']:.1f} s; total {clock.total():.0f} s")
+    log("[time-summary] " + json.dumps({"phases_s": clock.phases, "total_s": clock.total()}))
     log(smi)  # nvidia-smi: card name, power limit
     log(json.dumps({"kernels": [kernel, bwd_kernel] + la_kernels + [sb_kernel, sbb_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -64,8 +64,10 @@ import functools
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from dmhomo_torch.ops.build import CSRC, atomic_instructions, build_library
+from dmhomo_torch.ops.plain import exact, wide
 
 CLIP = 60.0
 HEADS = 4  # the tuned kernels' heads and dim_head
@@ -73,6 +75,7 @@ DIM_HEAD = 32
 HIDDEN = HEADS * DIM_HEAD
 SUMS = HEADS * DIM_HEAD * DIM_HEAD + HIDDEN  # per batch: the E blocks, then s
 LN_EPS = 1e-5
+TOKEN_CHUNK = 1024  # tokens per partial of the plain version's E (_token_products)
 # the generic kernels' envelope
 MAX_HEADS = 16
 MAX_DIM_HEAD = 128
@@ -91,8 +94,9 @@ def sums_width(heads: int, dim_head: int) -> int:
 
 def layer_norm_stats(x: torch.Tensor):
     """fp32 (mean, rstd) of each token of x (..., C) over its channels, as
-    ``ChannelLayerNorm(return_stats=True)``: biased variance, eps 1e-5."""
-    xf = x.float()
+    ``ChannelLayerNorm(return_stats=True)``: biased variance, eps 1e-5
+    (float64 for a float64 x)."""
+    xf = wide(x)
     mean = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, unbiased=False, keepdim=True)
     return mean, torch.rsqrt(var + LN_EPS)
@@ -112,9 +116,9 @@ def _projection(x, w, prenorm, dt):
     """x . W for a column slice W of w_qkv, with the pre-LayerNorm folded in:
     round(x . round(W)), or round((x . round(diag(g) W) - mean * (g W)) * rstd)."""
     if prenorm is None:
-        return torch.matmul(x.float(), w.to(dt).float()).to(dt)
+        return torch.matmul(wide(x), wide(w.to(dt))).to(dt)
     mean, rstd, g = _split_prenorm(x, prenorm)
-    a = torch.matmul(x.float(), (w * g[:, None]).to(dt).float())
+    a = torch.matmul(wide(x), wide((w * g[:, None]).to(dt)))
     return ((a - mean * (g @ w)) * rstd).to(dt)
 
 
@@ -125,13 +129,30 @@ def linear_attention_pass1_reference(x: torch.Tensor, w_qkv: torch.Tensor, heads
     s = sum_n ek, with ek = round(exp(clip(k, +-60)))."""
     B, N, C = x.shape
     hd = heads * dim_head
-    with torch.autocast(x.device.type, enabled=False):
+    with exact(x.device.type):
         k, v = _projection(x, w_qkv[:, hd:], prenorm, x.dtype).split(hd, dim=-1)
-        ek = torch.exp(k.float().clamp(-CLIP, CLIP)).to(x.dtype).float()
+        ek = wide(torch.exp(wide(k).clamp(-CLIP, CLIP)).to(x.dtype))
         ek = ek.reshape(B, N, heads, dim_head).transpose(1, 2)  # (B, h, N, d)
-        vh = v.float().reshape(B, N, heads, dim_head).transpose(1, 2)
-        E = torch.matmul(ek.transpose(-1, -2), vh)  # (B, h, d, e)
+        vh = wide(v).reshape(B, N, heads, dim_head).transpose(1, 2)
+        E = _token_products(ek, vh)  # (B, h, d, e)
         return torch.cat([E.reshape(B, -1), ek.sum(dim=2).reshape(B, hd)], dim=1)
+
+
+def _token_products(ek: torch.Tensor, vh: torch.Tensor) -> torch.Tensor:
+    """E = ek^T v over the tokens of (B, h, N, d) ek and (B, h, N, e) v, as
+    the sum of TOKEN_CHUNK-token partial products (zero tokens pad the last
+    one).  One fp32 chain over the 65536 tokens of the UNet's first level
+    ends about 5e-6 of E's largest value from the exact sum (cuBLAS on the
+    card, ``chip_smoke.py`` phase 12): half of the 1e-5 the kernels are held
+    to against this plain version."""
+    B, h, N, d = ek.shape
+    chunks = -(-N // TOKEN_CHUNK)
+    if chunks == 1:
+        return torch.matmul(ek.transpose(-1, -2), vh)
+    pad = chunks * TOKEN_CHUNK - N
+    ek = F.pad(ek, (0, 0, 0, pad)).reshape(B, h, chunks, TOKEN_CHUNK, d)
+    vh = F.pad(vh, (0, 0, 0, pad)).reshape(B, h, chunks, TOKEN_CHUNK, -1)
+    return torch.matmul(ek.transpose(-1, -2), vh).sum(dim=2)
 
 
 def linear_attention_pass2_reference(x: torch.Tensor, w_qkv: torch.Tensor, sums: torch.Tensor,
@@ -142,15 +163,15 @@ def linear_attention_pass2_reference(x: torch.Tensor, w_qkv: torch.Tensor, sums:
     round(round(eq_h . context_h) / round(sum_d eq_h)): (B, N, heads*dim_head)."""
     B, N, C = x.shape
     hd, dt = heads * dim_head, x.dtype
-    with torch.autocast(x.device.type, enabled=False):
+    with exact(x.device.type):
         E = sums[:, :heads * dim_head * dim_head].reshape(B, heads, dim_head, dim_head)
         s = sums[:, heads * dim_head * dim_head:].reshape(B, heads, dim_head, 1)
-        context = (E * (dim_head**-0.5) / (s * N)).to(dt).float()
+        context = wide((E * (dim_head**-0.5) / (s * N)).to(dt))
         q = _projection(x, w_qkv[:, :hd], prenorm, dt)
-        eq = torch.exp(q.float().clamp(-CLIP, CLIP)).to(dt).float()
+        eq = wide(torch.exp(wide(q).clamp(-CLIP, CLIP)).to(dt))
         eq = eq.reshape(B, N, heads, dim_head).transpose(1, 2)  # (B, h, N, d)
-        num = torch.matmul(eq, context).to(dt).float()
-        den = eq.sum(dim=-1, keepdim=True).to(dt).float()
+        num = wide(torch.matmul(eq, context).to(dt))
+        den = wide(eq.sum(dim=-1, keepdim=True).to(dt))
         return (num / den).to(dt).transpose(1, 2).reshape(B, N, hd)
 
 
@@ -159,7 +180,9 @@ def linear_attention_reference(x: torch.Tensor, w_qkv: torch.Tensor, heads: int 
     """Plain PyTorch version, step by step as ``blockdiag_linear_attention``
     (whose context is zero off the diagonal blocks): x (B, N, C), w_qkv
     (C, 3*heads*dim_head) fp32 -> (B, N, heads*dim_head) in x.dtype.
-    ``prenorm`` is ``(g,)`` or ``(mean, rstd, g)``.  Runs with autocast off."""
+    ``prenorm`` is ``(g,)`` or ``(mean, rstd, g)``.  Its products are IEEE
+    fp32 (float64 for float64 inputs) with autocast off, whatever the
+    process set (``ops/plain.py``)."""
     sums = linear_attention_pass1_reference(x, w_qkv, heads, dim_head, prenorm)
     return linear_attention_pass2_reference(x, w_qkv, sums, heads, dim_head, prenorm)
 

@@ -73,6 +73,7 @@ import torch.nn.functional as F
 
 from dmhomo_torch.ops.build import (CSRC, atomic_instructions, build_library, nvcc,
                                     tensor_core_instructions)
+from dmhomo_torch.ops.plain import exact, wide
 from dmhomo_torch.ops.window_attention import (
     HEAD_DIMS,
     MAX_HEAD_DIM,
@@ -127,13 +128,13 @@ def _ln_stats(xf: torch.Tensor):
 
 def _layer_norm(xf: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """fp32 LayerNorm over the last axis."""
-    return _ln_stats(xf)[0] * g.float() + b.float()
+    return _ln_stats(xf)[0] * wide(g) + wide(b)
 
 
 def _ln_backward(dn: torch.Tensor, xhat: torch.Tensor, rstd: torch.Tensor, g: torch.Tensor):
     """fp32 LayerNorm input gradient, and the gain and bias gradients summed
     over the tokens."""
-    dxh = dn * g.float()
+    dxh = dn * wide(g)
     m1 = dxh.mean(dim=-1, keepdim=True)
     m2 = (dxh * xhat).mean(dim=-1, keepdim=True)
     return (rstd * (dxh - m1 - xhat * m2), _tokens(dn * xhat).sum(0), _tokens(dn).sum(0))
@@ -159,7 +160,7 @@ def _unwindows(t: torch.Tensor, B: int, H: int, W: int, ws: int) -> torch.Tensor
 
 def _linear(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, dt) -> torch.Tensor:
     """fp32 a . round(W)^T + bias for an (out, in) weight."""
-    return torch.matmul(a.float(), w.to(dt).float().t()) + bias.float()
+    return torch.matmul(wide(a), wide(w.to(dt)).t()) + wide(bias)
 
 
 def swin_block_reference(x: torch.Tensor, params, mask: "torch.Tensor | None" = None, *,
@@ -168,24 +169,25 @@ def swin_block_reference(x: torch.Tensor, params, mask: "torch.Tensor | None" = 
     """Plain PyTorch version: x (B, H, W, C) -> (B, H, W, C) in x.dtype, step
     by step as the Pallas ``_fwd_kernel``.  ``params`` is ``(g1, b1, wq, bq,
     bias, wp, bp, g2, b2, w1, c1, w2, c2)``; mask (nW, N, N) of 0 / -100 or
-    None.  Runs with autocast off."""
+    None.  Its products are IEEE fp32 (float64 for float64 inputs) with
+    autocast off, whatever the process set (``ops/plain.py``)."""
     g1, b1, wq, bq, bias, wp, bp, g2, b2, w1, c1, w2, c2 = params
     dt = x.dtype
     B, H, W, C = x.shape
     ws = window_size
-    with torch.autocast(x.device.type, enabled=False):
+    with exact(x.device.type):
         if shift:
             x = torch.roll(x, shifts=(-shift, -shift), dims=(1, 2))
-        n1 = _layer_norm(x.float(), g1, b1).to(dt)
+        n1 = _layer_norm(wide(x), g1, b1).to(dt)
         qkv = _linear(n1, wq, bq, dt).to(dt)
         att = window_attention_reference(_windows(qkv, ws), bias, mask, num_heads=num_heads)
         att = _unwindows(att, B, H, W, ws)
         p = _linear(att, wp, bp, dt).to(dt)
-        h = (x.float() + p.float()).to(dt)
-        n2 = _layer_norm(h.float(), g2, b2).to(dt)
+        h = (wide(x) + wide(p)).to(dt)
+        n2 = _layer_norm(wide(h), g2, b2).to(dt)
         gm = F.gelu(_linear(n2, w1, c1, dt)).to(dt)
         m2 = _linear(gm, w2, c2, dt).to(dt)
-        y = (h.float() + m2.float()).to(dt)
+        y = (wide(h) + wide(m2)).to(dt)
         if shift:
             y = torch.roll(y, shifts=(shift, shift), dims=(1, 2))
     return y
@@ -204,48 +206,49 @@ def swin_block_backward_reference(x: torch.Tensor, params, mask: "torch.Tensor |
     . round(W1))`` stay fp32; the attention's input gradient is
     ``round(round(dh) . round(Wp))``, and its backward that of
     ``ops/window_attention.py``; ``dx = round(dh + LN1'(dqkv .
-    round(Wq)))``.  The mask gets no gradient.  Runs with autocast off."""
+    round(Wq)))``.  The mask gets no gradient.  Computes as
+    :func:`swin_block_reference`."""
     g1, b1, wq, bq, bias, wp, bp, g2, b2, w1, c1, w2, c2 = params
     dt = x.dtype
     B, H, W, C = x.shape
     ws = window_size
-    with torch.autocast(x.device.type, enabled=False):
+    with exact(x.device.type):
         if shift:
             x = torch.roll(x, shifts=(-shift, -shift), dims=(1, 2))
             dy = torch.roll(dy, shifts=(-shift, -shift), dims=(1, 2))
         # the forward, recomputed
-        xhat1, rstd1 = _ln_stats(x.float())
-        n1 = (xhat1 * g1.float() + b1.float()).to(dt)
+        xhat1, rstd1 = _ln_stats(wide(x))
+        n1 = (xhat1 * wide(g1) + wide(b1)).to(dt)
         qkv3 = _windows(_linear(n1, wq, bq, dt).to(dt), ws)
         ao = _unwindows(window_attention_reference(qkv3, bias, mask, num_heads=num_heads),
                         B, H, W, ws)
-        h = (x.float() + _linear(ao, wp, bp, dt).to(dt).float()).to(dt)
-        xhat2, rstd2 = _ln_stats(h.float())
-        n2 = (xhat2 * g2.float() + b2.float()).to(dt)
+        h = (wide(x) + wide(_linear(ao, wp, bp, dt).to(dt))).to(dt)
+        xhat2, rstd2 = _ln_stats(wide(h))
+        n2 = (xhat2 * wide(g2) + wide(b2)).to(dt)
         m1 = _linear(n2, w1, c1, dt)
         cdf = 0.5 * (1.0 + torch.erf(m1 * 0.5**0.5))
         gm = (m1 * cdf).to(dt)
         dgelu = cdf + m1 * torch.exp(-0.5 * m1 * m1) / math.sqrt(2.0 * math.pi)
         # y = h + round(gm . W2^T + c2); dy is in the I/O dtype already
-        dyf = dy.float()
-        dw2 = _tokens(dyf).t() @ _tokens(gm.float())
+        dyf = wide(dy)
+        dw2 = _tokens(dyf).t() @ _tokens(wide(gm))
         dc2 = _tokens(dyf).sum(0)
-        dm1 = (dyf @ w2.to(dt).float()) * dgelu
-        dw1 = _tokens(dm1).t() @ _tokens(n2.float())
+        dm1 = (dyf @ wide(w2.to(dt))) * dgelu
+        dw1 = _tokens(dm1).t() @ _tokens(wide(n2))
         dc1 = _tokens(dm1).sum(0)
-        dn2 = dm1.to(dt).float() @ w1.to(dt).float()
+        dn2 = wide(dm1.to(dt)) @ wide(w1.to(dt))
         dh_ln, dg2, db2 = _ln_backward(dn2, xhat2, rstd2, g2)
         dh = dyf + dh_ln
         # h = x + round(ao . Wp^T + bp)
-        dwp = _tokens(dh).t() @ _tokens(ao.float())
+        dwp = _tokens(dh).t() @ _tokens(wide(ao))
         dbp = _tokens(dh).sum(0)
-        dao = (dh.to(dt).float() @ wp.to(dt).float()).to(dt)
+        dao = (wide(dh.to(dt)) @ wide(wp.to(dt))).to(dt)
         dqkv3, dbias = window_attention_backward_reference(qkv3, bias, mask, _windows(dao, ws),
                                                            num_heads=num_heads)
-        dqkv = _unwindows(dqkv3, B, H, W, ws).float()
-        dwq = _tokens(dqkv).t() @ _tokens(n1.float())
+        dqkv = wide(_unwindows(dqkv3, B, H, W, ws))
+        dwq = _tokens(dqkv).t() @ _tokens(wide(n1))
         dbq = _tokens(dqkv).sum(0)
-        dx_ln, dg1, db1 = _ln_backward(dqkv @ wq.to(dt).float(), xhat1, rstd1, g1)
+        dx_ln, dg1, db1 = _ln_backward(dqkv @ wide(wq.to(dt)), xhat1, rstd1, g1)
         dx = (dh + dx_ln).to(dt)
         if shift:
             dx = torch.roll(dx, shifts=(shift, shift), dims=(1, 2))
@@ -268,32 +271,32 @@ def backward_window_reference(x: torch.Tensor, params, mask: "torch.Tensor | Non
     dt = x.dtype
     B, H, W, C = x.shape
     ws = window_size
-    with torch.autocast(x.device.type, enabled=False):
+    with exact(x.device.type):
         if shift:
             x = torch.roll(x, shifts=(-shift, -shift), dims=(1, 2))
             dy = torch.roll(dy, shifts=(-shift, -shift), dims=(1, 2))
-        xhat1, rstd1 = _ln_stats(x.float())
-        n1 = (xhat1 * g1.float() + b1.float()).to(dt)
+        xhat1, rstd1 = _ln_stats(wide(x))
+        n1 = (xhat1 * wide(g1) + wide(b1)).to(dt)
         qkv3 = _windows(_linear(n1, wq, bq, dt).to(dt), ws)
         ao = _unwindows(window_attention_reference(qkv3, bias, mask, num_heads=num_heads),
                         B, H, W, ws)
-        h = (x.float() + _linear(ao, wp, bp, dt).to(dt).float()).to(dt)
-        xhat2, rstd2 = _ln_stats(h.float())
-        n2 = (xhat2 * g2.float() + b2.float()).to(dt)
+        h = (wide(x) + wide(_linear(ao, wp, bp, dt).to(dt))).to(dt)
+        xhat2, rstd2 = _ln_stats(wide(h))
+        n2 = (xhat2 * wide(g2) + wide(b2)).to(dt)
         m1 = _linear(n2, w1, c1, dt)
         cdf = 0.5 * (1.0 + torch.erf(m1 * 0.5**0.5))
         gm = (m1 * cdf).to(dt)
         dgelu = cdf + m1 * torch.exp(-0.5 * m1 * m1) / math.sqrt(2.0 * math.pi)
-        dyf = dy.float()
-        dm1 = (dyf @ w2.to(dt).float()) * dgelu
-        dn2 = dm1.to(dt).float() @ w1.to(dt).float()
+        dyf = wide(dy)
+        dm1 = (dyf @ wide(w2.to(dt))) * dgelu
+        dn2 = wide(dm1.to(dt)) @ wide(w1.to(dt))
         dh_ln, dg2, db2 = _ln_backward(dn2, xhat2, rstd2, g2)
         dh = dyf + dh_ln
-        dao = (dh.to(dt).float() @ wp.to(dt).float()).to(dt)
+        dao = (wide(dh.to(dt)) @ wide(wp.to(dt))).to(dt)
         dqkv3, dbias = window_attention_backward_reference(qkv3, bias, mask, _windows(dao, ws),
                                                            num_heads=num_heads)
         dqkv = _unwindows(dqkv3, B, H, W, ws)
-        dx_ln, dg1, db1 = _ln_backward(dqkv.float() @ wq.to(dt).float(), xhat1, rstd1, g1)
+        dx_ln, dg1, db1 = _ln_backward(wide(dqkv) @ wide(wq.to(dt)), xhat1, rstd1, g1)
         dx = (dh + dx_ln).to(dt)
         if shift:
             dx = torch.roll(dx, shifts=(shift, shift), dims=(1, 2))
@@ -316,7 +319,7 @@ def weight_gradients_reference(operands: dict, split_tokens: "int | None" = None
     otherwise as the card does, over window-ordered tokens in ranges of
     ``split_tokens``, the ranges' partials added in order."""
     def rows(t):
-        t = t.float()
+        t = wide(t)
         return _tokens(t) if split_tokens is None else _tokens(_windows(t, WINDOW))
 
     def ranges(a, fn):
@@ -329,11 +332,12 @@ def weight_gradients_reference(operands: dict, split_tokens: "int | None" = None
         return out
 
     out = {}
-    for name, (left, right) in WEIGHT_PRODUCTS.items():
-        a, b = rows(operands[left]), rows(operands[right])
-        out[name] = ranges(a, lambda a, r: a[r].t() @ b[r])
-    for name, left in VECTOR_SUMS.items():
-        out[name] = ranges(rows(operands[left]), lambda a, r: a[r].sum(0))
+    with exact(operands["dy"].device.type):
+        for name, (left, right) in WEIGHT_PRODUCTS.items():
+            a, b = rows(operands[left]), rows(operands[right])
+            out[name] = ranges(a, lambda a, r: a[r].t() @ b[r])
+        for name, left in VECTOR_SUMS.items():
+            out[name] = ranges(rows(operands[left]), lambda a, r: a[r].sum(0))
     return out
 
 

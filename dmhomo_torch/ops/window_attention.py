@@ -45,6 +45,7 @@ import torch
 
 from dmhomo_torch.ops.build import CSRC, atomic_instructions, build_library
 from dmhomo_torch.ops.build import tensor_core_instructions as tensor_core_instructions_in
+from dmhomo_torch.ops.plain import exact, wide
 
 CLIP = 60.0
 WINDOW_TOKENS = 64  # 8x8 windows
@@ -86,13 +87,14 @@ def _tokens(t: torch.Tensor) -> torch.Tensor:
 
 
 def _logits(q, k, bias, mask):
-    """fp32 sim = q k^T + bias (+ mask[b % nW]) of (Bn, h, N, hd) q and k."""
+    """fp32 sim = q k^T + bias (+ mask[b % nW]) of (Bn, h, N, hd) q and k
+    (float64 for float64 inputs)."""
     Bn, h, N, _ = q.shape
-    sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) + bias.float()[None]
+    sim = torch.matmul(wide(q), wide(k).transpose(-1, -2)) + wide(bias)[None]
     if mask is not None:
         nW = mask.shape[0]
         sim = (sim.reshape(Bn // nW, nW, h, N, N)
-               + mask.float()[None, :, None]).reshape(Bn, h, N, N)
+               + wide(mask)[None, :, None]).reshape(Bn, h, N, N)
     return sim
 
 
@@ -110,13 +112,14 @@ def window_attention_reference(qkv: torch.Tensor, bias: torch.Tensor,
     """Plain PyTorch version: qkv (Bn, N, 3C) -> (Bn, N, C) in qkv.dtype.
 
     bias (h, N, N); mask (nW, N, N) of 0 / -100, window b takes row b % nW.
-    Runs with autocast off, so the caller's autocast does not change it.
+    Its products are IEEE fp32 (float64 for float64 inputs) with autocast
+    off, whatever the caller's process set (``ops/plain.py``).
     """
     dt = qkv.dtype
-    with torch.autocast(qkv.device.type, enabled=False):
+    with exact(qkv.device.type):
         q, k, v = _split_scaled(qkv, num_heads)
-        e = torch.exp(_logits(q, k, bias, mask).clamp(-CLIP, CLIP)).to(dt).float()
-        out = torch.matmul(e, v.float()) / e.sum(dim=-1, keepdim=True)
+        e = wide(torch.exp(_logits(q, k, bias, mask).clamp(-CLIP, CLIP)).to(dt))
+        out = torch.matmul(e, wide(v)) / e.sum(dim=-1, keepdim=True)
     return _tokens(out.to(dt))
 
 
@@ -125,7 +128,7 @@ def max_abs_logit(qkv: torch.Tensor, bias: torch.Tensor, *, num_heads: int) -> t
     (Bn, N, 3C), q scaled as the forward scales it, without the SW-MSA mask
     (its -100 entries are meant to clip): the plain logits, which the
     kernels never write out."""
-    with torch.autocast(qkv.device.type, enabled=False):
+    with exact(qkv.device.type):
         q, k, _ = _split_scaled(qkv, num_heads)
         return _logits(q, k, bias, None).abs().max()
 
@@ -135,7 +138,7 @@ def window_attention_backward_reference(qkv: torch.Tensor, bias: torch.Tensor,
                                         num_heads: int):
     """Plain PyTorch version of the backward: (dqkv (Bn, N, 3C) in qkv.dtype,
     dbias (h, N, N) fp32 summed over all windows), step by step as the
-    Pallas ``_bwd_kernel``.  Runs with autocast off.
+    Pallas ``_bwd_kernel``.  Computes as :func:`window_attention_reference`.
     """
     dqkv, dsim = _backward_terms(qkv, bias, mask, gout, num_heads)
     return dqkv, dsim.sum(dim=0)
@@ -145,20 +148,20 @@ def _backward_terms(qkv, bias, mask, gout, num_heads):
     """dqkv and the per-window dsim (Bn, h, N, N) fp32 of the plain backward."""
     dt = qkv.dtype
     hd = qkv.shape[-1] // 3 // num_heads
-    with torch.autocast(qkv.device.type, enabled=False):
+    with exact(qkv.device.type):
         q, k, v = _split_scaled(qkv, num_heads)  # q scaled in the I/O dtype
-        q32, k32, v32 = q.float(), k.float(), v.float()
+        q32, k32, v32 = wide(q), wide(k), wide(v)
         sim = _logits(q, k, bias, mask)
-        inrange = (sim.abs() < CLIP).float()
+        inrange = (sim.abs() < CLIP).to(sim.dtype)
         e32 = torch.exp(sim.clamp(-CLIP, CLIP))
-        e = e32.to(dt).float()
+        e = wide(e32.to(dt))
         s = e.sum(dim=-1)  # (Bn, h, N) fp32
         ctx = torch.matmul(e, v32)  # un-normalized out
-        gg = _heads(gout, num_heads).float() / s[..., None]
+        gg = wide(_heads(gout, num_heads)) / s[..., None]
         ds = -(gg * ctx).sum(dim=-1) / s  # dL/ds = -(gg . ctx) / s
-        gg_io = gg.to(dt).float()
+        gg_io = wide(gg.to(dt))
         de = torch.matmul(gg_io, v32.transpose(-1, -2)) + ds[..., None]
-        dsim = (e32 * de * inrange).to(dt).float()
+        dsim = wide((e32 * de * inrange).to(dt))
         dq = torch.matmul(dsim, k32) * hd**-0.5  # chain rule through the q scaling
         dk = torch.matmul(dsim.transpose(-1, -2), q32)
         dv = torch.matmul(e.transpose(-1, -2), gg_io)
